@@ -1,0 +1,8 @@
+"""Causal GQA flash attention, forward: the body of the attention-chain PTG
+(the port of the JAX package's Pallas ``flash_attention``)."""
+
+from .flash_attention import flash_attention
+from .ops import attention, task_attention
+from .ref import mha_ref
+
+__all__ = ["attention", "flash_attention", "mha_ref", "task_attention"]

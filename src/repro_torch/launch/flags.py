@@ -1,0 +1,15 @@
+"""Launch-time flags threaded to model internals via environment variables.
+
+The port's own copy of the readers in ``repro.launch.flags`` that its
+modules call. The JAX package's scan-unroll and remat flags steer
+``lax.scan`` and ``jax.checkpoint``, which the port does not use.
+"""
+
+import os
+
+
+def ssd_chunk():
+    """REPRO_SSD_CHUNK: the SSD scan's chunk length Q (None: the default
+    128)."""
+    v = os.environ.get("REPRO_SSD_CHUNK")
+    return int(v) if v else None

@@ -1,0 +1,127 @@
+"""Mamba-2 block (SSD): the full-sequence path through the SSD kernel
+(``kernels.ssd_scan``) and the O(1)-state decode step.
+
+Projection layout follows the Mamba-2 paper: one in-projection produces
+[z | x | B | C | dt]; a depthwise causal conv runs over [x | B | C]; the SSD
+scan mixes over time; gated RMSNorm and out-projection close the block.
+Parameters are a dict of tensors with the JAX package's names and shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import SSMConfig
+from ..kernels.ssd_scan.ops import ssd
+from ..launch.flags import ssd_chunk
+from .layers import rms_norm
+
+
+def mamba2_params_shapes(ssm: SSMConfig, d_model: int) -> dict:
+    di = ssm.d_inner(d_model)
+    nh = ssm.n_heads(d_model)
+    g, n = ssm.n_groups, ssm.d_state
+    conv_dim = di + 2 * g * n
+    return {
+        "w_in": (d_model, 2 * di + 2 * g * n + nh),  # z,x,B,C,dt
+        "conv_w": (ssm.d_conv, conv_dim),            # depthwise causal conv
+        "conv_b": (conv_dim,),
+        "a_log": (nh,),
+        "d_skip": (nh,),
+        "dt_bias": (nh,),
+        "norm_w": (di,),
+        "w_out": (di, d_model),
+    }
+
+
+def _split(proj: torch.Tensor, ssm: SSMConfig, d_model: int):
+    di = ssm.d_inner(d_model)
+    g, n = ssm.n_groups, ssm.d_state
+    nh = ssm.n_heads(d_model)
+    z, xbc, dt = proj.split([di, di + 2 * g * n, nh], dim=-1)
+    return z, xbc, dt, di, g, n, nh
+
+
+def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                   ssm: SSMConfig, d_model: int) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D] over the full sequence. The SSD runs as one
+    kernel launch on CUDA tensors; x, B and C reach it as strided views of
+    the convolved projection, with no copy."""
+    bsz, s, _ = x.shape
+    proj = x @ p["w_in"]
+    z, xbc, dt, di, g, n, nh = _split(proj, ssm, d_model)
+
+    # depthwise causal conv over the sequence, summed in the JAX package's
+    # order (in the compute dtype)
+    pad = F.pad(xbc, (0, 0, ssm.d_conv - 1, 0))
+    acc = pad[:, 0:s] * p["conv_w"][0]
+    for i in range(1, ssm.d_conv):
+        acc = acc + pad[:, i:i + s] * p["conv_w"][i]
+    xbc = F.silu(acc + p["conv_b"])
+
+    xs, b_mat, c_mat = xbc.split([di, g * n, g * n], dim=-1)
+    xs = xs.unflatten(-1, (nh, ssm.head_dim))
+    b_mat = b_mat.unflatten(-1, (g, n))
+    c_mat = c_mat.unflatten(-1, (g, n))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+
+    y = ssd(xs, dt.to(xs.dtype), a, b_mat, c_mat, p["d_skip"].float(),
+            q_chunk=ssd_chunk() or 128)
+    y = y.reshape(bsz, s, di)
+    y = rms_norm(y * F.silu(z), p["norm_w"])
+    return y @ p["w_out"]
+
+
+class Mamba2State(NamedTuple):
+    conv: torch.Tensor   # [B, d_conv-1, conv_dim]
+    ssm: torch.Tensor    # [B, nh, N, P] (f32)
+
+
+def mamba2_init_state(ssm: SSMConfig, d_model: int, batch: int,
+                      dtype=torch.bfloat16, device="cuda") -> Mamba2State:
+    di = ssm.d_inner(d_model)
+    g, n = ssm.n_groups, ssm.d_state
+    nh = ssm.n_heads(d_model)
+    conv_dim = di + 2 * g * n
+    return Mamba2State(
+        conv=torch.zeros((batch, ssm.d_conv - 1, conv_dim), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, nh, n, ssm.head_dim), dtype=torch.float32,
+                        device=device))
+
+
+def mamba2_step(x: torch.Tensor, state: Mamba2State,
+                p: Dict[str, torch.Tensor], ssm: SSMConfig, d_model: int
+                ) -> Tuple[torch.Tensor, Mamba2State]:
+    """Single-token decode: x [B, D] -> (y [B, D], new state). O(1) per
+    token; no kernel (a few small elementwise products)."""
+    bsz = x.shape[0]
+    proj = x @ p["w_in"]
+    z, xbc, dt, di, g, n, nh = _split(proj, ssm, d_model)
+
+    window = torch.cat([state.conv, xbc[:, None]], dim=1)
+    conv_out = (window * p["conv_w"][None]).sum(dim=1) + p["conv_b"][None]
+    xbc = F.silu(conv_out)
+    new_conv = window[:, 1:]
+
+    xs, b_mat, c_mat = xbc.split([di, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, nh, ssm.head_dim).float()
+    rep = nh // g
+    b_h = b_mat.reshape(bsz, g, n).float().repeat_interleave(rep, dim=1)
+    c_h = c_mat.reshape(bsz, g, n).float().repeat_interleave(rep, dim=1)
+    dt = F.softplus(dt.float() + p["dt_bias"][None].float())   # [B, nh]
+    a = -torch.exp(p["a_log"].float())                           # [nh]
+
+    decay = torch.exp(dt * a[None])                              # [B, nh]
+    xdt = xs * dt[..., None]
+    h_new = (decay[..., None, None] * state.ssm
+             + b_h[..., :, None] * xdt[..., None, :])            # [B,nh,N,P]
+    y = torch.einsum("bhn,bhnp->bhp", c_h, h_new)
+    y = y + xs * p["d_skip"].float()[None, :, None]
+    y = y.reshape(bsz, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"])
+    return y @ p["w_out"], Mamba2State(conv=new_conv, ssm=h_new)
