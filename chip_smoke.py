@@ -13,8 +13,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    ``src/repro_torch/kernels/_build/``);
 2. hold each kernel against its plain version on the card, in f32 and bf16,
    at the reference's test shapes and at the main paths' shapes: B1
-   block_gemm, B2 flash_attention (with yi-6b's prefill head layout) and B3
-   ssd_scan (with mamba2-1.3b's layer at prefill);
+   block_gemm, B2 flash_attention (with yi-6b's prefill head layout), B3
+   ssd_scan (with mamba2-1.3b's layer at prefill) and B4 decode_attention
+   (with yi-6b's decode layer over a 32 768-position cache);
 3. Cholesky, N = 16384 (32 x 32 blocks of 512, 2 x 2 shards, f32) through
    ``cholesky_executor(..., matmul=task_matmul)``: residual, agreement with
    the same executor on plain bodies, kernel launches, wall time;
@@ -28,10 +29,18 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    prompts of 2048 tokens (48 B3 launches) against the same step with the
    plain SSD; 16 greedy ``make_serve_step`` tokens from a fresh cache; and
    prefill logits of a 256-token prompt against 256 ``decode_step``s;
-7. time each kernel, its plain version and one PyTorch library call at the
+7. yi-6b serving at full width (32 layers, d_model 4096, GQA 32 over 4 KV
+   heads of 128, f32 weights from a seeded generator, bf16 compute):
+   prefill of 4 prompts of 2048 tokens (32 B2 launches) against the same
+   step with the plain attention; 16 greedy tokens at batch 8 from a fresh
+   cache, and 16 at batch 8 over a 32 768-position cache filled to 32 752
+   (32 B4 launches a step); gates in f32 compute (prefill kernel vs plain,
+   prefill(256) vs 256 decode steps, one long-cache decode step with B4 vs
+   ``decode_ref``);
+8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
-8. print the kernels ported, the card, a JSON line of per-kernel numbers
+9. print the kernels ported, the card, a JSON line of per-kernel numbers
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -60,6 +69,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gemm import (block_gemm,  # noqa: E402
                                             block_gemm_ref, task_matmul)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_ref, kernel_info as decode_kernel_info)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, mha_ref, task_attention)
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
@@ -70,6 +81,7 @@ from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
 from repro_torch.linalg.gemm import (assemble, gemm_2d_program,  # noqa: E402
                                      gemm_executor)
 from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.ptg import Graph  # noqa: E402
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
@@ -128,6 +140,13 @@ def check(ok: bool, what: str) -> None:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over the leading axes of max|got - want| / max|want| within
+    the last axis: each row is held to its own size, with no floor."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -201,7 +220,7 @@ def leaves(tree):
 
 def reset_launches() -> None:
     """Zero every kernel's launch counter, just before a main-path run."""
-    for kernel in (block_gemm, flash_attention, ssd_scan):
+    for kernel in (block_gemm, flash_attention, ssd_scan, decode_attention):
         kernel.launches = 0
 
 
@@ -216,7 +235,8 @@ def card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build("block_gemm", "flash_attention", "ssd_scan")
+    built = _build.build("block_gemm", "flash_attention", "ssd_scan",
+                         "decode_attention")
     log(f"[build] nvcc {built or 'nothing to build'}; "
         f"{time.perf_counter() - t0:.2f} s in all")
 
@@ -347,6 +367,74 @@ def phase_ssd_vs_plain(dev) -> None:
         "max|plain|); f32 2e-4 is the reference's (exp of cumulative sums, "
         "chunk products in another order); bf16 2e-2 (same bf16 operands, "
         "f32 math, y rounded once on both sides)")
+
+
+def decode_operands(gen, dev, dtype, b, hq, hkv, s, d):
+    return (torch.randn((b, hq, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype))
+
+
+# yi-6b's decode layer over the long cache: batch 8 (decode_32k's 128 cut
+# for one card), 32 q heads over 4 KV heads of 128, 32 768 positions, and
+# ragged lengths from full to one.
+DECODE_CELL = (8, 32, 4, 32768, 128)
+DECODE_CELL_LEN = (32768, 32751, 17000, 1, 4096, 65, 64, 30000)
+# B4 is also held to a tolerance per (batch, q head) row, normalised by that
+# row's own max|plain|: a row over 32k positions averages values of either
+# sign to ~0.02, a row of kv_len 1 is v[0] (~3), so one scale for the whole
+# output would let a long row be wrong by more than its size. Measured on
+# the CPU by scripts/torch_decode_rounding.py at this layer: split-cache f32
+# partials merged as B4 merges them differ from decode_ref by up to 7.4e-6
+# of a row in f32 (1e-4 is ~14x that) and 3.3e-3 in bf16 (one bf16
+# rounding of the result; 2e-2 is the reference's bf16 tolerance).
+DECODE_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def phase_decode_vs_plain(dev) -> None:
+    """B4 against ``decode_ref`` at the reference's test shapes
+    (``tests/test_kernels.py:114-140``, its ragged lengths included), a
+    ragged S, a cache with replicated KV heads (``kv_head_pad`` 2) and
+    yi-6b's decode layer over a 32 768-position cache, f32 and bf16."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = [((2, 8, 2, 256, 64), None), ((1, 4, 4, 512, 128), None),
+             ((4, 16, 1, 128, 64), None), ((3, 4, 2, 256, 64), (256, 100, 17)),
+             ((2, 8, 2, 200, 64), (200, 77)),
+             ((2, 8, 4, 333, 128), (333, 45)),      # 2 KV heads, pad 2
+             (DECODE_CELL, DECODE_CELL_LEN)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, hq, hkv, s, d), lens in cases:
+            q, k, v = decode_operands(gen, dev, dtype, b, hq, hkv, s, d)
+            if hkv == 4 and hq == 8:                 # replicated heads
+                k, v = (t[:, ::2].repeat_interleave(2, dim=1) for t in (k, v))
+            kv_len = (None if lens is None else
+                      torch.tensor(lens, dtype=torch.int32, device=dev))
+            got = decode_attention(q, k, v, kv_len)
+            want = decode_ref(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            name = f"q[{b},{hq},{d}] kv[{b},{hkv},{s},{d}]" + (
+                "" if lens is None else f" kv_len{list(lens)[:4]}")
+            check(got.shape == want.shape and got.dtype == dtype,
+                  f"decode_attention {name}: shape/dtype")
+            err, row = rel_err(got, want), row_err(got, want)
+            log(f"[kernel] decode_attention {name:<58} {str(dtype)[6:]:<9} "
+                f"max err {err:.3e} (tol {TOL[dtype]:.0e}), per row "
+                f"{row:.3e} (tol {DECODE_ROW_TOL[dtype]:.0e})")
+            check(math.isfinite(err) and err <= TOL[dtype],
+                  f"decode_attention {name} {dtype}: err {err}")
+            check(math.isfinite(row) and row <= DECODE_ROW_TOL[dtype],
+                  f"decode_attention {name} {dtype}: per-row err {row}")
+            del q, k, v, got, want
+    log("[kernel] decode_attention tolerance: as block_gemm's (the "
+        "reference's 2e-5 / 2e-2; f32 sums and the partials' merge in "
+        "another order; one bf16 rounding of an f32 result); per (batch, "
+        "q head) row, max|kernel - plain| / max|plain| of the row, 1e-4 / "
+        "2e-2 (scripts/torch_decode_rounding.py)")
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks, regs, spill = decode_kernel_info(dtype, 128, True, 0)
+        log(f"[kernel] decode_attention partials kernel, {str(dtype)[6:]} "
+            f"D<=128 16-byte loads: {blocks} resident blocks per SM, {regs} "
+            f"registers and {spill} spill bytes per thread (CUDA runtime)")
 
 
 def phase_cholesky(dev, nb=32, pr=2, pc=2, b=512) -> dict:
@@ -561,26 +649,27 @@ def compare(got, want):
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def prefill_vs_decode(cfg, params, prompt, dev):
+def prefill_vs_decode(cfg, params, prompt, dev, dtype=torch.bfloat16):
     """Logits of prefill over ``prompt`` against those after feeding it
-    token by token through ``decode_step``."""
+    token by token through ``decode_step`` (a ``dtype`` cache)."""
     want = make_prefill_step(cfg)(params, {"tokens": prompt})
-    cache = tfm.init_cache(cfg, prompt.shape[0], prompt.shape[1],
+    cache = tfm.init_cache(cfg, prompt.shape[0], prompt.shape[1], dtype=dtype,
                            device=dev)
     for t in range(prompt.shape[1]):
         logits, cache = tfm.decode_step(cfg, params, prompt[:, t], cache)
     return compare(logits, want)
 
 
-def profile_prefill(step, params, batch) -> None:
-    """One prefill under ``torch.profiler``: device time by kernel (top 8)
-    and the device's busy share of the wall time (kernels run on one
-    stream, so their times add)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def profile(label: str, fn) -> float:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    (top 8) and the device's busy share of the wall time (kernels run on one
+    stream, so their times add). Returns the busy share (NaN when the
+    profiler recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile as trace
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        step(params, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t1)
     kernels = [e for e in prof.key_averages()
@@ -588,16 +677,37 @@ def profile_prefill(step, params, batch) -> None:
                and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        log("[profile] the profiler recorded no device time; device busy "
-            "share not measured")
-        return
-    log(f"[profile] prefill under the profiler: wall {wall_us / 1e3:.1f} ms, "
+        log(f"[profile] {label}: the profiler recorded no device time; "
+            "device busy share not measured")
+        return float("nan")
+    log(f"[profile] {label} under the profiler: wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of "
-        f"wall), {sum(e.count for e in kernels)} kernel launches")
+        f"wall, idle share {1 - busy_us / wall_us:.3f}), "
+        f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<5} "
             f"{e.key[:90]}")
+    return busy_us / wall_us
+
+
+def serve_tokens(cfg, params, tok, cache, n: int):
+    """``n`` greedy serve steps: (tokens [B, n], last logits, cache,
+    seconds on the host clock, ending in a synchronise)."""
+    serve = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for _ in range(n):
+        tok, logits, cache = serve(params, tok, cache)
+        out.append(tok)
+    sample = torch.stack(out, 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    check(sample.shape == (tok.shape[0], n) and bool(
+        ((sample >= 0) & (sample < cfg.vocab_size)).all())
+        and bool(torch.isfinite(logits).all()), "serve: bad tokens")
+    return sample, logits, cache, seconds
 
 
 def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
@@ -628,7 +738,7 @@ def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
             f"{launches}")
         check(launches == cfg.n_layers,
               f"prefill: ssd_scan launches {launches} != {cfg.n_layers}")
-        profile_prefill(step, params, {"tokens": toks})
+        profile("prefill", lambda: step(params, {"tokens": toks}))
         check(tuple(logits.shape) == (batch, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} not finite/shaped")
@@ -647,18 +757,8 @@ def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
         cache = tfm.init_cache(cfg, batch, prompt, device=dev)
         tok = torch.ones((batch,), dtype=torch.int64, device=dev)
         tok, _, cache = serve(params, tok, cache)    # warm-up, as the launcher
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = []
-        for _ in range(tokens):
-            tok, logits, cache = serve(params, tok, cache)
-            out.append(tok)
-        sample = torch.stack(out, 1)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t1
-        check(sample.shape == (batch, tokens) and bool(
-            ((sample >= 0) & (sample < cfg.vocab_size)).all())
-            and bool(torch.isfinite(logits).all()), "serve: bad tokens")
+        sample, _, cache, serve_s = serve_tokens(cfg, params, tok, cache,
+                                                 tokens)
         log(f"[mamba2] serve: {tokens} greedy tokens x batch {batch}: "
             f"{batch * tokens / serve_s:.1f} tok/s ({1e3 * serve_s / tokens:.2f}"
             f" ms per step; the decode step runs no kernel of the port); "
@@ -690,6 +790,199 @@ def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
             "serve_tok_s": batch * tokens / serve_s,
             "shape": [batch, prompt, cfg.ssm.n_heads(cfg.d_model),
                       cfg.ssm.head_dim, cfg.ssm.n_groups, cfg.ssm.d_state]}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through the plain versions (``chunked_attention``
+    for prefill, ``decode_ref`` for decode), for the comparison with B2 and
+    B4."""
+    kernels = tfm.prefill_attention, tfm.decode_attention_host
+    tfm.prefill_attention, tfm.decode_attention_host = (chunked_attention,
+                                                        decode_ref)
+    try:
+        yield
+    finally:
+        tfm.prefill_attention, tfm.decode_attention_host = kernels
+
+
+# The yi-6b model checks, as max|diff| / max|reference logits|. The
+# random-weight dense model hardly amplifies roundings: on the CPU, 32 layers
+# of d_model 256 with yi-6b's GQA group of 8 and the plain versions only
+# (``scripts/torch_dense_rounding.py``), attention in chunks against one
+# block differs by 1.3e-6 in f32, prefill against decode by 1.1e-6 and a
+# split-cache decode step against ``decode_ref`` by 9.9e-7; in bf16 by
+# 1.6e-2 and 1.5e-2. The gates run f32 compute and hold the kernels' path
+# to DENSE_TOL: ~80x the CPU gaps, room for full width's sums over 16x more
+# terms (~4x the rounding), while a wrong layer gives differences of order
+# 1. The bf16 comparisons are reported.
+DENSE_TOL = 1e-4
+
+
+def fill_cache(cache, upto: int, seed: int):
+    """Seeded normal values in every layer's K and V at positions [0,
+    upto): the cache after ``upto`` decoded tokens."""
+    k_all, v_all = cache.layers["dense"]
+    gen = torch.Generator(device=k_all.device).manual_seed(seed)
+    for t in (k_all, v_all):
+        for i in range(t.shape[0]):
+            t[i, :, :, :upto].normal_(generator=gen)
+    return cache._replace(pos=upto)
+
+
+def long_step_vs_plain(cfg, params, batch: int, s: int, dev, seed=15):
+    """Logits of one decode step at position s - 16 over a cache of s
+    positions filled with seeded values, with B4 against ``decode_ref``;
+    the cache is filled anew from the seed for each (a step writes it)."""
+    dtype = tfm.dtype_of(cfg.compute_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                        device=dev)
+    out = []
+    for plain in (False, True):
+        cache = fill_cache(tfm.init_cache(cfg, batch, s, dtype=dtype,
+                                          device=dev), s - 16, seed)
+        reset_launches()
+        with plain_attention() if plain else contextlib.nullcontext():
+            logits, _ = tfm.decode_step(cfg, params, tok, cache)
+        torch.cuda.synchronize()
+        check(decode_attention.launches == (0 if plain else cfg.n_layers),
+              f"long-cache step: decode_attention launches "
+              f"{decode_attention.launches}")
+        out.append(logits)
+        del cache
+        torch.cuda.empty_cache()
+    return compare(*out)
+
+
+def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
+                long_seq=32768, check_len=256, gate_batch=2) -> dict:
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    log(f"[dense] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_par / 1e9:.3f} B params, {4 * n_par / 1e9:.2f} GB f32, compute "
+        f"{cfg.compute_dtype}; init {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+    with torch.inference_mode():
+        step(params, {"tokens": toks[:, :256]})     # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        b2 = flash_attention.launches
+        log(f"[dense] prefill {batch} x {prompt} tokens: {1e3 * prefill_s:.1f}"
+            f" ms, {batch * prompt / prefill_s:.0f} tok/s; flash_attention "
+            f"launches {b2}")
+        check(b2 == cfg.n_layers,
+              f"prefill: flash_attention launches {b2} != {cfg.n_layers}")
+        check(tuple(logits.shape) == (batch, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} not finite/shaped")
+        prefill_busy = profile("yi-6b prefill",
+                               lambda: step(params, {"tokens": toks}))
+        with plain_attention():
+            t1 = time.perf_counter()
+            want = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+        err, agree = compare(logits, want)
+        log(f"[dense] plain-attention prefill {1e3 * plain_s:.1f} ms; bf16 "
+            f"logits kernel vs plain: {err:.3e}, argmax agreement "
+            f"{agree:.2f} (reported; gated in f32 below)")
+        del logits, want
+        torch.cuda.empty_cache()
+
+        # from a fresh cache, as the launcher does (its max_seq 512)
+        cache = tfm.init_cache(cfg, serve_batch, 512, device=dev)
+        tok = torch.ones((serve_batch,), dtype=torch.int64, device=dev)
+        tok, _, cache = serve(params, tok, cache)    # warm-up
+        reset_launches()
+        sample, _, cache, fresh_s = serve_tokens(cfg, params, tok, cache,
+                                                 tokens)
+        b4 = decode_attention.launches
+        log(f"[dense] serve from a fresh cache: {tokens} greedy tokens x batch "
+            f"{serve_batch}: {serve_batch * tokens / fresh_s:.1f} tok/s "
+            f"({1e3 * fresh_s / tokens:.2f} ms per step); decode_attention "
+            f"launches {b4}; sample {sample[0].tolist()}")
+        check(b4 == cfg.n_layers * tokens,
+              f"fresh serve: decode_attention launches {b4}")
+        del cache
+
+        # over a long cache: filled to long_seq - tokens - 2, one warm-up
+        # and one profiled step, then ``tokens`` timed steps to long_seq
+        cache = fill_cache(tfm.init_cache(cfg, serve_batch, long_seq,
+                                          device=dev),
+                           long_seq - tokens - 2, seed=14)
+        tok, _, cache = serve(params, sample[:, -1], cache)     # warm-up
+        last = {}
+        decode_busy = profile(
+            f"yi-6b decode step at position {cache.pos} of {long_seq}",
+            lambda: last.update(out=serve(params, tok, cache)))
+        tok, _, cache = last.pop("out")
+        reset_launches()
+        sample, _, cache, long_s = serve_tokens(cfg, params, tok, cache,
+                                                tokens)
+        b4_long = decode_attention.launches
+        log(f"[dense] serve over a {long_seq}-position cache (positions "
+            f"{long_seq - tokens}..{long_seq - 1}): {tokens} greedy tokens x "
+            f"batch {serve_batch}: {1e3 * long_s / tokens:.2f} ms per step, "
+            f"{serve_batch * tokens / long_s:.1f} tok/s; decode_attention "
+            f"launches {b4_long} ({b4_long // tokens} a step); sample "
+            f"{sample[0].tolist()}")
+        check(cache.pos == long_seq and b4_long == cfg.n_layers * tokens,
+              f"long serve: pos {cache.pos}, launches {b4_long}")
+        del cache
+        torch.cuda.empty_cache()
+        err, agree = long_step_vs_plain(cfg, params, serve_batch, long_seq,
+                                        dev)
+        log(f"[dense] bf16 decode step at position {long_seq - 16} of "
+            f"{long_seq}, batch {serve_batch}, B4 vs decode_ref: {err:.3e}, "
+            f"argmax agreement {agree:.2f} (reported)")
+        err, agree = prefill_vs_decode(cfg, params, toks[:, :check_len], dev)
+        log(f"[dense] bf16 prefill({check_len}) vs {check_len} decode_steps: "
+            f"{err:.3e}, argmax agreement {agree:.2f} (reported)")
+
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        step32 = make_prefill_step(f32)
+        reset_launches()
+        logits = step32(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        check(flash_attention.launches == cfg.n_layers, "f32 prefill: launches")
+        with plain_attention():
+            want = step32(params, {"tokens": toks})
+        err, agree = compare(logits, want)
+        log(f"[dense] f32 prefill {batch} x {prompt}, B2 vs plain attention: "
+            f"{err:.3e} (tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f}")
+        check(err <= DENSE_TOL, f"f32 prefill kernel vs plain: {err}")
+        del logits, want
+        torch.cuda.empty_cache()
+        err, agree = prefill_vs_decode(f32, params, toks[:, :check_len], dev,
+                                       dtype=torch.float32)
+        log(f"[dense] f32 prefill({check_len}) vs {check_len} decode_steps: "
+            f"{err:.3e} (tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f}")
+        check(err <= DENSE_TOL, f"f32 prefill vs decode: {err}")
+        err, agree = long_step_vs_plain(f32, params, gate_batch, long_seq,
+                                        dev)
+        log(f"[dense] f32 decode step at position {long_seq - 16} of "
+            f"{long_seq}, batch {gate_batch}, B4 vs decode_ref: {err:.3e} "
+            f"(tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f}")
+        check(err <= DENSE_TOL, f"f32 long-cache step B4 vs plain: {err}")
+    del params
+    return {"b2_launches": b2, "b4_launches": b4_long,
+            "b4_per_step": b4_long // tokens, "prefill_ms": 1e3 * prefill_s,
+            "prefill_busy": prefill_busy, "decode_busy": decode_busy,
+            "long_ms": 1e3 * long_s / tokens}
 
 
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
@@ -793,6 +1086,46 @@ def phase_time_ssd(dev, shape) -> dict:
             "shape": list(shape)}
 
 
+def phase_time_decode(dev) -> dict:
+    """B4 at yi-6b's decode layer over the long cache (q [8, 32, 128], K/V
+    [8, 4, 32768, 128], bf16, every position live): the kernel, its plain
+    version and ``scaled_dot_product_attention`` with the length mask
+    (timed only)."""
+    b, hq, hkv, s, d = DECODE_CELL
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = decode_operands(gen, dev, torch.bfloat16, b, hq, hkv, s, d)
+    kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_ref(q, k, v, kv_len)
+    err = float((got.float() - want.float()).abs().max())
+    row = row_err(got, want)
+    log(f"[time] decode_attention all-live cell: per-row err {row:.3e} (tol "
+        f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
+    check(math.isfinite(row) and row <= DECODE_ROW_TOL[torch.bfloat16],
+          f"decode_attention all-live cell: per-row err {row}")
+    del want
+    reps = 20
+    kernel = cuda_ms(lambda: decode_attention(q, k, v, kv_len), reps)
+    plain = cuda_ms(lambda: decode_ref(q, k, v, kv_len), 3)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps)
+    kernel2 = cuda_ms(lambda: decode_attention(q, k, v, kv_len), reps)
+    live = int(kv_len.sum())      # cache positions read, over the batch
+    nbytes = q.element_size() * (2 * q.numel() + 2 * hkv * d * live)
+    bnd, bound_by = bound(nbytes, 4.0 * d * hq * live, torch.bfloat16)
+    log(f"[time] decode_attention yi-6b decode layer q[{b},{hq},{d}] "
+        f"kv[{b},{hkv},{s},{d}] bf16: kernel {kernel:.3f} / {kernel2:.3f} "
+        f"ms, plain {plain:.3f} ms, sdpa {library:.3f} ms, bound {bnd:.3f} "
+        f"ms ({bound_by}); kernel {1e-6 * nbytes / min(kernel, kernel2):.0f} "
+        f"GB/s")
+    return {"ms": min(kernel, kernel2), "plain_ms": plain,
+            "library_ms": library, "bound_ms": bnd, "bound_by": bound_by,
+            "max_abs_err": err, "shape": [[b, hq, d], [b, hkv, s, d],
+                                          "bfloat16"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -808,6 +1141,7 @@ def main() -> int:
     phase_kernel_vs_plain(dev)
     phase_attention_vs_plain(dev)
     phase_ssd_vs_plain(dev)
+    phase_decode_vs_plain(dev)
     torch.cuda.empty_cache()
     chol = phase_cholesky(dev)
     torch.cuda.empty_cache()
@@ -817,9 +1151,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = phase_mamba2(dev)
     torch.cuda.empty_cache()
+    dense = phase_dense(dev)
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
+    decode_time = phase_time_decode(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; GEMM main "
         f"path launches {gemm['launches']}")
@@ -828,7 +1165,9 @@ def main() -> int:
             ("flash_attention", "flash_attention/flash_attention.py:76",
              chain["launches"], attn_times["chain task"]),
             ("ssd_scan", "ssd_scan/ssd_scan.py:68", model["launches"],
-             ssd_time)]
+             ssd_time),
+            ("decode_attention", "decode_attention/decode_attention.py:65",
+             dense["b4_per_step"], decode_time)]
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{

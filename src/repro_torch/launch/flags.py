@@ -13,3 +13,10 @@ def ssd_chunk():
     128)."""
     v = os.environ.get("REPRO_SSD_CHUNK")
     return int(v) if v else None
+
+
+def attn_chunk():
+    """REPRO_ATTN_CHUNK: the KV chunk of ``chunked_attention`` (None: the
+    default 1024)."""
+    v = os.environ.get("REPRO_ATTN_CHUNK")
+    return int(v) if v else None

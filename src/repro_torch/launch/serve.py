@@ -1,13 +1,15 @@
 """Serving launcher: seeded weights on one device and a batched greedy
 decode loop.
 
-    python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 4 \
+    python -m repro_torch.launch.serve --arch yi-6b --batch 8 \
         --tokens 16 [--reduced] [--device cpu]
 
 The JAX package's decode loop (``repro.launch.serve``) without its mesh:
-one warm-up step, then ``--tokens`` timed steps from a fresh cache; prints
-tok/s and the first sequence's tokens. Runs on ``cuda`` unless ``--device
-cpu``. The ssm family (mamba2-1.3b) runs so far.
+one warm-up step, then ``--tokens`` timed steps from a fresh cache of
+``--max-seq`` positions (bf16, donated to each step); prints tok/s and the
+first sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. The
+dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b) and ssm (mamba2-1.3b)
+families run so far.
 """
 
 import argparse

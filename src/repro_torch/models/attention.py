@@ -1,0 +1,112 @@
+"""Attention of the GQA families: the prefill and decode dispatch, and the
+plain chunked attention (PyTorch).
+
+The port of ``repro.models.attention`` (GQA; MLA is ROADMAP item A10).
+Where the JAX package runs its jnp versions everywhere off the TPU, the
+port sends CUDA tensors to its hand-written kernels and CPU tensors to the
+plain versions:
+
+- prefill: B2 ``flash_attention`` on CUDA, ``chunked_attention`` (the
+  reference's online softmax over KV chunks) on the CPU;
+- decode: B4 ``decode_attention`` on CUDA, ``decode_ref`` on the CPU.
+
+Neither falls back on CUDA tensors: the kernels launch or raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels.decode_attention import ops as decode_ops
+from ..kernels.flash_attention import ops as flash_ops
+from ..launch.flags import attn_chunk
+
+NEG_INF = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, chunk: int = 1024,
+                      window: int = 0) -> torch.Tensor:
+    """q [B,Hq,Lq,D], k/v [B,Hkv,Lk,D] -> [B,Hq,Lq,D]; never materialises
+    more than [*, Lq, chunk] scores. ``REPRO_ATTN_CHUNK`` overrides
+    ``chunk``; Lk must be a multiple of it when longer."""
+    chunk = attn_chunk() or chunk
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = hq // hkv
+    scale = dh ** -0.5
+    if lk <= chunk:
+        return _attn_block(q, k, v, causal, window, scale, group)
+
+    n_chunks = lk // chunk
+    assert lk % chunk == 0, (lk, chunk)
+    qf = q.float()
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    m = torch.full((b, hq, lq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, lq, 1), device=q.device)
+    acc = torch.zeros((b, hq, lq, dv), device=q.device)
+    for ci in range(n_chunks):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        kx = k[:, :, sl].repeat_interleave(group, dim=1).float()
+        vx = v[:, :, sl].repeat_interleave(group, dim=1).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kx) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
+        mask = torch.ones((lq, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vx)
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def _attn_block(q, k, v, causal, window, scale, group):
+    lq, lk = q.shape[2], k.shape[2]
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-sequence GQA attention of ``_gqa_full``: B2 on CUDA tensors
+    (read through their strides, no copies), ``chunked_attention`` on CPU
+    tensors."""
+    if q.device.type != "cuda":
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    if window:
+        raise NotImplementedError(
+            "prefill_attention: the flash attention kernel has no sliding "
+            "window; only the hybrid family passes one (ROADMAP item A10)")
+    return flash_ops.attention(q, k, v, causal=causal)
+
+
+def decode_attention_host(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Single-token decode against a cache: B4 on CUDA tensors,
+    ``decode_ref`` on CPU tensors (``decode_ops.decode``, the kernel's
+    wrapper, picks by device). kv_len >= 1."""
+    return decode_ops.decode(q, k, v, kv_len)
+
+
+__all__ = ["chunked_attention", "decode_attention_host", "prefill_attention"]

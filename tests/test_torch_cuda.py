@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels (B1
-block_gemm, B2 flash_attention, B3 ssd_scan) against their plain versions on
-the card, the block executor on the card with B1 and B2 bodies, and one
-mamba2 block through B3.
+block_gemm, B2 flash_attention, B3 ssd_scan, B4 decode_attention) against
+their plain versions on the card, the block executor on the card with B1
+and B2 bodies, one mamba2 block through B3, and the reduced yi-6b through
+B2 (prefill) and B4 (decode).
 They skip with a reason where there is no GPU. This file imports nothing of
 JAX, so it also runs where JAX is not installed:
 
@@ -15,12 +16,16 @@ from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_ref,
                                             task_matmul)
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_ref, kernel_info)
+from repro_torch.kernels.decode_attention.decode_attention import split_plan
 from repro_torch.kernels.flash_attention import (flash_attention, mha_ref,
                                                  task_attention)
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref, ssd_ref,
                                           ssd_scan)
 from repro_torch.linalg.cholesky import (assemble_lower, cholesky_executor,
                                          cholesky_program, make_spd_blocks)
+from repro_torch.models import transformer as tfm
 from repro_torch.models.mamba2 import mamba2_forward
 from repro_torch.models.transformer import init_params
 from repro_torch.ptg import Graph
@@ -270,3 +275,159 @@ def test_mamba2_block_runs_the_ssd_kernel(cuda):
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert _rel(got.cpu(), want) <= TOL_SSD[torch.float32]
+
+
+# ------------------------------------------------------ decode attention (B4)
+
+# B4 per (batch, q head) row against the row's own size, as chip_smoke.py
+# holds it (scripts/torch_decode_rounding.py measures the rounding).
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _row_rel(got, want):
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1)).max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,ragged", [
+    (2, 8, 2, 256, 64, False), (1, 4, 4, 512, 128, False),
+    (4, 16, 1, 128, 64, False),                 # tests/test_kernels.py
+    (3, 4, 2, 256, 64, True), (2, 8, 2, 200, 64, True),   # ragged S
+    (2, 12, 2, 300, 80, True), (1, 40, 8, 1000, 128, True),
+    (2, 24, 2, 513, 128, True), (1, 1, 1, 1, 8, False),
+    (2, 4, 4, 70, 20, True), (8, 32, 4, 4096, 128, True),  # yi-6b's layer
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_matches_plain(cuda, dtype, b, hq, hkv, s, d,
+                                        ragged):
+    gen = torch.Generator(device=cuda).manual_seed(s * 3 + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kv_len = None
+    if ragged:
+        kv_len = torch.randint(1, s + 1, (b,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+        kv_len[0] = s
+        kv_len[-1] = 1 if b > 1 else kv_len[-1]
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel(got, want) <= TOL[dtype]
+    assert _row_rel(got, want) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_plans_one_wave_of_resident_blocks(cuda, dtype):
+    blocks, regs, spill = kernel_info(dtype, 128, True, cuda.index or 0)
+    assert 1 <= blocks <= 3 and regs > 0 and spill >= 0   # ~73 KB of smem
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, n_split = split_plan(32768, 32, sms * blocks)  # yi-6b, batch 8
+    assert 32 * n_split <= sms * blocks < 2 * 32 * n_split
+
+
+def test_decode_attention_reference_ragged_lengths(cuda):
+    """``tests/test_kernels.py``'s ragged case: kv_len [256, 100, 17]."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((3, 4, 64), (3, 2, 256, 64), (3, 2, 256, 64)))
+    kv_len = torch.tensor([256, 100, 17], dtype=torch.int32, device=cuda)
+    assert _rel(decode_attention(q, k, v, kv_len),
+                decode_ref(q, k, v, kv_len)) <= TOL[torch.float32]
+    # kv_len past S reads as S; int64 lengths are taken
+    past = torch.tensor([900, 100, 17], device=cuda)
+    assert torch.equal(decode_attention(q, k, v, past),
+                       decode_attention(q, k, v, kv_len))
+
+
+def test_decode_attention_reads_a_cache_with_replicated_heads(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((2, 8, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 2, 333, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    kv_len = torch.tensor([333, 45], dtype=torch.int32, device=cuda)
+    kp, vp = (t.repeat_interleave(2, dim=1) for t in (k, v))
+    got = decode_attention(q, kp, vp, kv_len)
+    assert _rel(got, decode_ref(q, kp, vp, kv_len)) <= TOL[torch.float32]
+    assert _rel(got, decode_ref(q, k, v, kv_len)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_reads_strided_views(cuda, dtype):
+    """A cache window (16-byte rows, the vector loads) and views whose head
+    dim is not contiguous (element loads), with a strided q."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.randn((2, 3, 500, 64), generator=gen, device=cuda).to(dtype)
+    k, v = big[:, :2, 100:400], big[:, 1:, 50:350]
+    q = torch.randn((2, 4, 96), generator=gen, device=cuda).to(dtype)[..., :64]
+    kv_len = torch.tensor([300, 77], dtype=torch.int32, device=cuda)
+    assert not k.is_contiguous() and not q.is_contiguous()
+    assert _rel(decode_attention(q, k, v, kv_len),
+                decode_ref(q, k, v, kv_len)) <= TOL[dtype]
+    kt = torch.randn((2, 2, 64, 300), generator=gen,
+                     device=cuda).to(dtype).transpose(2, 3)
+    assert kt.stride(3) != 1
+    assert _rel(decode_attention(q, kt, v, kv_len),
+                decode_ref(q, kt, v, kv_len)) <= TOL[dtype]
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((2, 4, 64), device=cuda)
+    k = torch.zeros((2, 2, 16, 64), device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError):
+        decode_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        decode_attention(q, k.cpu(), k.cpu())
+    with pytest.raises(ValueError):
+        decode_attention(q, k, k, torch.tensor([16, 16]))       # on the CPU
+    with pytest.raises(ValueError):
+        decode_attention(q, torch.zeros((2, 3, 16, 64), device=cuda),
+                         torch.zeros((2, 3, 16, 64), device=cuda))
+    with pytest.raises(ValueError):
+        decode_attention(torch.zeros((2, 4, 256), device=cuda),
+                         torch.zeros((2, 2, 16, 256), device=cuda),
+                         torch.zeros((2, 2, 16, 256), device=cuda))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("kv_head_pad", [1, 2])
+def test_dense_model_runs_flash_and_decode_kernels(cuda, kv_head_pad):
+    """The reduced yi-6b on the card, f32 compute: a prefill launches B2 once
+    per layer and each decode step B4 once per layer; logits against the
+    same steps on the CPU (the plain versions). Tolerance 1e-4 of
+    max|logits|, as the CPU parity tests: the same f32 function with sums
+    in other orders over two layers."""
+    cfg = reduced(get_config("yi-6b"), compute_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    params_c = _to(params, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    flash_attention.launches = 0
+    got = tfm.prefill(cfg, params_c, tokens=toks.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == cfg.n_layers
+    want = tfm.prefill(cfg, params, tokens=toks)
+    assert _rel(got.cpu(), want) <= 1e-4
+    caches = [tfm.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev,
+                             kv_head_pad=kv_head_pad)
+              for dev in (cuda, "cpu")]
+    for t in range(toks.shape[1]):
+        decode_attention.launches = 0
+        got, caches[0] = tfm.decode_step(cfg, params_c, toks[:, t].to(cuda),
+                                         caches[0])
+        assert decode_attention.launches == cfg.n_layers
+        want, caches[1] = tfm.decode_step(cfg, params, toks[:, t], caches[1])
+        assert _rel(got.cpu(), want) <= 1e-4, t

@@ -65,11 +65,15 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.kernels.ssd_scan.ssd_scan",
                  "repro_torch.kernels.ssd_scan.ops",
                  "repro_torch.kernels.ssd_scan.ref",
+                 "repro_torch.kernels.decode_attention.decode_attention",
+                 "repro_torch.kernels.decode_attention.ops",
+                 "repro_torch.kernels.decode_attention.ref",
                  "repro_torch.configs.base", "repro_torch.configs.registry",
                  "repro_torch.configs.mamba2_1_3b",
                  "repro_torch.configs.yi_6b",
                  "repro_torch.launch.flags", "repro_torch.launch.serve",
                  "repro_torch.models.layers", "repro_torch.models.mamba2",
+                 "repro_torch.models.attention",
                  "repro_torch.models.transformer",
                  "repro_torch.models.convert",
                  "repro_torch.serve.decode"):

@@ -178,11 +178,13 @@ def test_prefill_equals_decoding_the_prompt(weights, dtype):
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = pt_base.reduced(get_config("yi-6b"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tfm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfm.init_cache(cfg, 2, 16, device="cpu")
+    for arch in ("llava-next-34b", "deepseek-v3-671b", "zamba2-1.2b",
+                 "seamless-m4t-large-v2"):     # vlm, moe, hybrid, encdec
+        cfg = pt_base.reduced(get_config(arch))
+        with pytest.raises(NotImplementedError, match="A10"):
+            tfm.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="A12"):
+            tfm.init_cache(cfg, 2, 16, device="cpu")
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):
