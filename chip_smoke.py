@@ -10,12 +10,17 @@ nothing of JAX or of the JAX package ``repro``. Phases:
 
 1. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
    with ``nvcc``, one compiler per source, all started together (into
-   ``src/repro_torch/kernels/_build/``);
+   ``src/repro_torch/kernels/_build/``), and check in the SASS that B2's
+   bf16 instantiations run on the tensor cores (HGMMA) and its f32 kernels
+   do not;
 2. hold each kernel against its plain version on the card, in f32 and bf16,
    at the reference's test shapes and at the main paths' shapes: B1
-   block_gemm, B2 flash_attention (with yi-6b's prefill head layout), B3
-   ssd_scan (with mamba2-1.3b's layer at prefill) and B4 decode_attention
-   (with yi-6b's decode layer over a 32 768-position cache);
+   block_gemm, B2 flash_attention (with yi-6b's prefill head layout and
+   the model's own strided prefill call, ragged L, D 64 and 48, the chain
+   task; per (batch, q head) too; no operand copied; a chain task's result
+   independent of its batch), B3 ssd_scan (with mamba2-1.3b's layer at
+   prefill) and B4 decode_attention (with yi-6b's decode layer over a
+   32 768-position cache);
 3. Cholesky, N = 16384 (32 x 32 blocks of 512, 2 x 2 shards, f32) through
    ``cholesky_executor(..., matmul=task_matmul)``: residual, agreement with
    the same executor on plain bodies, kernel launches, wall time;
@@ -24,6 +29,8 @@ nothing of JAX or of the JAX package ``repro``. Phases:
 5. the attention-chain PTG, seq 4096, dim 128, depth 16, 2 shards, f32,
    through ``auto_executor`` with ``task_attention`` bodies, against the
    same program on ``mha_ref`` bodies; B2 launches = executor attn calls;
+   one profiled run; the unrolled, dense-scan and union-cover lowerings
+   bit for bit;
 6. mamba2-1.3b serving at full width (48 layers, d_model 2048, f32 weights
    from a seeded generator, bf16 compute): ``make_prefill_step`` on 4
    prompts of 2048 tokens (48 B3 launches) against the same step with the
@@ -31,9 +38,10 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    prefill logits of a 256-token prompt against 256 ``decode_step``s;
 7. yi-6b serving at full width (32 layers, d_model 4096, GQA 32 over 4 KV
    heads of 128, f32 weights from a seeded generator, bf16 compute):
-   prefill of 4 prompts of 2048 tokens (32 B2 launches) against the same
-   step with the plain attention; 16 greedy tokens at batch 8 from a fresh
-   cache, and 16 at batch 8 over a 32 768-position cache filled to 32 752
+   prefill of 4 prompts of 2048 tokens (32 B2 launches, no operand
+   copied) against the same step with the plain attention; 16 greedy
+   tokens at batch 8 from a fresh cache, and 16 at batch 8 over a 32
+   768-position cache filled to 32 752
    (32 B4 launches a step); gates in f32 compute (prefill kernel vs plain,
    prefill(256) vs 256 decode steps, one long-cache decode step with B4 vs
    ``decode_ref``);
@@ -73,6 +81,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_ref, kernel_info as decode_kernel_info)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, mha_ref, task_attention)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    kernel_info as attention_kernel_info)
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
                                           ssd_scan)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
@@ -219,9 +229,11 @@ def leaves(tree):
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch counter, just before a main-path run."""
+    """Zero every kernel's launch counter, and B2's count of operands
+    copied for TMA, just before a main-path run."""
     for kernel in (block_gemm, flash_attention, ssd_scan, decode_attention):
         kernel.launches = 0
+    flash_attention.copies = 0
 
 
 def card() -> str:
@@ -233,12 +245,44 @@ def card() -> str:
 
 # ------------------------------------------------------------------ phases
 
+def sass_counts(name: str, opcodes) -> dict:
+    """{kernel function: {opcode: count}} of ``csrc/<name>.cu``'s built
+    library, from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build("block_gemm", "flash_attention", "ssd_scan",
                          "decode_attention")
     log(f"[build] nvcc {built or 'nothing to build'}; "
         f"{time.perf_counter() - t0:.2f} s in all")
+    # B2's bf16 path must run on the tensor cores (wgmma is HGMMA in SASS)
+    # and its f32 path on the CUDA cores (no HGMMA, no HMMA: no TF32)
+    counts = sass_counts("flash_attention", ("HGMMA", "HMMA"))
+    bf16 = {f: c for f, c in counts.items() if "4bf169fa_kernel" in f}
+    f32 = {f: c for f, c in counts.items()
+           if "partial_kernel" in f or "merge_kernel" in f}
+    log(f"[build] flash_attention SASS: bf16 kernels "
+        f"{[c['HGMMA'] for c in bf16.values()]} HGMMA; f32 kernels "
+        f"{[c['HGMMA'] + c['HMMA'] for c in f32.values()]} HGMMA+HMMA")
+    check(len(bf16) == 2 and all(c["HGMMA"] > 0 for c in bf16.values()),
+          f"flash_attention bf16 instantiations without HGMMA: {bf16}")
+    check(len(f32) >= 5 and not any(c["HGMMA"] or c["HMMA"]
+                                    for c in f32.values()),
+          f"flash_attention f32 kernels on the tensor cores: {f32}")
 
 
 def gemm_operands(gen, dev, dtype, T, M, K, N, b_transposed=False):
@@ -284,45 +328,98 @@ def phase_kernel_vs_plain(dev) -> None:
         "of an f32 sum, 2^-8)")
 
 
+def head_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over (batch, q head) of max|got - want| / max|want| within
+    that head's [L, D]: each head held to its own size, with no floor."""
+    return row_err(got.flatten(2), want.flatten(2))
+
+
+def attention_operands(gen, dev, dtype, b, hq, hkv, lq, lk, d, model=False):
+    """q [b, hq, lq, d], k and v [b, hkv, lk, d]; with ``model`` laid out
+    as the dense model hands them to B2 (``transformer.py``: [B, S, H, D]
+    projections viewed as [B, H, S, D], v never made contiguous)."""
+    def make(h, l):
+        if model:
+            return torch.randn((b, l, h, d), generator=gen,
+                               device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, l, d), generator=gen, device=dev).to(dtype)
+    return make(hq, lq), make(hkv, lk), make(hkv, lk)
+
+
 def phase_attention_vs_plain(dev) -> None:
     """B2 against ``mha_ref`` at the reference's test shapes
-    (``tests/test_kernels.py:50-77`` and the task form of ``:96-109``) and
-    at yi-6b's prefill head layout (Hq 32, Hkv 4, D 128) at B 1, L 4096."""
+    (``tests/test_kernels.py:50-77`` and the task form of ``:96-109``), at
+    yi-6b's head layout (Hq 32, Hkv 4, D 128) at B 1, L 4096 and in the
+    model's own layout at prefill (B 4, L 2048, strided views), at ragged
+    L, at D 64 and 48, and at the attention chain's task [1, 1, 4096,
+    128]; whole tensor and per (batch, q head). None needs a copy for TMA.
+    Then the chain task's batch independence, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(3)
     yi = get_config("yi-6b")
-    cases = [(f"[{b},{hq}|{hkv},{lq}|{lk},{d}]", (b, hq, lq, d),
-              (b, hkv, lk, d))
-             for b, hq, hkv, lq, lk, d in ((1, 4, 4, 128, 128, 64),
-                                           (2, 8, 2, 128, 128, 64),
-                                           (1, 4, 1, 64, 256, 32),
-                                           (1, 2, 2, 256, 256, 128),
-                                           (1, 2, 2, 512, 512, 64),
-                                           (3, 1, 1, 32, 32, 16))]
-    cases.append((f"yi-6b [1,{yi.n_heads}|{yi.n_kv_heads},4096,"
-                  f"{yi.head_dim}]", (1, yi.n_heads, 4096, yi.head_dim),
-                  (1, yi.n_kv_heads, 4096, yi.head_dim)))
+    hq, hkv, hd = yi.n_heads, yi.n_kv_heads, yi.head_dim
+    cases = [(f"[{b},{h}|{g},{lq}|{lk},{d}]", (b, h, g, lq, lk, d), False)
+             for b, h, g, lq, lk, d in ((1, 4, 4, 128, 128, 64),
+                                        (2, 8, 2, 128, 128, 64),
+                                        (1, 4, 1, 64, 256, 32),
+                                        (1, 2, 2, 256, 256, 128),
+                                        (1, 2, 2, 512, 512, 64),
+                                        (3, 1, 1, 32, 32, 16),
+                                        (1, 2, 2, 1000, 1000, 128),
+                                        (1, 2, 2, 1000, 3000, 128),
+                                        (2, 8, 2, 777, 777, 64),
+                                        (2, 8, 2, 300, 300, 48),
+                                        (1, 1, 1, 4096, 4096, 128))]
+    cases += [(f"yi-6b [1,{hq}|{hkv},4096,{hd}]", (1, hq, hkv, 4096, 4096, hd),
+               False),
+              (f"yi-6b model layout [4,{hq}|{hkv},2048,{hd}]",
+               (4, hq, hkv, 2048, 2048, hd), True)]
+    flash_attention.copies = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for name, qs, ks in cases:
-            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-                       for s in (qs, ks, ks))
+        for name, shape, model in cases:
+            q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
             for causal in (True, False):
                 got = flash_attention(q, k, v, causal=causal)
                 want = mha_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 check(got.shape == want.shape and got.dtype == dtype,
                       f"flash_attention {name}: shape/dtype")
-                err = rel_err(got, want)
-                log(f"[kernel] flash_attention {name:<26} "
+                err, head = rel_err(got, want), head_err(got, want)
+                log(f"[kernel] flash_attention {name:<38} "
                     f"{'causal' if causal else 'full':<6} "
-                    f"{str(dtype)[6:]:<9} max err {err:.3e} "
-                    f"(tol {TOL[dtype]:.0e})")
+                    f"{str(dtype)[6:]:<9} max err {err:.3e}, per head "
+                    f"{head:.3e} (tol {TOL[dtype]:.0e})")
                 check(math.isfinite(err) and err <= TOL[dtype],
                       f"flash_attention {name} {dtype}: err {err}")
+                check(math.isfinite(head) and head <= TOL[dtype],
+                      f"flash_attention {name} {dtype}: per-head err {head}")
                 del got, want
             del q, k, v
+    log(f"[kernel] flash_attention operands copied for TMA: "
+        f"{flash_attention.copies}")
+    check(flash_attention.copies == 0, "flash_attention copied operands")
     log("[kernel] flash_attention tolerance: as block_gemm's (the "
-        "reference's 2e-5 / 2e-2; f32 sums and the online softmax's "
-        "rescaling in another order; one bf16 rounding of an f32 result)")
+        "reference's 2e-5 / 2e-2; f32 sums, the online softmax's rescaling "
+        "and the split ranges' merge in another order; bf16: P rounded to "
+        "bf16 before P·V and one bf16 rounding of an f32 result), on the "
+        "whole tensor and per (batch, q head) against the head's own "
+        "max|plain| (scripts/torch_attention_rounding.py)")
+    x = torch.randn((3, 4096, 128), generator=gen, device=dev)
+    for causal in (True, False):
+        batched = task_attention(x, x, x, causal=causal)
+        alone = [task_attention(x[t:t + 1], x[t:t + 1], x[t:t + 1],
+                                causal=causal) for t in range(3)]
+        check(torch.equal(batched, torch.cat(alone)),
+              "task_attention: a task's result depends on its batch")
+    log("[kernel] task_attention [3,4096,128] f32: each task bit for bit "
+        "as alone (causal and full)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            info = attention_kernel_info(dtype, d, dev.index or 0)
+            log(f"[kernel] flash_attention {str(dtype)[6:]} D<={d}: "
+                f"{info.blocks_per_sm} resident blocks per SM, "
+                f"{info.registers} registers and {info.spill_bytes} spill "
+                f"bytes per thread, {info.smem_bytes} B shared, tiles "
+                f"{info.bq} queries x {info.bk} keys (CUDA runtime)")
 
 
 def ssd_operands(gen, dev, dtype, b, l, h, g, p, n):
@@ -591,9 +688,11 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
     launches = flash_attention.launches
     log(f"[chain] task_attention bodies: {start.elapsed_time(end):.2f} ms; "
         f"flash_attention launches {launches}, executor attn calls "
-        f"{run.calls['attn']}")
+        f"{run.calls['attn']}, largest batch {run.max_batch['attn']} "
+        f"(the store's shards ride in one batch)")
     check(launches > 0 and launches == run.calls["attn"],
           f"chain: launches {launches} != attn calls {run.calls['attn']}")
+    busy = profile("attention chain", lambda: run(packed))
     check(bool(torch.isfinite(out).all()), "chain: non-finite blocks")
     # Each task against mha_ref on the same input: the kernel's own error.
     x = prog.unpack(out)
@@ -613,7 +712,19 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
         f"max err {err:.3e} (tol {CHAIN_TOL:.0e})")
     check(step_err <= TOL[torch.float32], f"chain task vs mha_ref: {step_err}")
     check(err <= CHAIN_TOL, f"chain vs mha_ref bodies: {err}")
-    return {"launches": launches, "seq": seq, "dim": dim}
+    check(flash_attention.copies == 0, "chain: operands copied")
+    # every lowering of the program gives the same blocks, bit for bit
+    bodies = {"src": lambda x: x, "attn": task_attention}
+    for name, kw in (("unrolled", dict(scan=False)),
+                     ("dense scan", dict(scan=True)),
+                     ("union cover", dict(scan=True, cover="union"))):
+        other = prog.executor(bodies, device=dev, **kw)(packed)
+        check(all(torch.equal(other[s, slot], out[s, slot])
+                  for s, slot in prog.slot_of.values()),
+              f"chain: the {name} lowering differs from {run.mode}")
+    log(f"[chain] unrolled, dense-scan and union-cover lowerings: bit for "
+        f"bit as {run.mode}")
+    return {"launches": launches, "seq": seq, "dim": dim, "busy": busy}
 
 
 @contextlib.contextmanager
@@ -886,6 +997,9 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
             f"launches {b2}")
         check(b2 == cfg.n_layers,
               f"prefill: flash_attention launches {b2} != {cfg.n_layers}")
+        log(f"[dense] flash_attention operands copied for TMA: "
+            f"{flash_attention.copies}")
+        check(flash_attention.copies == 0, "prefill: operands copied")
         check(tuple(logits.shape) == (batch, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} not finite/shaped")
@@ -1024,21 +1138,25 @@ def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
 
 def phase_time_attention(dev, seq: int, dim: int) -> dict:
     """B2 at the attention chain's task ([1, 1, seq, dim] f32, causal, one
-    task per launch) and at yi-6b's prefill layout (bf16): the kernel, its
-    plain version and ``scaled_dot_product_attention`` (timed only)."""
+    task per launch), at yi-6b's prefill layout ([1, 32|4, 4096, 128]
+    bf16) and at the model's own prefill call ([4, 32|4, 2048, 128] bf16,
+    strided views): the kernel, its plain version and
+    ``scaled_dot_product_attention`` (timed only), with each path's
+    registers, spills and resident blocks."""
     gen = torch.Generator(device=dev).manual_seed(5)
     yi = get_config("yi-6b")
+    hq, hkv, hd = yi.n_heads, yi.n_kv_heads, yi.head_dim
     rows = {}
-    for name, qs, ks, dtype in (
-            ("chain task", (1, 1, seq, dim), (1, 1, seq, dim),
-             torch.float32),
-            ("yi-6b prefill", (1, yi.n_heads, 4096, yi.head_dim),
-             (1, yi.n_kv_heads, 4096, yi.head_dim), torch.bfloat16)):
-        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-                   for s in (qs, ks, ks))
+    for name, shape, model, dtype in (
+            ("chain task", (1, 1, 1, seq, seq, dim), False, torch.float32),
+            ("yi-6b prefill", (1, hq, hkv, 4096, 4096, hd), False,
+             torch.bfloat16),
+            ("yi-6b model prefill", (4, hq, hkv, 2048, 2048, hd), True,
+             torch.bfloat16)):
+        q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
         got = flash_attention(q, k, v)
         err = float((got.float() - mha_ref(q, k, v).float()).abs().max())
-        gqa = qs[1] != ks[1]
+        gqa = q.shape[1] != k.shape[1]
         reps = 5
         kernel = cuda_ms(lambda: flash_attention(q, k, v), reps)
         plain = cuda_ms(lambda: mha_ref(q, k, v), reps)
@@ -1047,15 +1165,20 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
         kernel2 = cuda_ms(lambda: flash_attention(q, k, v), reps)
         nbytes, flops = attention_work(q, k)
         bnd, bound_by = bound(nbytes, flops, dtype)
-        log(f"[time] flash_attention {name} q{list(qs)} kv{list(ks)} "
-            f"{str(dtype)[6:]}: kernel {kernel:.3f} / {kernel2:.3f} ms, plain "
-            f"{plain:.3f} ms, sdpa {library:.3f} ms, bound {bnd:.3f} ms "
-            f"({bound_by}); kernel {1e-9 * flops / min(kernel, kernel2):.1f} "
-            f"TFLOP/s")
+        info = attention_kernel_info(dtype, q.shape[3], dev.index or 0)
+        log(f"[time] flash_attention {name} q{list(q.shape)} "
+            f"kv{list(k.shape)} {str(dtype)[6:]}: kernel {kernel:.3f} / "
+            f"{kernel2:.3f} ms, plain {plain:.3f} ms, sdpa {library:.3f} ms, "
+            f"bound {bnd:.3f} ms ({bound_by}); kernel "
+            f"{1e-9 * flops / min(kernel, kernel2):.1f} TFLOP/s, sdpa "
+            f"{1e-9 * flops / library:.1f} TFLOP/s; {info.registers} "
+            f"registers, {info.spill_bytes} spill bytes, "
+            f"{info.blocks_per_sm} blocks per SM")
         rows[name] = {"ms": min(kernel, kernel2), "plain_ms": plain,
                       "library_ms": library, "bound_ms": bnd,
                       "bound_by": bound_by, "max_abs_err": err,
-                      "shape": [list(qs), list(ks), str(dtype)[6:]]}
+                      "shape": [list(q.shape), list(k.shape),
+                                str(dtype)[6:]]}
         del q, k, v, got
     return rows
 

@@ -3,6 +3,7 @@
 
 from .flash_attention import flash_attention
 from .ops import attention, task_attention
-from .ref import mha_ref
+from .ref import mha_bf16_p_ref, mha_ref
 
-__all__ = ["attention", "flash_attention", "mha_ref", "task_attention"]
+__all__ = ["attention", "flash_attention", "mha_bf16_p_ref", "mha_ref",
+           "task_attention"]

@@ -126,11 +126,20 @@ def _rel(got, want):
                  / max(1.0, float(want.abs().max())))
 
 
+def _head_rel(got, want):
+    """Largest over (batch, q head) of max|got - want| / max|want| within
+    that head's [L, D]: each head held to its own size."""
+    got, want = got.float().flatten(2), want.float().flatten(2)
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1)).max())
+
+
 @pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64), (1, 4, 1, 64, 256, 32),
     (1, 2, 2, 256, 256, 128), (1, 2, 2, 512, 512, 64), (3, 1, 1, 32, 32, 16),
     (1, 2, 1, 37, 100, 48), (2, 4, 2, 100, 100, 80), (1, 1, 1, 1, 1, 8),
-    (1, 3, 3, 65, 65, 128),
+    (1, 3, 3, 65, 65, 128), (1, 2, 2, 1000, 1000, 128),
+    (1, 2, 2, 1000, 3000, 128),
 ])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -147,6 +156,7 @@ def test_flash_attention_matches_plain(cuda, dtype, causal, b, hq, hkv, lq,
     assert flash_attention.launches == before + 1
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel(got, want) <= TOL[dtype]
+    assert _head_rel(got, want) <= TOL[dtype]
 
 
 def test_flash_attention_reads_strided_operands(cuda):
@@ -160,6 +170,93 @@ def test_flash_attention_reads_strided_operands(cuda):
     assert not q.is_contiguous() and not k.is_contiguous()
     err = _rel(flash_attention(q, k, v), mha_ref(q, k, v))
     assert err <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_reads_the_model_layout(cuda, dtype, d):
+    """q, k, v as the dense model hands them over (``transformer.py``:
+    [B, S, H, D] projections viewed as [B, H, S, D], v never made
+    contiguous), GQA 8 over 2: read in place (no copy for TMA), right on
+    the whole tensor and per (batch, q head)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, 300, h, d), generator=gen,
+                           device=cuda).to(dtype).transpose(1, 2)
+               for h in (8, 2, 2))
+    assert not v.is_contiguous()
+    copies = flash_attention.copies
+    got = flash_attention(q, k, v)
+    want = mha_ref(q, k, v)
+    assert flash_attention.copies == copies
+    assert _rel(got, want) <= TOL[dtype]
+    assert _head_rel(got, want) <= TOL[dtype]
+
+
+def test_flash_attention_copies_what_tma_cannot_read(cuda):
+    """bf16 rows of 37 values (74 bytes) and a column stride of 2: TMA
+    cannot read them, so the wrapper copies each such operand (counted)
+    and the kernel still runs on the tensor cores."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((1, 4, 70, 37), generator=gen, device=cuda).bfloat16()
+    kv = torch.randn((1, 2, 70, 74), generator=gen, device=cuda).bfloat16()
+    k, v = kv[..., ::2], kv[..., 1::2]
+    copies, launches = flash_attention.copies, flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.copies == copies + 3
+    assert flash_attention.launches == launches + 1
+    assert _rel(got, mha_ref(q, k, v)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_task_attention_does_not_depend_on_its_batch(cuda, causal):
+    """The f32 split plan depends on the task's shape only, so a chain
+    task's result is the same, bit for bit, in a batch of 3 as alone."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((3, 4096, 128), generator=gen, device=cuda)
+               for _ in range(3))
+    batched = task_attention(q, k, v, causal=causal)
+    for t in range(3):
+        alone = task_attention(q[t:t + 1], k[t:t + 1], v[t:t + 1],
+                               causal=causal)
+        assert torch.equal(batched[t:t + 1], alone), t
+
+
+def test_attention_chains_are_bit_identical_under_every_policy(cuda):
+    """Four chains of task_attention bodies (seq 512, dim 64, depth 5, 2
+    shards): each lowering batches the tasks differently (the dense scan
+    and the union cover pad the batches), and every one gives the same
+    blocks, bit for bit."""
+    width, depth, seq, dim, n_sh = 4, 5, 512, 64, 2
+    g = Graph("attnchains", n_shards=n_sh, owner=lambda blk: blk[1] % n_sh,
+              block_shape=(seq, dim))
+    g.task_type("src", space=lambda: ((c,) for c in range(width)),
+                writes=lambda c: ("x", c, 0), reads=lambda c: [("in", c)])
+    g.task_type("attn", space=lambda: ((c, l) for c in range(width)
+                                       for l in range(1, depth + 1)),
+                writes=lambda c, l: ("x", c, l),
+                reads=lambda c, l: [("x", c, l - 1)] * 3)
+    prog = g.to_program()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    blocks = {}
+    for c in range(width):
+        blocks[("in", c)] = torch.randn((seq, dim), generator=gen,
+                                        device=cuda)
+        for l in range(depth + 1):
+            blocks[("x", c, l)] = torch.zeros((seq, dim), device=cuda)
+    packed = prog.pack(blocks, device=cuda)
+    bodies = {"src": lambda x: x, "attn": task_attention}
+    runs = {"auto": prog.auto_executor(bodies, device=cuda)}
+    for name, kw in (("unrolled", dict(scan=False)), ("scan", dict(scan=True)),
+                     ("union", dict(scan=True, comm="auto",
+                                    cover="union"))):
+        runs[name] = prog.executor(bodies, device=cuda, **kw)
+    outs = {name: ex(packed) for name, ex in runs.items()}
+    ref = outs.pop("unrolled")
+    slots = list(prog.slot_of.values())
+    for name, out in outs.items():
+        for s, slot in slots:
+            assert torch.equal(out[s, slot], ref[s, slot]), (name, s, slot)
 
 
 def test_task_attention_under_the_executor(cuda):

@@ -18,6 +18,15 @@ the JAX package's executor.
   under jax 0.9.0 (ROADMAP, "Reference caveats"); its jnp-body lowering
   runs.
 
+- The host side of the CUDA kernel, which runs before any launch: the f32
+  path's split plan (every live key of a query tile in exactly one range,
+  none past the causal bound, the same plan whatever the batch) and the
+  bf16 path's layout check (a copy exactly where TMA cannot read the
+  operand). And the bf16 path's one extra rounding in plain form
+  (``mha_bf16_p_ref``: P rounded to bf16 before P·V) against ``mha_ref``
+  and the JAX package's kernel, at the reference's bf16 tolerance 2e-2, on
+  the whole tensor and per (batch, q head).
+
 Inputs come from numpy with a seed and go to both frameworks. Run as a
 script (``python tests/test_torch_flash_attention.py OUT.npz``) this file
 writes the JAX package's attention-chain outputs.
@@ -39,7 +48,10 @@ from repro.kernels.flash_attention.ops import task_attention as jx_task_attn
 from repro.kernels.flash_attention.ref import mha_ref as jx_mha_ref
 
 from repro_torch.kernels.flash_attention import (attention, flash_attention,
-                                                 mha_ref, task_attention)
+                                                 mha_bf16_p_ref, mha_ref,
+                                                 task_attention)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    KernelInfo, _tma_operand, needs_copy, plan_for, split_plan)
 from repro_torch.ptg import Graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,6 +148,137 @@ def test_plain_masks_the_keys_after_each_query():
     out2 = mha_ref(q, k2, v2)
     torch.testing.assert_close(out2[:, :, 0], out[:, :, 0], rtol=0, atol=0)
     assert not torch.equal(out2[:, :, 1:], out[:, :, 1:])
+
+
+# ------------------------------------------ the CUDA kernel's host side
+
+@pytest.mark.parametrize("lq,lk,causal,slots", [
+    (4096, 4096, True, 132),     # the attention-chain task
+    (4096, 4096, False, 132),
+    (2048, 2048, True, 132),     # yi-6b's prefill length
+    (1000, 3000, True, 264),     # ragged, queries the last 1000 of 3000
+    (37, 100, True, 264),
+    (1, 1, True, 132),
+    (300, 300, False, 1),        # one slot: no split
+    (4096, 4096, True, 7),       # fewer slots than query tiles
+])
+def test_split_plan_covers_every_live_key_once(lq, lk, causal, slots):
+    bq, bk = 128, 64
+    plan = split_plan(lq, lk, causal, bq, bk, slots)
+    n_qt = -(-lq // bq)
+    assert len(plan.tiles) == n_qt
+    assert sum(count for _, count in plan.tiles) == len(plan.items)
+    for t, (first, count) in enumerate(plan.tiles):
+        ranges = plan.items[first:first + count]
+        assert count >= 1 and all(item[0] == t for item in ranges)
+        # consecutive ranges from key tile 0: each tile in exactly one
+        assert ranges[0][1] == 0
+        assert all(a[2] == b[1] for a, b in zip(ranges, ranges[1:]))
+        assert all(0 < t1 - t0 <= plan.per for _, t0, t1 in ranges) or (
+            count == 1 and ranges[0][1] == ranges[0][2])
+        # the keys any row of the tile sees, and not one tile past them
+        last_pos = min(lq, (t + 1) * bq) - 1 + lk - lq
+        live = min(lk, last_pos + 1) if causal else lk
+        assert ranges[-1][2] == -(-max(0, live) // bk)
+    if n_qt <= slots:                       # one (batch, head): one wave
+        assert len(plan.items) <= slots
+    if plan.per > 1:                        # and the least split that fits
+        walk = [r[2] for r in (plan.items[f + c - 1]
+                               for f, c in plan.tiles)]
+        assert sum(-(-n // (plan.per - 1)) for n in walk) > slots
+
+
+def test_split_plan_does_not_depend_on_the_batch():
+    """A task's plan, so its result, is the same in any batch: the executor
+    runs T tasks as B = T, and every (B, H) gives one plan."""
+    info = KernelInfo(blocks_per_sm=1, registers=128, spill_bytes=0,
+                      smem_bytes=202752, bq=128, bk=64)
+    one = plan_for((1, 1, 4096, 128), (1, 1, 4096, 128), True, info, 132)
+    for b, h in ((2, 1), (16, 1), (64, 1), (4, 32)):
+        assert plan_for((b, h, 4096, 128), (b, 1, 4096, 128), True, info,
+                        132) == one
+    assert len(one.items) > len(one.tiles)      # the task is split
+
+
+@pytest.mark.parametrize("shape,strides,address,copy", [
+    ((2, 4, 64, 128), (32768, 8192, 128, 1), 0, False),     # contiguous
+    ((2, 4, 64, 128), (32768, 128, 512, 1), 0, False),      # [B,S,H,D] view
+    ((5, 1, 37, 8), (296, 1, 8, 1), 0, False),   # task form, H = 1
+    ((1, 1, 16, 8), (128, 7, 8, 1), 16, False),  # 16-byte rows; size-1 dims
+    ((1, 2, 16, 37), (1184, 592, 37, 1), 0, True),   # 74-byte rows
+    ((1, 1, 16, 1), (16, 16, 1, 1), 0, True),        # D = 1: 2-byte rows
+    ((1, 1, 16, 64), (2048, 2048, 128, 2), 0, True),  # column stride 2
+    ((1, 2, 16, 64), (2048, 4, 128, 1), 0, True),     # 8-byte head stride
+    ((2, 1, 16, 64), (1028, 1028, 64, 1), 0, True),   # batch stride 2056 B
+    ((1, 1, 16, 64), (1024, 1024, 64, 1), 8, True),   # base not 16-aligned
+])
+def test_needs_copy_follows_the_tma_rules(shape, strides, address, copy):
+    """bf16 (2 bytes): TMA reads unit column stride, every other stride of
+    a dimension longer than 1 a multiple of 16 bytes, a 16-byte base."""
+    assert needs_copy(shape, strides, 2, address) is copy
+
+
+def test_tma_copy_is_readable_and_counted():
+    base = torch.from_numpy(_inputs(5, (2, 3, 16, 40))[0]).to(torch.bfloat16)
+    t = base[..., 1:38]                                  # D 37, offset base
+    assert needs_copy(t.shape, t.stride(), 2, t.data_ptr())
+    before = flash_attention.copies
+    got = _tma_operand(t)
+    assert flash_attention.copies == before + 1
+    assert not needs_copy(got.shape, got.stride(), 2, got.data_ptr())
+    assert torch.equal(got, t)
+    ok = base[..., :32]
+    assert _tma_operand(ok) is ok and flash_attention.copies == before + 1
+
+
+def _rel_rows(got, want):
+    """(whole, per row): max|got - want| / max(1, max|want|) over the
+    tensor, and the largest over (batch, q head) of max|got - want| /
+    max|want| within that head's [Lq, D]."""
+    got, want = (np.asarray(x, np.float32) for x in (got, want))
+    err = np.abs(got - want)
+    whole = err.max() / max(1.0, np.abs(want).max())
+    rows = (err.max(axis=(2, 3)) / np.abs(want).max(axis=(2, 3))).max()
+    return float(whole), float(rows)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (1, 4, 1, 256, 256, 64), (1, 2, 2, 200, 600, 128),
+    (2, 4, 2, 129, 129, 48), (1, 2, 1, 512, 512, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_rounding_stays_within_the_reference_tolerance(
+        b, hq, hkv, lq, lk, d, causal):
+    """The bf16 kernel's one extra rounding (P to bf16 before P·V) in plain
+    form, against ``mha_ref`` and the JAX package's Pallas kernel
+    (interpret mode) on the same bf16 inputs: within the reference's bf16
+    tolerance, 2e-2, whole and per (batch, q head)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(11, (b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)),
+        "bfloat16")
+    got = mha_bf16_p_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, lq, d)
+    got = got.float().numpy()
+    bq = 128 if lq % 128 == 0 else lq
+    bkj = 128 if lk % 128 == 0 else lk
+    for want in (mha_ref(tq, tk, tv, causal=causal).float().numpy(),
+                 np.asarray(jx_flash_attention(
+                     jq, jk, jv, causal=causal, bq=bq, bk=bkj,
+                     interpret=True), np.float32)):
+        whole, rows = _rel_rows(got, want)
+        assert whole <= 2e-2 and rows <= 2e-2, (whole, rows)
+
+
+def test_bf16_p_rounding_is_the_only_difference_in_f32():
+    """In f32 the plain form rounds P and nothing else: with P exact in
+    bf16 (every logit equal, so P = 1) it matches ``mha_ref`` to f32
+    rounding."""
+    (tq, tk, tv), = [_both(_inputs(12, (1, 2, 64, 16), (1, 2, 64, 16),
+                                    (1, 2, 64, 16)), "float32")[1]]
+    tk = torch.ones_like(tk)
+    np.testing.assert_allclose(mha_bf16_p_ref(tq, tk, tv, bk=16).numpy(),
+                               mha_ref(tq, tk, tv).numpy(), rtol=2e-6,
+                               atol=2e-6)
 
 
 # ------------------------------------------------- the attention chain PTG
