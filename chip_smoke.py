@@ -11,16 +11,22 @@ nothing of JAX or of the JAX package ``repro``. Phases:
 1. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
    with ``nvcc``, one compiler per source, all started together (into
    ``src/repro_torch/kernels/_build/``), and check in the SASS that B2's
-   bf16 instantiations run on the tensor cores (HGMMA) and its f32 kernels
-   do not;
+   bf16 instantiations run on the tensor cores (HGMMA) and B4's bf16 ring
+   kernel does (HMMA), while B2's and B4's f32 kernels and B1's f32 SGEMM
+   use neither (IEEE f32 on the CUDA cores);
 2. hold each kernel against its plain version on the card, in f32 and bf16,
    at the reference's test shapes and at the main paths' shapes: B1
-   block_gemm, B2 flash_attention (with yi-6b's prefill head layout and
+   block_gemm (each of its four layout instantiations at ragged M, N and
+   K too, every batched case bit for bit against its tasks alone), B2
+   flash_attention (with yi-6b's prefill head layout and
    the model's own strided prefill call, ragged L, D 64 and 48, the chain
    task; per (batch, q head) too; no operand copied; a chain task's result
    independent of its batch), B3 ssd_scan (with mamba2-1.3b's layer at
    prefill) and B4 decode_attention (with yi-6b's decode layer over a
-   32 768-position cache);
+   32 768-position cache, and ranges of several tiles that end one short
+   of and one past a tile and a ring stage; no bf16 call of the model's
+   layout on the CUDA-core kernel); each kernel's registers, spills and
+   resident blocks per SM;
 3. Cholesky, N = 16384 (32 x 32 blocks of 512, 2 x 2 shards, f32) through
    ``cholesky_executor(..., matmul=task_matmul)``: residual, agreement with
    the same executor on plain bodies, kernel launches, wall time;
@@ -77,6 +83,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gemm import (block_gemm,  # noqa: E402
                                             block_gemm_ref, task_matmul)
+from repro_torch.kernels.block_gemm.block_gemm import (  # noqa: E402
+    kernel_info as gemm_kernel_info)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_ref, kernel_info as decode_kernel_info)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -229,11 +237,13 @@ def leaves(tree):
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch counter, and B2's count of operands
-    copied for TMA, just before a main-path run."""
+    """Zero every kernel's launch counter, B2's count of operands copied
+    for TMA and B4's count of bf16 calls on its CUDA-core kernel, just
+    before a main-path run."""
     for kernel in (block_gemm, flash_attention, ssd_scan, decode_attention):
         kernel.launches = 0
     flash_attention.copies = 0
+    decode_attention.narrow = 0
 
 
 def card() -> str:
@@ -283,14 +293,39 @@ def phase_build() -> None:
     check(len(f32) >= 5 and not any(c["HGMMA"] or c["HMMA"]
                                     for c in f32.values()),
           f"flash_attention f32 kernels on the tensor cores: {f32}")
+    # B4's bf16 ring kernel runs Q·Kᵀ and P·V on mma.sync (HMMA); its f32
+    # partials and merge kernels stay on the CUDA cores
+    counts = sass_counts("decode_attention", ("HGMMA", "HMMA"))
+    ring = {f: c for f, c in counts.items() if "decode_partial_ring" in f}
+    f32 = {f: c for f, c in counts.items()
+           if "decode_partialIf" in f or "decode_combineIf" in f}
+    log(f"[build] decode_attention SASS: bf16 ring kernels "
+        f"{[c['HMMA'] for c in ring.values()]} HMMA; f32 kernels "
+        f"{[c['HGMMA'] + c['HMMA'] for c in f32.values()]} HGMMA+HMMA")
+    check(len(ring) == 2 and all(c["HMMA"] > 0 for c in ring.values()),
+          f"decode_attention bf16 ring kernels without HMMA: {ring}")
+    check(len(f32) >= 7 and not any(c["HGMMA"] or c["HMMA"]
+                                    for c in f32.values()),
+          f"decode_attention f32 kernels on the tensor cores: {f32}")
+    # B1's f32 SGEMM (all four layouts) stays IEEE f32 on the CUDA cores
+    counts = sass_counts("block_gemm", ("HGMMA", "HMMA", "FFMA"))
+    f32 = {f: c for f, c in counts.items() if "sgemm_ring" in f}
+    log(f"[build] block_gemm SASS: f32 kernels "
+        f"{[c['HGMMA'] + c['HMMA'] for c in f32.values()]} HGMMA+HMMA, "
+        f"{[c['FFMA'] for c in f32.values()]} FFMA")
+    check(len(f32) == 4 and all(c["FFMA"] > 0 and not c["HGMMA"]
+                                and not c["HMMA"] for c in f32.values()),
+          f"block_gemm f32 kernels on the tensor cores: {f32}")
 
 
-def gemm_operands(gen, dev, dtype, T, M, K, N, b_transposed=False):
-    a = torch.randn((T, M, K), generator=gen, device=dev).to(dtype)
-    if b_transposed:   # B = X.mT, a strided view as in the Cholesky bodies
-        b = torch.randn((T, N, K), generator=gen, device=dev).to(dtype).mT
-    else:
-        b = torch.randn((T, K, N), generator=gen, device=dev).to(dtype)
+def gemm_operands(gen, dev, dtype, T, M, K, N, a_k=True, b_n=True):
+    """A [T, M, K] k- (else m-) contiguous, B [T, K, N] n- (else k-)
+    contiguous (B = X.mT, a strided view as in the Cholesky bodies): one
+    of B1's four f32 instantiations."""
+    a = (torch.randn((T, M, K), generator=gen, device=dev) if a_k else
+         torch.randn((T, K, M), generator=gen, device=dev).mT).to(dtype)
+    b = (torch.randn((T, K, N), generator=gen, device=dev) if b_n else
+         torch.randn((T, N, K), generator=gen, device=dev).mT).to(dtype)
     return a, b
 
 
@@ -308,7 +343,7 @@ def phase_kernel_vs_plain(dev) -> None:
               ("[64,1024,1024]", 64, 1024, 1024, 1024, False)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, T, m, k, n, tr in cases:
-            a, b = gemm_operands(gen, dev, dtype, T, m, k, n, tr)
+            a, b = gemm_operands(gen, dev, dtype, T, m, k, n, b_n=not tr)
             got, want = block_gemm(a, b), block_gemm_ref(a, b)
             torch.cuda.synchronize()
             check(got.shape == want.shape and got.dtype == dtype,
@@ -322,10 +357,42 @@ def phase_kernel_vs_plain(dev) -> None:
                 part = block_gemm(a[:3], b[:3])
                 check(torch.equal(part, got[:3]),
                       f"block_gemm {name} {dtype}: batch-dependent result")
+    # each layout instantiation at ragged M, N and K (K not a multiple of
+    # the K step), every task of the batch bit for bit as launched alone
+    for dtype in (torch.float32, torch.bfloat16):
+        for a_k in (True, False):
+            for b_n in (True, False):
+                for T, m, k, n in ((3, 130, 70, 129), (4, 131, 37, 67),
+                                   (2, 257, 300, 129)):
+                    a, b = gemm_operands(gen, dev, dtype, T, m, k, n, a_k,
+                                         b_n)
+                    got, want = block_gemm(a, b), block_gemm_ref(a, b)
+                    err = rel_err(got, want)
+                    alone = all(torch.equal(block_gemm(a[i:i + 1],
+                                                       b[i:i + 1])[0], got[i])
+                                for i in range(T))
+                    name = (f"[{T},{m},{k},{n}] A {'k' if a_k else 'm'}-"
+                            f"contiguous B {'n' if b_n else 'k'}-contiguous")
+                    log(f"[kernel] block_gemm {name:<42} {str(dtype)[6:]:<9}"
+                        f" max err {err:.3e} (tol {TOL[dtype]:.0e}); tasks "
+                        f"as alone: {alone}")
+                    check(math.isfinite(err) and err <= TOL[dtype],
+                          f"block_gemm {name} {dtype}: err {err}")
+                    check(alone, f"block_gemm {name} {dtype}: "
+                                 "batch-dependent result")
     log("[kernel] tolerance: max|kernel - plain| / max(1, max|plain|); "
         "f32 2e-5 is the reference's (sums differ only in order, "
         "~2^-24 sqrt(K)); bf16 2e-2 is the reference's (one bf16 rounding "
         "of an f32 sum, 2^-8)")
+    for a_k, b_n, path in ((True, False, "Cholesky's l @ l.mT"),
+                           (True, True, "the GEMM update"),
+                           (False, True, "A m-contiguous"),
+                           (False, False, "A m-, B k-contiguous")):
+        info = gemm_kernel_info(a_k, b_n, dev.index or 0)
+        log(f"[kernel] block_gemm f32, {path}: {info.blocks_per_sm} "
+            f"resident blocks per SM, {info.registers} registers and "
+            f"{info.spill_bytes} spill bytes per thread, {info.smem_bytes} B "
+            f"shared, BK {info.bk} x {info.stages} stages (CUDA runtime)")
 
 
 def head_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -498,7 +565,12 @@ def phase_decode_vs_plain(dev) -> None:
              ((4, 16, 1, 128, 64), None), ((3, 4, 2, 256, 64), (256, 100, 17)),
              ((2, 8, 2, 200, 64), (200, 77)),
              ((2, 8, 4, 333, 128), (333, 45)),      # 2 KV heads, pad 2
+             # ranges of 1024 positions (8 tiles of 128, four turns of the
+             # ring); ends one short of and one past a tile and a turn
+             ((8, 32, 4, 4096, 128), (63, 65, 127, 129, 255, 257, 1151,
+                                      1281)),
              (DECODE_CELL, DECODE_CELL_LEN)]
+    decode_attention.narrow = 0
     for dtype in (torch.float32, torch.bfloat16):
         for (b, hq, hkv, s, d), lens in cases:
             q, k, v = decode_operands(gen, dev, dtype, b, hq, hkv, s, d)
@@ -522,16 +594,23 @@ def phase_decode_vs_plain(dev) -> None:
             check(math.isfinite(row) and row <= DECODE_ROW_TOL[dtype],
                   f"decode_attention {name} {dtype}: per-row err {row}")
             del q, k, v, got, want
+    log(f"[kernel] decode_attention bf16 calls on the CUDA-core kernel: "
+        f"{decode_attention.narrow}")
+    check(decode_attention.narrow == 0,
+          "decode_attention: a bf16 case of these layouts left the ring")
     log("[kernel] decode_attention tolerance: as block_gemm's (the "
         "reference's 2e-5 / 2e-2; f32 sums and the partials' merge in "
-        "another order; one bf16 rounding of an f32 result); per (batch, "
-        "q head) row, max|kernel - plain| / max|plain| of the row, 1e-4 / "
-        "2e-2 (scripts/torch_decode_rounding.py)")
+        "another order; bf16: P rounded to bf16 before P·V and one bf16 "
+        "rounding of an f32 result); per (batch, q head) row, max|kernel - "
+        "plain| / max|plain| of the row, 1e-4 / 2e-2 "
+        "(scripts/torch_decode_rounding.py)")
     for dtype in (torch.float32, torch.bfloat16):
-        blocks, regs, spill = decode_kernel_info(dtype, 128, True, 0)
+        info = decode_kernel_info(dtype, 128, True, dev.index or 0)
         log(f"[kernel] decode_attention partials kernel, {str(dtype)[6:]} "
-            f"D<=128 16-byte loads: {blocks} resident blocks per SM, {regs} "
-            f"registers and {spill} spill bytes per thread (CUDA runtime)")
+            f"D<=128 16-byte loads: {info.blocks_per_sm} resident blocks per "
+            f"SM, {info.registers} registers and {info.spill_bytes} spill "
+            f"bytes per thread, {info.smem_bytes} B shared, {info.ts}-"
+            f"position tiles x {info.stages} (CUDA runtime)")
 
 
 def phase_cholesky(dev, nb=32, pr=2, pc=2, b=512) -> dict:
@@ -1031,6 +1110,9 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
             f"launches {b4}; sample {sample[0].tolist()}")
         check(b4 == cfg.n_layers * tokens,
               f"fresh serve: decode_attention launches {b4}")
+        check(decode_attention.narrow == 0,
+              f"fresh serve: {decode_attention.narrow} bf16 B4 calls on the "
+              "CUDA-core kernel")
         del cache
 
         # over a long cache: filled to long_seq - tokens - 2, one warm-up
@@ -1056,6 +1138,11 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
             f"{sample[0].tolist()}")
         check(cache.pos == long_seq and b4_long == cfg.n_layers * tokens,
               f"long serve: pos {cache.pos}, launches {b4_long}")
+        log(f"[dense] bf16 B4 calls on the CUDA-core kernel: "
+            f"{decode_attention.narrow}")
+        check(decode_attention.narrow == 0,
+              f"long serve: {decode_attention.narrow} bf16 B4 calls on the "
+              "CUDA-core kernel")
         del cache
         torch.cuda.empty_cache()
         err, agree = long_step_vs_plain(cfg, params, serve_batch, long_seq,
@@ -1114,7 +1201,8 @@ def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
             ("gemm update", gemm_batch, bg, bg, bg, False),
             ("gemm update, one shard", max(1, gemm_batch // 4),
              bg, bg, bg, False)):
-        a, b = gemm_operands(gen, dev, torch.float32, T, m, k, n, tr)
+        a, b = gemm_operands(gen, dev, torch.float32, T, m, k, n,
+                             b_n=not tr)
         got = block_gemm(a, b)
         err = float((got - block_gemm_ref(a, b)).abs().max())
         reps = 5

@@ -13,7 +13,12 @@ max|a - b| / max|b| within the row:
 - a split-cache merge (f32 partials over ranges of ``--chunk`` positions,
   merged as B4 merges them) against the oracle;
 - the split-cache merge against ``decode_ref``: one function, sums in
-  other orders, the plain counterpart of B4 against its plain version.
+  other orders, the plain counterpart of B4's CUDA-core kernel against its
+  plain version;
+- ``decode_bf16_p_ref`` (P rounded to bf16 before P·V, as B4's
+  tensor-core kernel rounds it) against ``decode_ref``, per row and, as
+  ``ring-plain whole``, over the whole output as max|a - b| / max(1,
+  max|b|) (the measure of ``chip_smoke.py``'s whole-output check).
 
 A long row averages thousands of values of either sign, so its outputs are
 small against the terms summed; the per-row gap shows how much of a row's
@@ -25,7 +30,7 @@ import argparse
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_ref
+from repro_torch.kernels.decode_attention import decode_bf16_p_ref, decode_ref
 
 HQ, HKV, S, D = 32, 4, 32768, 128
 LENS = (32768, 32751, 17000, 1, 4096, 65, 64, 30000)
@@ -71,7 +76,8 @@ def main():
     args = ap.parse_args()
     gen = torch.Generator().manual_seed(args.seed)
     for dtype in (torch.float32, torch.bfloat16):
-        worst = {"plain-oracle": 0.0, "split-oracle": 0.0, "split-plain": 0.0}
+        worst = {"plain-oracle": 0.0, "split-oracle": 0.0, "split-plain": 0.0,
+                 "ring-plain": 0.0, "ring-plain whole": 0.0}
         for n in LENS:
             q = torch.randn((1, HQ, D), generator=gen).to(dtype)
             k = torch.randn((1, HKV, S, D), generator=gen).to(dtype)
@@ -85,6 +91,11 @@ def main():
             gaps = {"plain-oracle": row_gap(plain, want),
                     "split-oracle": row_gap(split, want),
                     "split-plain": row_gap(split, plain)}
+            ring = decode_bf16_p_ref(q, k, v, kv_len)
+            gaps["ring-plain"] = row_gap(ring, plain)
+            gaps["ring-plain whole"] = float(
+                (ring.double() - plain.double()).abs().max()
+                / max(1.0, float(plain.double().abs().max())))
             print(f"{str(dtype)[6:]:<9} kv_len {n:>5}: " + ", ".join(
                 f"{key} {val:.2e}" for key, val in gaps.items()), flush=True)
             for key, val in gaps.items():

@@ -4,14 +4,18 @@ The port of the JAX package's Pallas kernel ``block_gemm``
 (``src/repro/kernels/block_gemm/block_gemm.py``): ``C[t] = A[t] @ B[t]``
 with f32 accumulation, written in A's dtype. The CUDA kernel takes A and B
 through their own strides, masks ragged edges (every M, N, K works) and
-covers the whole batch in one launch. See the note at the top of the source
-for what bounds it and how it is built.
+covers the whole batch in one launch. f32 runs a pipelined SGEMM whose
+shared tiles keep each operand's contiguous dimension: the source picks one
+of four instantiations (A k- or m-contiguous, B n- or k-contiguous) from the
+strides. See the note at the top of the source for what bounds it and how it
+is built.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +35,35 @@ def _entry(dtype: torch.dtype):
                    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+class KernelInfo(NamedTuple):
+    """What the CUDA runtime and the source report of one f32
+    instantiation."""
+    blocks_per_sm: int
+    registers: int
+    spill_bytes: int
+    smem_bytes: int
+    bk: int          # depth of one K step
+    stages: int      # K steps in the shared ring
+
+
+@functools.cache
+def kernel_info(a_k: bool, b_n: bool, index: int = 0) -> KernelInfo:
+    """The f32 instantiation for A k-contiguous (else m-contiguous) and B
+    n-contiguous (else k-contiguous) on CUDA device ``index``: resident
+    blocks per SM, registers and spill bytes per thread (CUDA runtime), its
+    shared memory, BK and stages (the source). Cholesky's ``l @ l.mT`` runs
+    (True, False), the row-major GEMM update (True, True)."""
+    info = (ctypes.c_int * 6)()
+    fn = _build.load("block_gemm").block_gemm_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    with torch.cuda.device(index):
+        err = fn(int(a_k), int(b_n), info)
+    if err != 0 or info[0] < 1:
+        raise RuntimeError(f"block_gemm: no resident block for a_k={a_k}, "
+                           f"b_n={b_n} (CUDA error {err})")
+    return KernelInfo(*info)
 
 
 def block_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -45,9 +45,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(cuda, dtype, T, m, k, n, transposed, seed=0):
+def _operands(cuda, dtype, T, m, k, n, transposed, seed=0, a_k=True):
+    """A [T, m, k] k- (else m-) contiguous; B [T, k, n] n-contiguous, or
+    k-contiguous when ``transposed``: the four f32 instantiations."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    a = torch.randn((T, m, k), generator=gen, device=cuda).to(dtype)
+    a = (torch.randn((T, m, k), generator=gen, device=cuda) if a_k else
+         torch.randn((T, k, m), generator=gen, device=cuda).mT).to(dtype)
     if transposed:
         return a, torch.randn((T, n, k), generator=gen,
                               device=cuda).to(dtype).mT
@@ -72,6 +75,50 @@ def test_kernel_matches_plain(cuda, dtype, T, m, k, n, transposed):
     err = float((got.float() - want.float()).abs().max()
                 / max(1.0, float(want.float().abs().max())))
     assert err <= TOL[dtype]
+
+
+@pytest.mark.parametrize("T,m,k,n", [(3, 130, 70, 129), (4, 131, 37, 67),
+                                     (2, 129, 33, 255), (5, 12, 9, 20),
+                                     (2, 256, 100, 128)])
+@pytest.mark.parametrize("a_k,b_n", [(True, True), (True, False),
+                                     (False, True), (False, False)],
+                         ids=["Ak-Bn", "Ak-Bk", "Am-Bn", "Am-Bk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_layouts_at_ragged_shapes(cuda, dtype, T, m, k, n, a_k, b_n):
+    """Every layout instantiation at ragged M, N and K (K not a multiple of
+    the K step), against the plain version, and each task of the batch
+    bit for bit equal to the task launched alone."""
+    a, b = _operands(cuda, dtype, T, m, k, n, not b_n, seed=m + k + n,
+                     a_k=a_k)
+    got = block_gemm(a, b)
+    want = block_gemm_ref(a, b)
+    err = float((got.float() - want.float()).abs().max()
+                / max(1.0, float(want.float().abs().max())))
+    assert err <= TOL[dtype]
+    for i in range(T):
+        assert torch.equal(block_gemm(a[i:i + 1], b[i:i + 1])[0], got[i])
+
+
+def test_kernel_reads_unaligned_operands(cuda):
+    """Views one float into a row (no 16-byte copies) take the element
+    path of the same kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn((3, 97, 65), generator=gen, device=cuda)
+    a = big[:, 1:, 1:]
+    b = torch.randn((3, 66, 50), generator=gen, device=cuda)[:, 2:]
+    got = block_gemm(a, b)
+    assert float((got - block_gemm_ref(a, b)).abs().max()) <= 2e-5 * max(
+        1.0, float(block_gemm_ref(a, b).abs().max()))
+
+
+@pytest.mark.parametrize("a_k,b_n", [(True, True), (True, False),
+                                     (False, True), (False, False)])
+def test_kernel_info_reports_two_blocks_without_spills(cuda, a_k, b_n):
+    from repro_torch.kernels.block_gemm.block_gemm import kernel_info as info
+    got = info(a_k, b_n, cuda.index or 0)
+    assert got.blocks_per_sm >= 2 and got.spill_bytes == 0
+    assert got.registers <= 128 and got.stages >= 3
 
 
 def test_kernel_result_does_not_depend_on_its_batch(cuda):
@@ -421,11 +468,66 @@ def test_decode_attention_matches_plain(cuda, dtype, b, hq, hkv, s, d,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_decode_attention_plans_one_wave_of_resident_blocks(cuda, dtype):
-    blocks, regs, spill = kernel_info(dtype, 128, True, cuda.index or 0)
-    assert 1 <= blocks <= 3 and regs > 0 and spill >= 0   # ~73 KB of smem
+    info = kernel_info(dtype, 128, True, cuda.index or 0)
+    blocks = info.blocks_per_sm
+    # the blocks' shared memory fits an SM's 228 KB; bf16's ring keeps at
+    # least 48 KB of K and V in flight on an SM, without spills
+    assert 1 <= blocks and blocks * info.smem_bytes <= 228 * 1024
+    assert info.registers > 0 and info.spill_bytes >= 0
+    if dtype == torch.bfloat16:
+        in_flight = (info.stages - 1) * 2 * info.ts * 128 * 2 * blocks
+        assert in_flight >= 48 * 1024 and info.spill_bytes == 0
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    chunk, n_split = split_plan(32768, 32, sms * blocks)  # yi-6b, batch 8
+    chunk, n_split = split_plan(32768, 32, sms * blocks, info.ts)  # batch 8
     assert 32 * n_split <= sms * blocks < 2 * 32 * n_split
+
+
+@pytest.mark.parametrize("lens", [
+    (63, 65, 127, 129, 255, 257, 383, 385),          # tile +-1, stage +-1
+    (1151, 1153, 1279, 1281, 1023, 1025, 1, 4096),   # the same a range in
+])
+def test_decode_attention_bf16_ring_ends_mid_stage(cuda, lens):
+    """bf16 at yi-6b's head layout over 4096 positions: ranges of 1024 or
+    more positions (several tiles and turns of the ring), kv_len ending one
+    short of and one past a tile (64 or 128 positions) and a turn of the
+    ring, in the first range and one range in; none of it goes to the
+    CUDA-core kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(lens))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((8, 32, 128), (8, 4, 4096, 128),
+                             (8, 4, 4096, 128)))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    decode_attention.narrow = 0
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_ref(q, k, v, kv_len)
+    assert decode_attention.narrow == 0
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+    assert _row_rel(got, want) <= ROW_TOL[torch.bfloat16]
+
+
+def test_decode_attention_counts_the_layouts_the_ring_cannot_read(cuda):
+    """bf16 with D = 20, a view one element into the rows, or K with D not
+    contiguous runs on the CUDA-core kernel and is counted; f32 is never
+    counted, the model's layout never."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    kv_len = torch.tensor([70, 3], dtype=torch.int32, device=cuda)
+
+    def run(q, k, v):
+        before = decode_attention.narrow
+        got = decode_attention(q, k, v, kv_len)
+        assert _rel(got, decode_ref(q, k, v, kv_len)) <= TOL[q.dtype]
+        return decode_attention.narrow - before
+
+    q20, k20, v20 = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+                     for shape in ((2, 4, 20), (2, 2, 70, 20), (2, 2, 70, 20)))
+    assert run(q20, k20, v20) == 1
+    big = torch.randn((2, 2, 70, 72), generator=gen, device=cuda).bfloat16()
+    q = torch.randn((2, 4, 64), generator=gen, device=cuda).bfloat16()
+    assert run(q, big[..., 1:65], big[..., 8:72]) == 1
+    assert run(q, big[..., 8:72].transpose(2, 3).contiguous().transpose(2, 3),
+               big[..., 8:72]) == 1
+    assert run(q, big[..., 8:72], big[..., 0:64]) == 0
+    assert run(q.float(), big[..., 1:65].float(), big[..., 8:72].float()) == 0
 
 
 def test_decode_attention_reference_ragged_lengths(cuda):
