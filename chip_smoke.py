@@ -11,9 +11,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
 1. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
    with ``nvcc``, one compiler per source, all started together (into
    ``src/repro_torch/kernels/_build/``), and check in the SASS that B2's
-   bf16 instantiations run on the tensor cores (HGMMA) and B4's bf16 ring
-   kernel does (HMMA), while B2's and B4's f32 kernels and B1's f32 SGEMM
-   use neither (IEEE f32 on the CUDA cores);
+   bf16 instantiations run on the tensor cores (HGMMA) and B3's and B4's
+   bf16 kernels do (HMMA), while B2's, B3's and B4's f32 kernels and B1's
+   f32 SGEMM use neither (IEEE f32 on the CUDA cores);
 2. hold each kernel against its plain version on the card, in f32 and bf16,
    at the reference's test shapes and at the main paths' shapes: B1
    block_gemm (each of its four layout instantiations at ragged M, N and
@@ -22,7 +22,10 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    the model's own strided prefill call, ragged L, D 64 and 48, the chain
    task; per (batch, q head) too; no operand copied; a chain task's result
    independent of its batch), B3 ssd_scan (with mamba2-1.3b's layer at
-   prefill) and B4 decode_attention (with yi-6b's decode layer over a
+   prefill, in its own strided layout, and chunks of 256 and 512 at
+   d_state 128; per (batch, head) too; no element-wise copies of the
+   model's layout; a head's result independent of its batch) and B4
+   decode_attention (with yi-6b's decode layer over a
    32 768-position cache, and ranges of several tiles that end one short
    of and one past a tile and a ring stage; no bf16 call of the model's
    layout on the CUDA-core kernel); each kernel's registers, spills and
@@ -40,8 +43,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
 6. mamba2-1.3b serving at full width (48 layers, d_model 2048, f32 weights
    from a seeded generator, bf16 compute): ``make_prefill_step`` on 4
    prompts of 2048 tokens (48 B3 launches) against the same step with the
-   plain SSD; 16 greedy ``make_serve_step`` tokens from a fresh cache; and
-   prefill logits of a 256-token prompt against 256 ``decode_step``s;
+   plain SSD (no B3 call on its element-wise copies); 16 greedy
+   ``make_serve_step`` tokens from a fresh cache; and prefill logits of a
+   256-token prompt against 256 ``decode_step``s;
 7. yi-6b serving at full width (32 layers, d_model 4096, GQA 32 over 4 KV
    heads of 128, f32 weights from a seeded generator, bf16 compute):
    prefill of 4 prompts of 2048 tokens (32 B2 launches, no operand
@@ -92,7 +96,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     kernel_info as attention_kernel_info)
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
-                                          ssd_scan)
+                                          ssd_ref, ssd_scan)
+from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
+    kernel_info as ssd_kernel_info, plan as ssd_plan)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_executor, cholesky_program,
                                          make_spd_blocks)
@@ -126,9 +132,19 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 CHAIN_TOL = 1e-3
 # B3 against ssd_chunked_ref, same measure. f32: the reference's 2e-4 (the
 # two take exp of cumulative sums and sum the chunk products in other
-# orders). bf16: both read the same bf16 operands, compute in f32 and round
-# y once, so they differ by about one bf16 rounding (2^-8): 2e-2.
+# orders). bf16: both read the same bf16 operands and round y once; the
+# kernel also rounds its tensor-core operands (the scores, x ⊙ dt ⊙
+# exp(cum_Q − cum), the states entering each chunk) to bf16: 2e-2, the
+# reference's.
 TOL_SSD = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# B3 is also held per (batch, head), normalised by that head's own
+# max|plain| over its [L, P]. Measured on the CPU by
+# scripts/torch_ssd_rounding.py at mamba2-1.3b's layer (Q 128 and 256): the
+# kernel's arithmetic (ssd_bf16_operands_ref) moves a head by up to 5.7e-7
+# of its size in f32 (sums in another order; 1e-4, as B4's, is ~175x that)
+# and 7.3e-3 in bf16 (about one bf16 rounding of y near the head's max;
+# 2e-2 is the reference's bf16 tolerance).
+SSD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # Cholesky N=16384: ||L L^T - A||_F / ||A||_F. A = m m^T / n + 2 I has
 # eigenvalues in about [2, 6], so f32 Cholesky's backward error is a few
@@ -216,18 +232,21 @@ def attention_work(q, k, causal=True) -> tuple:
 
 
 def ssd_work(x, b, q_chunk) -> tuple:
-    """B3's (bytes, FLOPs): x, dt, B, C read and y written once; per
-    (batch, head) and chunk of qv rows, the causal half of C Bᵀ and of its
-    product with dt·x (qv(qv+1)/2 pairs x (N + P) x 2) plus C h and
-    Bᵀ (dt·x) (4 qv N P), as this call's shapes give."""
+    """B3's (bytes, FLOPs): x, dt, B, C read and y written once; per chunk
+    of qv rows, the causal half of C Bᵀ once per (batch, group) (qv(qv+1)/2
+    pairs x N x 2), and per (batch, head) the causal half of its product
+    with dt·x (qv(qv+1)/2 x P x 2) plus C h and Bᵀ (dt·x) (4 qv N P), as
+    this call's shapes give."""
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    flops = 0.0
+    per_group = per_head = 0.0
     for t0 in range(0, l, q_chunk):
         qv = min(q_chunk, l - t0)
-        flops += qv * (qv + 1) * (n + p) + 4.0 * qv * n * p
+        per_group += qv * (qv + 1) * n
+        per_head += qv * (qv + 1) * p + 4.0 * qv * n * p
     return (x.element_size() * (2 * x.numel() + bsz * l * h
-                                + 2 * bsz * l * g * n), flops * bsz * h)
+                                + 2 * bsz * l * g * n),
+            per_group * bsz * g + per_head * bsz * h)
 
 
 def leaves(tree):
@@ -238,11 +257,12 @@ def leaves(tree):
 
 def reset_launches() -> None:
     """Zero every kernel's launch counter, B2's count of operands copied
-    for TMA and B4's count of bf16 calls on its CUDA-core kernel, just
-    before a main-path run."""
+    for TMA, B3's count of calls with element-wise copies and B4's count of
+    bf16 calls on its CUDA-core kernel, just before a main-path run."""
     for kernel in (block_gemm, flash_attention, ssd_scan, decode_attention):
         kernel.launches = 0
     flash_attention.copies = 0
+    ssd_scan.narrow = 0
     decode_attention.narrow = 0
 
 
@@ -316,6 +336,29 @@ def phase_build() -> None:
     check(len(f32) == 4 and all(c["FFMA"] > 0 and not c["HGMMA"]
                                 and not c["HMMA"] for c in f32.values()),
           f"block_gemm f32 kernels on the tensor cores: {f32}")
+    # B3's bf16 products (C Bᵀ, the chunk states, C H and the scores times
+    # x) run on mma.sync (HMMA); its f32 kernels stay on the CUDA cores
+    counts = sass_counts("ssd_scan", ("HGMMA", "HMMA", "FFMA"))
+    bf16 = {f: c for f, c in counts.items()
+            if "nv_bfloat16" in f and "ssd_cumsum" not in f}
+    f32 = {f: c for f, c in counts.items() if "nv_bfloat16" not in f}
+    log(f"[build] ssd_scan SASS: bf16 kernels "
+        f"{[c['HMMA'] for c in bf16.values()]} HMMA; f32 kernels "
+        f"{[c['HGMMA'] + c['HMMA'] for c in f32.values()]} HGMMA+HMMA, "
+        f"{[c['FFMA'] for c in f32.values()]} FFMA")
+    check(len(bf16) == 3 and all(c["HMMA"] > 0 for c in bf16.values()),
+          f"ssd_scan bf16 kernels without HMMA: {bf16}")
+    check(len(f32) == 4 and not any(c["HGMMA"] or c["HMMA"]
+                                    for c in f32.values()),
+          f"ssd_scan f32 kernels on the tensor cores: {f32}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, info in ssd_kernel_info(dtype, 0).items():
+            log(f"[build] ssd_scan {str(dtype)[6:]} {name}: "
+                f"{info.registers} registers, {info.spill_bytes} spill "
+                f"bytes per thread, {info.blocks_per_sm} resident blocks "
+                f"per SM, {info.smem_bytes} B shared (CUDA runtime)")
+            check(info.spill_bytes == 0 and info.blocks_per_sm >= 1,
+                  f"ssd_scan {dtype} {name}: {info}")
 
 
 def gemm_operands(gen, dev, dtype, T, M, K, N, a_k=True, b_n=True):
@@ -489,48 +532,97 @@ def phase_attention_vs_plain(dev) -> None:
                 f"{info.bq} queries x {info.bk} keys (CUDA runtime)")
 
 
-def ssd_operands(gen, dev, dtype, b, l, h, g, p, n):
-    """x, dt, A, B, C, D as ``tests/test_kernels.py`` makes them."""
+def ssd_operands(gen, dev, dtype, b, l, h, g, p, n, model=False):
+    """x, dt, A, B, C, D as ``tests/test_kernels.py`` makes them; with
+    ``model``, x, B and C are views of one [b, l, h·p + 2·g·n] projection,
+    as ``mamba2_forward`` hands them to B3."""
     def randn(*s):
         return torch.randn(s, generator=gen, device=dev)
-    return (randn(b, l, h, p).to(dtype),
-            (F.softplus(randn(b, l, h)) * 0.1).to(dtype),
-            -torch.exp(randn(h) * 0.5), (randn(b, l, g, n) * 0.5).to(dtype),
-            (randn(b, l, g, n) * 0.5).to(dtype),
+    if model:
+        proj = (randn(b, l, h * p + 2 * g * n) * 0.5).to(dtype)
+        proj[..., :h * p] *= 2.0
+        x, bm, cm = proj.split([h * p, g * n, g * n], dim=-1)
+        x, bm, cm = (x.unflatten(-1, (h, p)), bm.unflatten(-1, (g, n)),
+                     cm.unflatten(-1, (g, n)))
+    else:
+        x = randn(b, l, h, p).to(dtype)
+        bm = (randn(b, l, g, n) * 0.5).to(dtype)
+        cm = (randn(b, l, g, n) * 0.5).to(dtype)
+    return (x, (F.softplus(randn(b, l, h)) * 0.1).to(dtype),
+            -torch.exp(randn(h) * 0.5), bm, cm,
             torch.full((h,), 0.5, device=dev))
+
+
+def ssd_head_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over (batch, head) of max|got - want| / max|want| within
+    that head's [L, P]."""
+    return row_err(got.transpose(1, 2).flatten(2),
+                   want.transpose(1, 2).flatten(2))
 
 
 def phase_ssd_vs_plain(dev) -> None:
     """B3 against ``ssd_chunked_ref`` at the reference's test shapes
     (``tests/test_kernels.py:145-181``, the carry test at Q = 32 and 128
-    included) and at mamba2-1.3b's layer at prefill."""
+    included), at chunks of 256 and 512 with d_state 128 (fault C1), at
+    mamba2-1.3b's layer at prefill in its own strided layout (no element-
+    wise copies), whole tensor and per (batch, head); then a head's result
+    independent of its batch, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(4)
     m = get_config("mamba2-1.3b")
     nh = m.ssm.n_heads(m.d_model)
-    cases = [(1, 128, 2, 1, 32, 16, 64), (2, 256, 4, 2, 64, 32, 128),
-             (1, 64, 8, 8, 16, 16, 32), (1, 256, 2, 1, 16, 8, 32),
-             (1, 256, 2, 1, 16, 8, 128),
-             (4, 2048, nh, m.ssm.n_groups, m.ssm.head_dim, m.ssm.d_state,
-              128)]
+    layer = (4, 2048, nh, m.ssm.n_groups, m.ssm.head_dim, m.ssm.d_state)
+    cases = [((1, 128, 2, 1, 32, 16), 64, False),
+             ((2, 256, 4, 2, 64, 32), 128, False),
+             ((1, 64, 8, 8, 16, 16), 32, False),
+             ((1, 256, 2, 1, 16, 8), 32, False),
+             ((1, 256, 2, 1, 16, 8), 128, False),
+             ((2, 1024, 4, 1, 64, 128), 256, False),    # C1
+             ((1, 1024, 4, 2, 64, 128), 512, False),    # C1
+             ((1, 1000, 4, 1, 64, 128), 256, False),    # C1, ragged
+             (layer, 128, True), (layer, 256, True)]
     for dtype in (torch.float32, torch.bfloat16):
-        for b, l, h, g, p, n, q in cases:
-            ops = ssd_operands(gen, dev, dtype, b, l, h, g, p, n)
+        for shape, q, model in cases:
+            ops = ssd_operands(gen, dev, dtype, *shape, model=model)
+            ssd_scan.narrow = 0
             got = ssd_scan(*ops, q_chunk=q)
-            want = ssd_chunked_ref(*ops, q_chunk=q)
             torch.cuda.synchronize()
-            name = f"x[{b},{l},{h},{p}] b/c[..,{g},{n}] Q{q}"
+            narrow = ssd_scan.narrow
+            want = (ssd_chunked_ref(*ops, q_chunk=q) if shape[1] % q == 0
+                    else ssd_ref(*ops))
+            b, l, h, g, p, n = shape
+            name = (f"x[{b},{l},{h},{p}] b/c[..,{g},{n}] Q{q}"
+                    + (" model layout" if model else ""))
             check(got.shape == want.shape and got.dtype == dtype,
                   f"ssd_scan {name}: shape/dtype")
-            err = rel_err(got, want)
-            log(f"[kernel] ssd_scan {name:<34} {str(dtype)[6:]:<9} max err "
-                f"{err:.3e} (tol {TOL_SSD[dtype]:.0e})")
+            err, head = rel_err(got, want), ssd_head_err(got, want)
+            log(f"[kernel] ssd_scan {name:<48} {str(dtype)[6:]:<9} max err "
+                f"{err:.3e} (tol {TOL_SSD[dtype]:.0e}), per head {head:.3e} "
+                f"(tol {SSD_ROW_TOL[dtype]:.0e}); "
+                f"{ssd_plan(b, l, h, g, p, n, q, got.element_size()).kernels}"
+                f" kernels")
             check(math.isfinite(err) and err <= TOL_SSD[dtype],
                   f"ssd_scan {name} {dtype}: err {err}")
+            check(math.isfinite(head) and head <= SSD_ROW_TOL[dtype],
+                  f"ssd_scan {name} {dtype}: per-head err {head}")
+            if model:
+                check(narrow == 0, f"ssd_scan {name}: element-wise copies")
             del ops, got, want
     log("[kernel] ssd_scan tolerance: max|kernel - plain| / max(1, "
         "max|plain|); f32 2e-4 is the reference's (exp of cumulative sums, "
-        "chunk products in another order); bf16 2e-2 (same bf16 operands, "
-        "f32 math, y rounded once on both sides)")
+        "chunk products in another order); bf16 2e-2, the reference's (the "
+        "scores, x·dt·exp(cum_Q - cum) and the chunk states rounded to bf16 "
+        "as tensor-core operands, y once); per (batch, head) against the "
+        "head's own max|plain|, 1e-4 / 2e-2 (scripts/torch_ssd_rounding.py)")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, a, bm, cm, d = ssd_operands(gen, dev, dtype, 3, 512, 4, 2, 64,
+                                           128)
+        batched = ssd_scan(x, dt, a, bm, cm, d)
+        alone = [ssd_scan(x[i:i + 1], dt[i:i + 1], a, bm[i:i + 1],
+                          cm[i:i + 1], d) for i in range(3)]
+        check(torch.equal(batched, torch.cat(alone)),
+              f"ssd_scan {dtype}: a head's result depends on its batch")
+    log("[kernel] ssd_scan x[3,512,4,64] f32 and bf16: each batch row bit "
+        "for bit as alone")
 
 
 def decode_operands(gen, dev, dtype, b, hq, hkv, s, d):
@@ -922,12 +1014,14 @@ def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
         logits = step(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
-        launches = ssd_scan.launches
+        launches, narrow = ssd_scan.launches, ssd_scan.narrow
         log(f"[mamba2] prefill {batch} x {prompt} tokens: {1e3 * prefill_s:.1f}"
             f" ms, {batch * prompt / prefill_s:.0f} tok/s; ssd_scan launches "
-            f"{launches}")
+            f"{launches}, with element-wise copies {narrow}")
         check(launches == cfg.n_layers,
               f"prefill: ssd_scan launches {launches} != {cfg.n_layers}")
+        check(narrow == 0, f"prefill: {narrow} ssd_scan calls copied x, B "
+                           "or C element by element")
         profile("prefill", lambda: step(params, {"tokens": toks}))
         check(tuple(logits.shape) == (batch, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
@@ -963,7 +1057,8 @@ def phase_mamba2(dev, batch=4, prompt=2048, tokens=16, check_len=256) -> dict:
         reset_launches()
         logits = step32(params, {"tokens": toks})
         torch.cuda.synchronize()
-        check(ssd_scan.launches == cfg.n_layers, "f32 prefill: launches")
+        check(ssd_scan.launches == cfg.n_layers and ssd_scan.narrow == 0,
+              "f32 prefill: launches, or element-wise copies")
         with plain_ssd():
             want = step32(params, {"tokens": toks})
         err, agree = compare(logits, want)
@@ -1272,29 +1367,40 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
 
 
 def phase_time_ssd(dev, shape) -> dict:
-    """B3 at mamba2-1.3b's layer at prefill (bf16, Q 128): the kernel and
-    its plain version. No single PyTorch call computes the SSD scan, so
-    there is no library time."""
+    """B3 at mamba2-1.3b's layer at prefill, in the model's layout (x, B
+    and C views of one projection): bf16 at Q 128 (the model's; the row
+    returned) and Q 256, f32 at Q 128; the kernels and their plain version.
+    No single PyTorch call computes the SSD scan, so there is no library
+    time."""
     b, l, h, p, g, n = shape
     gen = torch.Generator(device=dev).manual_seed(6)
-    ops = ssd_operands(gen, dev, torch.bfloat16, b, l, h, g, p, n)
-    got = ssd_scan(*ops)
-    err = float((got.float() - ssd_chunked_ref(*ops).float()).abs().max())
-    reps = 5
-    kernel = cuda_ms(lambda: ssd_scan(*ops), reps)
-    plain = cuda_ms(lambda: ssd_chunked_ref(*ops), reps)
-    kernel2 = cuda_ms(lambda: ssd_scan(*ops), reps)
-    nbytes, flops = ssd_work(ops[0], ops[3], 128)
-    bnd, bound_by = bound(nbytes, flops, torch.bfloat16)
-    log(f"[time] ssd_scan mamba2-1.3b layer x[{b},{l},{h},{p}] "
-        f"b/c[{b},{l},{g},{n}] bf16 Q128: kernel {kernel:.3f} / "
-        f"{kernel2:.3f} ms, plain {plain:.3f} ms, library none, bound "
-        f"{bnd:.3f} ms ({bound_by}); kernel "
-        f"{1e-9 * flops / min(kernel, kernel2):.1f} TFLOP/s, "
-        f"{1e-6 * nbytes / min(kernel, kernel2):.0f} GB/s")
-    return {"ms": min(kernel, kernel2), "plain_ms": plain, "library_ms": None,
-            "bound_ms": bnd, "bound_by": bound_by, "max_abs_err": err,
-            "shape": list(shape)}
+    row = None
+    for dtype, q in ((torch.bfloat16, 128), (torch.bfloat16, 256),
+                     (torch.float32, 128)):
+        ops = ssd_operands(gen, dev, dtype, b, l, h, g, p, n, model=True)
+        got = ssd_scan(*ops, q_chunk=q)
+        err = float((got.float() - ssd_chunked_ref(*ops, q_chunk=q).float())
+                    .abs().max())
+        reps = 10
+        kernel = cuda_ms(lambda: ssd_scan(*ops, q_chunk=q), reps)
+        plain = cuda_ms(lambda: ssd_chunked_ref(*ops, q_chunk=q), 3)
+        kernel2 = cuda_ms(lambda: ssd_scan(*ops, q_chunk=q), reps)
+        nbytes, flops = ssd_work(ops[0], ops[3], q)
+        bnd, bound_by = bound(nbytes, flops, dtype)
+        kernels = ssd_plan(b, l, h, g, p, n, q, got.element_size()).kernels
+        log(f"[time] ssd_scan mamba2-1.3b layer x[{b},{l},{h},{p}] "
+            f"b/c[{b},{l},{g},{n}] {str(dtype)[6:]} Q{q}: kernel "
+            f"{kernel:.3f} / {kernel2:.3f} ms ({kernels} kernels a call), "
+            f"plain {plain:.3f} ms, library none, bound {bnd:.3f} ms "
+            f"({bound_by}); kernel {1e-9 * flops / min(kernel, kernel2):.1f} "
+            f"TFLOP/s, {1e-6 * nbytes / min(kernel, kernel2):.0f} GB/s")
+        if row is None:      # the model's own call
+            row = {"ms": min(kernel, kernel2), "plain_ms": plain,
+                   "library_ms": None, "bound_ms": bnd, "bound_by": bound_by,
+                   "max_abs_err": err, "shape": list(shape) + ["bfloat16", q],
+                   "kernels_per_call": kernels}
+        del ops, got
+    return row
 
 
 def phase_time_decode(dev) -> dict:

@@ -1,12 +1,13 @@
-"""Plant known faults in copies of B1's and B4's CUDA sources and check that
-``chip_smoke.py``'s kernel checks catch each one.
+"""Plant known faults in copies of B1's, B3's and B4's CUDA sources and
+check that ``chip_smoke.py``'s kernel checks catch each one.
 
     python scripts/torch_planted_faults.py
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 For each fault it copies ``src/`` and ``chip_smoke.py`` into a temporary
 directory (outside the checkout, removed afterwards), edits one line of a
-kernel's source there, and runs ``phase_build`` and the phase that holds
+kernel's source there (every occurrence, where the fault's line occurs
+more than once), and runs ``phase_build`` and the phase that holds
 that kernel against its plain version, in a fresh process. A fault counts
 as caught when that process fails with one of the smoke's checks. It
 prints the failing check and the last kernel lines of each run, and exits
@@ -17,7 +18,16 @@ prints the failing check and the last kernel lines of each run, and exits
 - B4 computing each tile on the ring's other stage (a stale or unfilled
   tile);
 - B1 skipping its ragged last K step (``K // BK`` steps): needs a K that
-  is not a multiple of BK.
+  is not a multiple of BK;
+- B3 without the state handed from chunk to chunk (H_c = 0): needs two
+  chunks;
+- B3's bf16 scores not masked for the 8 columns above the diagonal
+  (L_ij for i < j <= i + 8);
+- B3 mapping head h to group h % G instead of h / (H / G): needs G > 1
+  and a group of more than one head;
+- B3's tiles not zeroed past the data (the ragged last chunk's rows, the
+  edges of N and P, the rows past a chunk shorter than its tile): the
+  copies skipped leave stale shared memory there.
 """
 
 import os
@@ -43,10 +53,28 @@ FAULTS = {
         "src/repro_torch/kernels/csrc/block_gemm.cu",
         "const int n_k = (K + BK - 1) / BK;", "const int n_k = K / BK;",
         "phase_kernel_vs_plain"),
+    "B3 without the state hand-off": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "const int n_inter = c > 0 ? p.Npd / TILE : 0;",
+        "const int n_inter = 0;", "phase_ssd_vs_plain"),
+    "B3 with L not masked above the diagonal": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "const int la = ra - jr, lb = rb - jr;",
+        "const int la = ra - jr + 8, lb = rb - jr + 8;",
+        "phase_ssd_vs_plain"),
+    "B3 mapping head h to group h % G": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "g = h / (p.H / p.G);", "g = h % p.G;", "phase_ssd_vs_plain", 2),
+    "B3 not zeroing its tiles past the data": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "cp_async16(dst + r * PT + col, live ? src + r * rs + col : safe, "
+        "live);",
+        "if (live) cp_async16(dst + r * PT + col, src + r * rs + col, true);",
+        "phase_ssd_vs_plain"),
 }
 
 
-def run(name, path, old, new, phase) -> bool:
+def run(name, path, old, new, phase, count=1) -> bool:
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree("src", os.path.join(tmp, "src"),
                         ignore=shutil.ignore_patterns("_build",
@@ -55,9 +83,10 @@ def run(name, path, old, new, phase) -> bool:
         target = os.path.join(tmp, path)
         with open(target) as f:
             text = f.read()
-        if text.count(old) != 1:
+        if text.count(old) != count:
             raise SystemExit(f"{name}: the line to change occurs "
-                             f"{text.count(old)} times in {path}")
+                             f"{text.count(old)} times in {path}, not "
+                             f"{count}")
         with open(target, "w") as f:
             f.write(text.replace(old, new))
         code = ("import torch, chip_smoke as c; "

@@ -84,3 +84,63 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if d is not None:
         y = y + x.float() * d.float()[None, None, :, None]
     return y.to(x.dtype)
+
+
+def ssd_bf16_operands_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, c: torch.Tensor,
+                          d: Optional[torch.Tensor] = None, *,
+                          q_chunk: int = 128) -> torch.Tensor:
+    """The chunk-parallel kernel's arithmetic in plain PyTorch: the same
+    function as ``ssd_chunked_ref``, computed as the kernel computes it.
+    Per chunk, C Bᵀ per group in f32; the scores (C Bᵀ) ⊙ L ⊙ dt_j; the
+    chunk's own end state S = Bᵀ (x ⊙ dt ⊙ exp(cum_Q − cum)); the states H
+    entering each chunk handed on in f32; y = scores · x + exp(cum) ⊙ (C H)
+    + D x. For bf16 operands the scores, x ⊙ dt ⊙ exp(cum_Q − cum) and H
+    are rounded to bf16 where they become operands of the tensor cores'
+    products (B, C and x are used as stored; products and sums in f32) and
+    y once at the end; for f32 operands nothing is rounded but y. Any L:
+    a ragged last chunk is padded with dt = x = B = C = 0 rows."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    q = min(q_chunk, l)
+    nc = -(-l // q)
+    pad = nc * q - l
+    if x.dtype == torch.bfloat16:
+        def rnd(t):
+            return t.to(torch.bfloat16).float()
+    else:
+        def rnd(t):
+            return t
+
+    def chunks(t):      # [B, L, ...] -> [B, nc, q, ...] in f32, zero-padded
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bsz, nc, q) + t.shape[2:])
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(b), chunks(c)
+    cum = (dtc * a.float()[None, None, None, :]).cumsum(dim=2)    # [B,nc,q,H]
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for ci in range(nc):
+        cu, dtk, xk = cum[:, ci], dtc[:, ci], xc[:, ci]
+        cb = torch.einsum("bign,bjgn->bijg", cc[:, ci], bc[:, ci])
+        cb = cb.repeat_interleave(rep, dim=3)                     # [B,i,j,H]
+        lmat = torch.exp((cu[:, :, None] - cu[:, None, :]).masked_fill(
+            ~tri[None, :, :, None], float("-inf")))
+        scores = rnd(cb * lmat * dtk[:, None, :, :])
+        y = torch.einsum("bijh,bjhp->bihp", scores, xk)
+        cx = cc[:, ci].repeat_interleave(rep, dim=2)              # [B,q,H,N]
+        y = y + torch.exp(cu)[..., None] * torch.einsum(
+            "bihn,bhnp->bihp", cx, rnd(state))
+        w = dtk * torch.exp(cu[:, -1:, :] - cu)                   # [B,q,H]
+        s_c = torch.einsum("bjhn,bjhp->bhnp",
+                           bc[:, ci].repeat_interleave(rep, dim=2),
+                           rnd(xk * w[..., None]))
+        state = torch.exp(cu[:, -1, :])[..., None, None] * state + s_c
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(bsz, nc * q, h, p)[:, :l]
+    if d is not None:
+        y = y + x.float() * d.float()[None, None, :, None]
+    return y.to(x.dtype)

@@ -1,50 +1,122 @@
 """Wrapper of the hand-written Hopper SSD scan (``csrc/ssd_scan.cu``).
 
 The port of the JAX package's Pallas kernel ``ssd_scan``
-(``src/repro/kernels/ssd_scan/ssd_scan.py``): the Mamba-2 SSD, chunk by
-chunk, with the [N, P] state carried across chunks and the D skip added in
-the same pass. The CUDA kernel reads x, dt, B and C through their own
-strides, maps each head to its group, and masks a ragged last chunk, so
-every L works. See the note at the top of the source for what bounds it.
+(``src/repro/kernels/ssd_scan/ssd_scan.py``): the Mamba-2 SSD by chunks,
+with the D skip added in the same pass. On the card it is chunk-parallel:
+four kernels (cumsum; C Bᵀ per group; the states entering each chunk, the
+chunks walked in order with the state in registers; the output), bf16
+products on the tensor cores. Every kernel walks 64-wide tiles, so any
+chunk length Q >= 1 and any L work (a ragged last chunk is masked). x, dt,
+B and C are read through their own strides; the rows of x, B and C are
+copied 16 bytes at a time where their layout allows it, else element by
+element, counted in ``ssd_scan.narrow``. The wrapper allocates the
+scratch the kernels share (``plan``). See the note at the top of the
+source for what bounds it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import _build
 from .ref import ssd_chunked_ref, ssd_ref
 
-_DTYPES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
-_PT, _RT, _THREADS = 64, 32, 256    # the kernel's P slice, score rows, threads
-SMEM_LIMIT = 232448                 # bytes a block may use on Hopper
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}   # entry suffixes
+TILE = 64                 # rows and columns of every tile of the kernels
+KERNELS = ("ssd_cumsum", "ssd_cb", "ssd_state", "ssd_out")
+_ALIGN = 256              # bytes between the scratch's pieces
 _INT_MAX = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    """How one call is cut: the chunk ``q``, its rows padded to whole tiles
+    (``qp``), the chunks ``nc``, N and P padded to whole tiles, the kernels
+    it launches, and the byte offsets of the scratch's pieces (dt and cum
+    [B·H][nc][qp] f32, C Bᵀ [B·G][nc][qp][qp] f32 and the states entering
+    chunks 1 .. nc-1, [B·H][nc-1][npd][ppd] in x's type) within
+    ``nbytes``."""
+    q: int
+    qp: int
+    nc: int
+    npd: int
+    ppd: int
+    kernels: int
+    offsets: Tuple[int, int, int, int]   # dtc, cum, cb, h
+    nbytes: int
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def plan(bsz: int, l: int, h: int, g: int, p: int, n: int, q_chunk: int,
+         itemsize: int) -> Plan:
+    """The cut of a call with x [bsz, l, h, p], B/C [bsz, l, g, n] and
+    chunk ``min(q_chunk, l)``, x's elements ``itemsize`` bytes wide."""
+    q = min(q_chunk, l)
+    if q < 1:
+        raise ValueError(f"ssd_scan: chunk {q_chunk} < 1")
+    qp, npd, ppd = _up(q, TILE), _up(n, TILE), _up(p, TILE)
+    nc = -(-l // q)
+    sizes = (4 * bsz * h * nc * qp, 4 * bsz * h * nc * qp,
+             4 * bsz * g * nc * qp * qp,
+             itemsize * bsz * h * (nc - 1) * npd * ppd)
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += _up(size, _ALIGN)
+    return Plan(q, qp, nc, npd, ppd, 4 if nc > 1 else 3, tuple(offsets), at)
+
+
+def vec_ok(t: torch.Tensor) -> bool:
+    """Whether the kernels may copy ``t``'s rows (its last dimension) 16
+    bytes at a time: unit stride there, whole 16-byte pieces, 16-byte
+    aligned base and strides (of the dimensions longer than one)."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.shape[-1] * size % 16 == 0
+            and t.data_ptr() % 16 == 0
+            and all(k == 1 or s * size % 16 == 0
+                    for k, s in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 @functools.cache
 def _entry(dtype: torch.dtype):
-    """The C entry point for ``dtype``, with its argument types declared
-    (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    fn = getattr(_build.load("ssd_scan"), _DTYPES[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                      ctypes.c_void_p])
+    """The C entry point for ``dtype``: pointers and dims as arrays, the
+    stream as ``c_void_p``."""
+    fn = getattr(_build.load("ssd_scan"), f"ssd_scan_{_DTYPES[dtype]}")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(q: int, n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: dt·x [Q][64], the state [N][64],
-    the scores [32][Q + 1], the cumsum and scan totals in f32, and the
-    chunk's B and C [Q][N + pad] in the input dtype (rows padded to an odd
-    number of 32-bit words)."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    row = n + 1 if size == 4 else n + 2
-    return 4 * (q * _PT + n * _PT + _RT * (q + 1) + q + 8) + 2 * q * row * size
+class KernelInfo(NamedTuple):
+    """What the CUDA runtime reports of one kernel."""
+    registers: int
+    spill_bytes: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+@functools.cache
+def kernel_info(dtype: torch.dtype, index: int) -> dict:
+    """{kernel name: KernelInfo} of ``dtype``'s four kernels on CUDA device
+    ``index``."""
+    fn = getattr(_build.load("ssd_scan"), f"ssd_scan_info_{_DTYPES[dtype]}")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 16)()
+    with torch.cuda.device(index):
+        err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan: kernel_info failed with CUDA error "
+                           f"{err}")
+    return {name: KernelInfo(*out[4 * k:4 * k + 4])
+            for k, name in enumerate(KERNELS)}
 
 
 def _plain(x, dt, a, b, c, d, q_chunk):
@@ -64,8 +136,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     On CPU tensors this is the plain version (the chunked algorithm when L
     tiles by ``min(q_chunk, L)``, else the token recurrence); on CUDA
-    tensors it launches the kernel, on the current stream, or raises.
-    ``ssd_scan.launches`` counts the launches."""
+    tensors it launches the kernels, on the current stream, or raises.
+    ``ssd_scan.launches`` counts the calls that launch (each call is
+    ``plan(...).kernels`` launches); ``ssd_scan.narrow`` the calls in which
+    x, B or C is copied element by element."""
     ops = (x, dt, a, b, c) + ((d,) if d is not None else ())
     if all(t.device.type == "cpu" for t in ops):
         return _plain(x, dt, a, b, c, d, q_chunk)
@@ -87,30 +161,32 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} do not pair (H % G == 0)")
-    q = min(q_chunk, l)
-    if not 1 <= q <= _THREADS:
-        raise ValueError(f"ssd_scan: chunk {q} outside [1, {_THREADS}]")
-    smem = smem_bytes(q, n, x.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {q} x d_state {n} in {x.dtype} "
-                         f"needs {smem} bytes of shared memory > {SMEM_LIMIT}")
-    if max(bsz * h, l) > _INT_MAX:
-        raise ValueError("ssd_scan: a dimension exceeds 2**31 - 1")
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    pl = plan(bsz, l, h, g, p, n, q_chunk, x.element_size())
+    if max(bsz * l * h * p, pl.nc * pl.qp) > _INT_MAX:
+        raise ValueError("ssd_scan: a dimension exceeds 2**31 - 1")
+    vec = (vec_ok(x), vec_ok(b), vec_ok(c))
     a32 = a.to(torch.float32).contiguous()
     d32 = d.to(torch.float32).contiguous() if d is not None else None
-    strides = (ctypes.c_longlong * 15)(*x.stride(), *dt.stride(), *b.stride(),
-                                       *c.stride())
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(x.dtype)(x.data_ptr(), dt.data_ptr(), a32.data_ptr(),
-                              b.data_ptr(), c.data_ptr(),
-                              d32.data_ptr() if d32 is not None else None,
-                              y.data_ptr(), bsz, l, h, g, p, n, q, strides,
-                              smem, stream)
+    scratch = torch.empty(pl.nbytes, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    ptrs = (ctypes.c_void_p * 11)(
+        x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
+        c.data_ptr(), None if d32 is None else d32.data_ptr(), y.data_ptr(),
+        *(base + off for off in pl.offsets))
+    args = (ctypes.c_longlong * 29)(
+        bsz, l, h, g, p, n, pl.q, pl.qp, pl.nc, pl.npd, pl.ppd, *vec,
+        *x.stride(), *dt.stride(), *b.stride(), *c.stride())
+    index = x.device.index
+    guard = (contextlib.nullcontext() if torch.cuda.current_device() == index
+             else torch.cuda.device(index))
+    with guard:     # the kernels launch on the current device's stream
+        err = _entry(x.dtype)(ptrs, args,
+                              torch._C._cuda_getCurrentRawStream(index))
     ssd_scan.launches += 1
+    ssd_scan.narrow += not all(vec)
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "
                            f"{err}")
@@ -118,3 +194,4 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.narrow = 0

@@ -9,6 +9,8 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -162,9 +164,13 @@ def test_cholesky_executor_runs_the_kernel(cuda):
 # reference's 2e-5 / 2e-2: sums and the online softmax's rescaling in
 # another order; one bf16 rounding). B3 in f32: the reference's 2e-4 (exp
 # of cumulative sums in another order); in bf16 both sides load the same
-# bf16 values, compute in f32 and round once: about one bf16 rounding
-# (2^-8), so 2e-2.
+# bf16 values and round y once, and the kernel rounds its tensor-core
+# operands (scores, scaled x, chunk states) to bf16: the reference's 2e-2.
 TOL_SSD = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# B3 per (batch, head), against the head's own size, as chip_smoke.py holds
+# it (scripts/torch_ssd_rounding.py measures the rounding: 5.7e-7 in f32,
+# 7.3e-3 in bf16 at mamba2-1.3b's layer).
+SSD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _rel(got, want):
@@ -179,6 +185,11 @@ def _head_rel(got, want):
     got, want = got.float().flatten(2), want.float().flatten(2)
     return float(((got - want).abs().amax(-1)
                   / want.abs().amax(-1)).max())
+
+
+def _ssd_head_rel(got, want):
+    """``_head_rel`` over B3's [B, L, H, P]: per (batch, head)."""
+    return _head_rel(got.transpose(1, 2), want.transpose(1, 2))
 
 
 @pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
@@ -404,21 +415,118 @@ def test_ssd_scan_reads_strided_views(cuda):
     assert _rel(got, want) <= TOL_SSD[torch.float32]
 
 
+def _mamba2_block(cuda, cfg, length):
+    """(kernel on the card, plain on the CPU) outputs of one mamba2 block of
+    ``cfg``, f32 compute, over a [2, length] sequence; asserts one B3
+    launch and no element-wise copies of its strided x, B and C."""
+    params = init_params(cfg, seed=0, device="cpu")
+    layer = {k: v[0] for k, v in params["ssm"]["mamba"].items()}
+    x = torch.randn((2, length, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want = mamba2_forward(x, layer, cfg.ssm, cfg.d_model)
+    layer_c = {k: v.to(cuda) for k, v in layer.items()}
+    before, narrow = ssd_scan.launches, ssd_scan.narrow
+    got = mamba2_forward(x.to(cuda), layer_c, cfg.ssm, cfg.d_model)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert ssd_scan.narrow == narrow
+    return got.cpu(), want
+
+
 def test_mamba2_block_runs_the_ssd_kernel(cuda):
     """One reduced mamba2-1.3b block on the card (one B3 launch) against the
     same block on the CPU (the plain version), f32 compute."""
     cfg = reduced(get_config("mamba2-1.3b"), compute_dtype="float32")
-    params = init_params(cfg, seed=0, device="cpu")
-    layer = {k: v[0] for k, v in params["ssm"]["mamba"].items()}
-    x = torch.randn((2, 64, cfg.d_model),
-                    generator=torch.Generator().manual_seed(1))
-    want = mamba2_forward(x, layer, cfg.ssm, cfg.d_model)
-    layer_c = {k: v.to(cuda) for k, v in layer.items()}
-    before = ssd_scan.launches
-    got = mamba2_forward(x.to(cuda), layer_c, cfg.ssm, cfg.d_model)
+    got, want = _mamba2_block(cuda, cfg, 64)
+    assert _rel(got, want) <= TOL_SSD[torch.float32]
+
+
+def test_mamba2_block_with_chunks_of_256(cuda, monkeypatch):
+    """Fault C1 on the model path: with REPRO_SSD_CHUNK=256 and mamba2-1.3b's
+    d_state of 128 the block runs B3 (which once refused the chunk for its
+    shared memory) and matches the plain version."""
+    monkeypatch.setenv("REPRO_SSD_CHUNK", "256")
+    cfg = reduced(get_config("mamba2-1.3b"), compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           d_state=128))
+    got, want = _mamba2_block(cuda, cfg, 512)
+    assert _rel(got, want) <= TOL_SSD[torch.float32]
+
+
+@pytest.mark.parametrize("q,l", [(256, 1024), (512, 1024), (256, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_long_chunks(cuda, dtype, q, l):
+    """Fault C1: chunks of 256 and 512 at d_state 128 (the reference takes
+    any Q that tiles L), a ragged one too; whole and per (batch, head)."""
+    x, dt, a, bm, cm, d = _ssd_inputs(cuda, dtype, 2, l, 4, 2, 64, 128,
+                                      seed=q)
+    got = ssd_scan(x, dt, a, bm, cm, d, q_chunk=q)
+    want = (ssd_chunked_ref(x, dt, a, bm, cm, d, q_chunk=q) if l % q == 0
+            else ssd_ref(x, dt, a, bm, cm, d))
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
-    assert _rel(got.cpu(), want) <= TOL_SSD[torch.float32]
+    assert _rel(got, want) <= TOL_SSD[dtype]
+    assert _ssd_head_rel(got, want) <= SSD_ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_per_head_at_the_model_layer(cuda, dtype):
+    """mamba2-1.3b's layer at prefill (B 4, L 2048, H 64, P 64, N 128) in
+    the model's layout: each (batch, head) against its own size, and no
+    element-wise copies."""
+    b, l, h, p, g, n = 4, 2048, 64, 64, 1, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    proj = (torch.randn((b, l, h * p + 2 * g * n), generator=gen,
+                        device=cuda) * 0.5).to(dtype)
+    x, bm, cm = proj.split([h * p, g * n, g * n], dim=-1)
+    x, bm, cm = (x.unflatten(-1, (h, p)), bm.unflatten(-1, (g, n)),
+                 cm.unflatten(-1, (g, n)))
+    dt = (torch.nn.functional.softplus(torch.randn(
+        (b, l, h), generator=gen, device=cuda)) * 0.1).to(dtype)
+    a = -torch.exp(torch.randn(h, generator=gen, device=cuda) * 0.5)
+    d = torch.full((h,), 0.5, device=cuda)
+    narrow = ssd_scan.narrow
+    got = ssd_scan(x, dt, a, bm, cm, d)
+    want = ssd_chunked_ref(x, dt, a, bm, cm, d)
+    torch.cuda.synchronize()
+    assert ssd_scan.narrow == narrow
+    assert _rel(got, want) <= TOL_SSD[dtype]
+    assert _ssd_head_rel(got, want) <= SSD_ROW_TOL[dtype]
+
+
+def test_ssd_scan_counts_element_wise_copies(cuda):
+    """``ssd_scan.narrow`` counts a call whose x, B or C rows cannot be
+    copied 16 bytes at a time (a projection 5 elements wider than its
+    pieces), and not one of contiguous operands."""
+    x, dt, a, bm, cm, d = _ssd_inputs(cuda, torch.bfloat16, 2, 128, 4, 1, 16,
+                                      32)
+    narrow = ssd_scan.narrow
+    ssd_scan(x, dt, a, bm, cm, d, q_chunk=64)
+    assert ssd_scan.narrow == narrow
+    proj = torch.cat([x.flatten(2), bm.flatten(2), cm.flatten(2),
+                      torch.zeros_like(x.flatten(2)[..., :5])], dim=-1)
+    xv = proj[..., :64].unflatten(-1, (4, 16))
+    bv = proj[..., 64:96].unflatten(-1, (1, 32))
+    cv = proj[..., 96:128].unflatten(-1, (1, 32))
+    got = ssd_scan(xv, dt, a, bv, cv, d, q_chunk=64)
+    torch.cuda.synchronize()
+    assert ssd_scan.narrow == narrow + 1
+    assert _rel(got, ssd_chunked_ref(x, dt, a, bm, cm, d, q_chunk=64)) \
+        <= TOL_SSD[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_head_independent_of_batch(cuda, dtype):
+    """A batch row's result is the same, bit for bit, whether it runs
+    with others or alone (no block's work depends on the batch)."""
+    x, dt, a, bm, cm, d = _ssd_inputs(cuda, dtype, 3, 512, 4, 2, 64, 128)
+    batched = ssd_scan(x, dt, a, bm, cm, d)
+    for i in range(3):
+        alone = ssd_scan(x[i:i + 1], dt[i:i + 1], a, bm[i:i + 1],
+                         cm[i:i + 1], d)
+        assert torch.equal(alone[0], batched[i])
 
 
 # ------------------------------------------------------ decode attention (B4)
