@@ -32,7 +32,17 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    resident blocks per SM;
 3. Cholesky, N = 16384 (32 x 32 blocks of 512, 2 x 2 shards, f32) through
    ``cholesky_executor(..., matmul=task_matmul)``: residual, agreement with
-   the same executor on plain bodies, kernel launches, wall time;
+   the same executor on plain bodies, kernel launches, wall time; then the
+   same matrix on the host TaskTorrent runtime (``Graph.run_host`` on
+   ``inproc``: 4 ranks x 2 worker threads, block stores on the card, B1 on
+   each syrk/gemm task, ``torch.linalg`` on potrf/trsm, active messages
+   carrying blocks as on-device copies): residual, agreement with the
+   compiled factor, exactly one B1 launch per syrk/gemm task, no tensor
+   pickled; wall time, tasks/s, AMs and bytes per rank pair, the device's
+   idle share under the profiler, and the runtime's own cost per task
+   (bodies that return their first operand); and a Cholesky of 8 x 8
+   blocks of 512 under message loss, duplication and a rank killed mid-run,
+   bit for bit the fault-free run on the card;
 4. staged GEMM 2D, N = 8192 (8 x 8 blocks of 1024, 2 x 2 shards) against
    ``torch.matmul`` of the assembled matrices;
 5. the attention-chain PTG, seq 4096, dim 128, depth 16, 2 shards, f32,
@@ -89,6 +99,7 @@ from repro_torch.kernels.block_gemm import (block_gemm,  # noqa: E402
                                             block_gemm_ref, task_matmul)
 from repro_torch.kernels.block_gemm.block_gemm import (  # noqa: E402
     kernel_info as gemm_kernel_info)
+from repro_torch.kernels.block_gemm.ops import matmul  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_ref, kernel_info as decode_kernel_info)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -99,9 +110,12 @@ from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
                                           ssd_ref, ssd_scan)
 from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
     kernel_info as ssd_kernel_info, plan as ssd_plan)
+from repro_torch.core import FaultPlan, payload_stats  # noqa: E402
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
-                                         cholesky_executor, cholesky_program,
+                                         cholesky_bodies, cholesky_executor,
+                                         cholesky_graph, cholesky_program,
                                          make_spd_blocks)
+from repro_torch.linalg.host_exec import run_host_ptg  # noqa: E402
 from repro_torch.linalg.gemm import (assemble, gemm_2d_program,  # noqa: E402
                                      gemm_executor)
 from repro_torch.models import mamba2  # noqa: E402
@@ -768,7 +782,152 @@ def phase_cholesky(dev, nb=32, pr=2, pc=2, b=512) -> dict:
     log(f"[cholesky] unrolled lowering, kernel bodies: {unrolled_ms:.1f} ms; "
         f"max|L_scan - L_unrolled| = {diff:.3e} (limit {CHOL_PLAIN_TOL:.0e})")
     check(diff <= CHOL_PLAIN_TOL, f"Cholesky scan vs unrolled {diff}")
-    return {"launches": launches, "max_batch": run.max_batch["gemm"]}
+    return {"launches": launches, "max_batch": run.max_batch["gemm"],
+            "L": L}
+
+
+# The host runtime's factor against the compiled executor's, per L block as
+# max|host - compiled| / max(1, max|compiled|): the same B1 on every syrk
+# and gemm, one task per launch against whole wavefronts (B1 is bitwise
+# batch-independent), but potrf/trsm through the library one block at a
+# time against batched calls, which may round differently; a difference
+# of a few f32 ulps of |L| <= ~2.5 carried through 32 panels stays near
+# u * sqrt(n) ~ 8e-6, while a wrong block gives ~1. The reference's 2e-5.
+HOST_TOL = 2e-5
+
+
+def block_err(got: torch.Tensor, want: torch.Tensor, b: int) -> float:
+    """Largest over the b x b blocks of max|got - want| / max(1, max|want|)
+    within the block."""
+    nb = want.shape[0] // b
+    diff = (got - want).abs().view(nb, b, nb, b).amax((1, 3))
+    size = want.abs().view(nb, b, nb, b).amax((1, 3)).clamp(min=1.0)
+    return float((diff / size).max())
+
+
+def run_host(spec, blocks, bodies, dev, **kw):
+    """``run_host_ptg`` on ``inproc`` with 2 worker threads a rank; returns
+    (blocks, wall ms on the host clock, which includes its final
+    synchronise)."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = run_host_ptg(spec, blocks, bodies, n_threads=2, timeout=600.0,
+                       transport="inproc", device=dev, **kw)
+    return out, 1e3 * (time.perf_counter() - t1)
+
+
+def phase_host_runtime(dev, L_compiled, nb=32, pr=2, pc=2, b=512,
+                       nb_faults=8) -> dict:
+    """The paper's example program on the host TaskTorrent runtime: the
+    Cholesky of ``phase_cholesky`` through ``Graph.run_host``'s lowering,
+    4 ranks x 2 worker threads on ``inproc``, block stores on the card."""
+    # B1 is built and loaded (phase_build, phase_kernel_vs_plain) before any
+    # rank starts: no worker thread builds. Held here at the host's shape,
+    # one unbatched [b, b] x [b, b]^T block per launch.
+    check(_build.library_path("block_gemm").exists(), "B1 not built")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a1 = torch.randn((b, b), generator=gen, device=dev)
+    b1 = torch.randn((b, b), generator=gen, device=dev).mT
+    err = rel_err(matmul(a1, b1), block_gemm_ref(a1, b1))
+    log(f"[host] block_gemm [{b},{b}]@[{b},{b}].mT unbatched: max err "
+        f"{err:.3e} (tol {TOL[torch.float32]:.0e})")
+    check(err <= TOL[torch.float32], f"block_gemm host task shape: {err}")
+
+    t0 = time.perf_counter()
+    graph = cholesky_graph(nb, pr, pc, b)
+    spec = graph.to_block_spec()
+    counts = {t: 0 for t in ("potrf", "trsm", "syrk", "gemm")}
+    for k in (k for v in spec.views for k in v.tasks):
+        counts[spec.ptg.type_of(k)] += 1
+    n_tasks = sum(counts.values())
+    log(f"[host] cholesky-16k-host: N={nb * b} nb={nb} b={b}, {pr * pc} "
+        f"ranks x 2 threads on inproc; {n_tasks} tasks {counts}; graph "
+        f"derivation {time.perf_counter() - t0:.2f} s")
+    blocks, a = make_spd_blocks(nb, b, seed=0, device=dev)
+    bodies = cholesky_bodies(matmul=matmul)
+
+    _, warm_ms = run_host(spec, blocks, bodies, dev)
+    reset_launches()
+    payload_stats.reset()
+    out, wall_ms = run_host(spec, blocks, bodies, dev)
+    launches = block_gemm.launches
+    want = counts["syrk"] + counts["gemm"]
+    pairs = dict(sorted(payload_stats.pairs.items()))
+    log(f"[host] wall {wall_ms:.1f} ms (warm-up {warm_ms:.1f}), "
+        f"{1e3 * n_tasks / wall_ms:.0f} tasks/s; block_gemm launches "
+        f"{launches} (syrk + gemm tasks {want}); tensors copied on the card "
+        f"{payload_stats.copied}, pickled {payload_stats.pickled}")
+    log("[host] AMs and tensor bytes per rank pair (src->dst): " + ", ".join(
+        f"{s}->{d} {n} {nbytes / 2 ** 20:.0f} MiB"
+        for (s, d), (n, nbytes) in pairs.items()))
+    check(launches == want,
+          f"host runtime: block_gemm launches {launches} != {want}")
+    check(payload_stats.pickled == 0 and payload_stats.copied > 0,
+          f"host runtime: {payload_stats.pickled} tensors pickled, "
+          f"{payload_stats.copied} copied on the card")
+    check(all(t.is_cuda for t in out.values()),
+          "host runtime: a result block left the card")
+
+    L = assemble_lower(out, nb, b)
+    del out
+    check(bool(torch.isfinite(L).all()), "host Cholesky: non-finite L")
+    resid = float(torch.linalg.vector_norm(torch.matmul(L, L.mT) - a)
+                  / torch.linalg.vector_norm(a))
+    err = block_err(L, L_compiled, b)
+    same = bool(torch.equal(L, L_compiled))
+    log(f"[host] ||L L^T - A||_F / ||A||_F = {resid:.3e} (limit "
+        f"{CHOL_RESID_TOL:.0e}); against the compiled executor's factor: "
+        f"{err:.3e} per L block (limit {HOST_TOL:.0e}), bit for bit: {same}")
+    check(resid <= CHOL_RESID_TOL, f"host Cholesky residual {resid}")
+    check(err <= HOST_TOL, f"host Cholesky vs compiled {err}")
+    del L, a
+
+    busy, busy_ms, prof_ms = profile(
+        "cholesky-16k-host", lambda: run_host(spec, blocks, bodies, dev),
+        detail=True)
+    identity = {t: (lambda *ops: ops[0]) for t in counts}
+    _, id_ms = run_host(spec, blocks, identity, dev)
+    _, id_ms2 = run_host(spec, blocks, identity, dev)
+    id_ms = min(id_ms, id_ms2)
+    log(f"[host] runtime alone (bodies return their first operand): "
+        f"{id_ms:.1f} ms, {1e3 * id_ms / n_tasks:.1f} us a task")
+    del blocks
+
+    # faults on the card: loss, duplication and rank 3 killed at its 2nd
+    # user AM, as tests/test_fault_tolerance.py drives the CPU run
+    g8 = cholesky_graph(nb_faults, pr, pc, b)
+    spec8 = g8.to_block_spec()
+    blocks8, _ = make_spd_blocks(nb_faults, b, seed=1, device=dev)
+    ref, ref_ms = run_host(spec8, blocks8, bodies, dev)
+    total = sum(v.stats.get("derived_edges", 0) for v in g8.local_views())
+    plan = FaultPlan(seed=5, drop=0.10, duplicate=0.10, kill={3: 2})
+    (got, report), fault_ms = run_host(spec8, blocks8, bodies, dev,
+                                       faults=plan,
+                                       rederive=g8.derive_local,
+                                       total_edges=total)
+    same8 = got.keys() == ref.keys() and all(
+        torch.equal(got[k], ref[k]) for k in ref)
+    log(f"[host] faults nb={nb_faults} b={b}: fault-free {ref_ms:.1f} ms, "
+        f"faulted {fault_ms:.1f} ms, bit for bit: {same8}; RecoveryReport "
+        f"{report.to_dict()}")
+    check(same8, "host Cholesky under faults differs from the fault-free run")
+    check(report.deaths == [3] and report.reexecuted_tasks > 0,
+          f"host Cholesky under faults: {report.to_dict()}")
+    del ref, got, blocks8
+
+    reps = 50
+    kernel = cuda_ms(lambda: matmul(a1, b1), reps)
+    plain = cuda_ms(lambda: block_gemm_ref(a1, b1), reps)
+    library = cuda_ms(lambda: torch.matmul(a1, b1), reps)
+    kernel2 = cuda_ms(lambda: matmul(a1, b1), reps)
+    bnd, _ = gemm_bound_ms(a1[None], b1[None])
+    log(f"[time] block_gemm host task [{b},{b}]x[{b},{b}].mT: kernel "
+        f"{kernel:.4f} / {kernel2:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.matmul {library:.4f} ms, bound {bnd:.4f} ms")
+    return {"launches": launches, "wall_ms": wall_ms,
+            "ms": min(kernel, kernel2), "plain_ms": plain,
+            "library_ms": library, "bound_ms": bnd, "busy": busy,
+            "busy_ms": busy_ms, "id_us": 1e3 * id_ms / n_tasks}
 
 
 def phase_gemm(dev, nb=8, pr=2, pc=2, b=1024) -> dict:
@@ -942,11 +1101,12 @@ def prefill_vs_decode(cfg, params, prompt, dev, dtype=torch.bfloat16):
     return compare(logits, want)
 
 
-def profile(label: str, fn) -> float:
+def profile(label: str, fn, detail: bool = False):
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
     (top 8) and the device's busy share of the wall time (kernels run on one
     stream, so their times add). Returns the busy share (NaN when the
-    profiler recorded no device time)."""
+    profiler recorded no device time), or with ``detail`` (busy share,
+    device busy ms, wall ms)."""
     from torch.profiler import ProfilerActivity, profile as trace
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -961,7 +1121,8 @@ def profile(label: str, fn) -> float:
     if not kernels:
         log(f"[profile] {label}: the profiler recorded no device time; "
             "device busy share not measured")
-        return float("nan")
+        nan = float("nan")
+        return (nan, nan, wall_us / 1e3) if detail else nan
     log(f"[profile] {label} under the profiler: wall {wall_us / 1e3:.1f} ms, "
         f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of "
         f"wall, idle share {1 - busy_us / wall_us:.3f}), "
@@ -970,6 +1131,8 @@ def profile(label: str, fn) -> float:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.self_device_time_total / busy_us:6.3f}  x{e.count:<5} "
             f"{e.key[:90]}")
+    if detail:
+        return busy_us / wall_us, busy_us / 1e3, wall_us / 1e3
     return busy_us / wall_us
 
 
@@ -1462,6 +1625,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     chol = phase_cholesky(dev)
     torch.cuda.empty_cache()
+    host = phase_host_runtime(dev, chol.pop("L"))
+    torch.cuda.empty_cache()
     gemm = phase_gemm(dev)
     torch.cuda.empty_cache()
     chain = phase_attention_chain(dev)
@@ -1485,6 +1650,12 @@ def main() -> int:
              ssd_time),
             ("decode_attention", "decode_attention/decode_attention.py:65",
              dense["b4_per_step"], decode_time)]
+    # B1 on the host runtime's path: one unbatched block a launch
+    extra = {"block_gemm": {
+        "host_launches": host["launches"], "host_ms": host["ms"],
+        "host_plain_ms": host["plain_ms"],
+        "host_library_ms": host["library_ms"],
+        "host_bound_ms": host["bound_ms"]}}
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{
@@ -1494,7 +1665,8 @@ def main() -> int:
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "shape": row["shape"]} for name, where, launches, row in rows]}))
+        "shape": row["shape"], **extra.get(name, {})}
+        for name, where, launches, row in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,12 @@ Each source becomes a shared library with a plain C interface, compiled for
 Hopper (``sm_90a``) into ``_build/`` beside this file at first use. The
 library's name carries a hash of its source and flags, so an edited source
 is rebuilt and a stale library is never loaded. Each build writes to a
-temporary file and moves it into place with ``os.replace``, so processes
-that build at the same time (test workers) never load a half-written file.
-Nothing is built or loaded when this module is imported.
+temporary file (named by process and thread) and moves it into place with
+``os.replace``, so processes that build at the same time (test workers)
+never load a half-written file. Within a process one lock serialises
+``build`` and ``load``, so worker threads that reach a kernel together at
+first use build it once. Nothing is built or loaded when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -26,6 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -52,13 +57,19 @@ def build(*names: str) -> Dict[str, float]:
     source, all started together. Returns the seconds each build took
     (empty when everything was built already); raises with the compiler's
     output if any build fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> Dict[str, float]:
     BUILD.mkdir(exist_ok=True)
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
@@ -78,8 +89,14 @@ def build(*names: str) -> Dict[str, float]:
     return seconds
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    """The built library of ``csrc/<name>.cu``, building it if needed (once
+    per process, whichever thread asks first)."""
+    with _LOCK:
+        return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     build(name)
     return ctypes.CDLL(str(library_path(name)))

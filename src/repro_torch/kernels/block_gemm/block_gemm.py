@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -24,6 +25,7 @@ from .ref import block_gemm_ref
 
 _DTYPES = {torch.float32: "block_gemm_f32", torch.bfloat16: "block_gemm_bf16"}
 _INT_MAX = 2 ** 31 - 1
+_COUNT = threading.Lock()
 
 
 @functools.cache
@@ -72,7 +74,8 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     On CPU tensors this is the plain version (``ref.block_gemm_ref``); on
     CUDA tensors it launches the kernel, on the current stream, or raises.
-    ``block_gemm.launches`` counts the launches."""
+    ``block_gemm.launches`` counts the launches, under a lock: the host
+    runtime's worker threads launch it together."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return block_gemm_ref(a, b)
     if a.device.type != "cuda" or b.device != a.device:
@@ -101,7 +104,8 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), T, M, N, K,
                      *a.stride(), *b.stride(), stream)
-        block_gemm.launches += 1
+        with _COUNT:
+            block_gemm.launches += 1
         if err != 0:
             raise RuntimeError(f"block_gemm: kernel launch failed with CUDA "
                                f"error {err}")

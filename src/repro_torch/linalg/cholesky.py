@@ -135,8 +135,11 @@ def cholesky_executor(prog: BlockProgram, *, matmul=None, trsm=None,
 
 
 def cholesky_bodies(matmul=None, trsm=None) -> Dict[str, object]:
-    """Batched bodies (each operand ``[N, b, b]``); ``matmul``/``trsm``
-    pluggable, plain ``a @ b`` by default. potrf and trsm are library calls,
+    """Bodies on batched ``[N, b, b]`` operands (the block executor's) or
+    on single ``[b, b]`` blocks (the host runtime's); ``matmul``/``trsm``
+    pluggable, plain ``a @ b`` by default. On the host runtime pass
+    ``kernels.block_gemm.ops.matmul`` to run syrk and gemm through B1, one
+    launch per task. potrf and trsm are library calls,
     as in the JAX package. potrf uses ``cholesky_ex`` without its error
     check: padded tasks factor the trash slot, which is not positive
     definite, and must not raise (their garbage stays in trash)."""
@@ -151,6 +154,32 @@ def cholesky_bodies(matmul=None, trsm=None) -> Dict[str, object]:
         "trsm": trsm if trsm is not None else _trsm,
         "syrk": lambda a, l: a - mm(l, l.mT),
         "gemm": lambda a, li, lj: a - mm(li, lj.mT),
+    }
+
+
+def cholesky_bodies_numpy() -> Dict[str, object]:
+    """Fork-safe host bodies that compute with numpy/scipy on CPU tensor
+    blocks and return CPU tensors (``torch.from_numpy``: no copy, numpy's
+    strides kept, so every later product sees the layout the JAX package's
+    numpy bodies see). The
+    ``multiproc`` transport forks one process per rank, where CUDA cannot
+    run and torch's own CPU kernels could meet an OpenMP pool inherited
+    from the parent, so cross-process runs use these. They run the same
+    numpy arithmetic as the JAX package's ``cholesky_bodies_numpy``, so
+    the two agree bit for bit on the same blocks."""
+    import scipy.linalg as sla
+
+    def wrap(fn):
+        return lambda *ops: torch.from_numpy(fn(*(o.numpy() for o in ops)))
+
+    def _trsm(a, l_kk):
+        return sla.solve_triangular(l_kk, a.T, lower=True, trans="N").T
+
+    return {
+        "potrf": wrap(lambda a: np.linalg.cholesky(a)),
+        "trsm": wrap(_trsm),
+        "syrk": wrap(lambda a, l: a - l @ l.T),
+        "gemm": wrap(lambda a, li, lj: a - li @ lj.T),
     }
 
 

@@ -41,9 +41,9 @@ Derivation comes in two flavors:
 A ``Graph`` lowers to the block executor: ``to_block_spec()`` /
 ``to_program()`` give a :class:`~repro_torch.core.schedule.BlockPTGSpec` /
 :class:`~repro_torch.core.schedule.BlockProgram`, fed through parallel
-discovery and the classified comm-plan lowering. (The JAX package also
-lowers a ``Graph`` to its host runtime; the port gains that lowering when
-the host runtime is ported.)
+discovery and the classified comm-plan lowering. It also lowers to the
+host TaskTorrent runtime: ``to_taskflow()`` wires one rank's Taskflow and
+``run_host()`` runs every rank, with block stores on a device.
 
 For *unbounded* index spaces (where enumeration is impossible) write the
 ``PTG`` directly with a user-supplied inverse rule and validate it with
@@ -806,6 +806,51 @@ class Graph:
         self.build()
         return discover(self.to_ptg(), self.seeds, self.n_shards,
                         validate=validate)
+
+    def to_taskflow(self, ctx, store, bodies, *, name: Optional[str] = None,
+                    device=None):
+        """Host-runtime lowering for one emulated rank: a wired
+        :class:`~repro_torch.core.taskflow.Taskflow` whose task bodies
+        compute on ``store`` (tensor blocks on ``device``) and whose
+        cross-rank out-edges send active messages, all generated from the
+        derived edges. Returns ``(taskflow, seed_fn)``; call ``seed_fn()``
+        to fulfill this rank's seeds, then join the threadpool."""
+        from repro_torch.linalg.host_exec import wire_taskflow
+
+        return wire_taskflow(ctx, self.to_block_spec(), store, bodies,
+                             name=name or self.name, device=device)
+
+    def run_host(self, blocks, bodies, *, n_threads: int = 2,
+                 timeout: float = 120.0, faults=None, transport=None,
+                 device="cuda"):
+        """Execute on the host TaskTorrent runtime (async tasks + active
+        messages) across ``n_shards`` emulated ranks, each with a block
+        store on ``device``; returns the written blocks as tensors on
+        ``device``, after a ``torch.cuda.synchronize`` there. ``transport``
+        picks the comm backend the ranks run on (``inproc`` threads by
+        default; ``multiproc`` puts every rank in its own OS process and
+        takes ``device="cpu"`` only).
+
+        With ``faults`` (a :class:`~repro_torch.core.faults.FaultPlan`) the
+        run goes through the fault-tolerant host runtime and returns
+        ``(blocks, RecoveryReport)``: shard adoption after a declared death
+        re-runs :meth:`derive_local` for the moved shard only — the view's
+        ``derived_edges`` over the all-shards total is the report's
+        ``rederived_frac``, the measured lazy-recovery payoff."""
+        from repro_torch.linalg.host_exec import run_host_ptg
+
+        spec = self.to_block_spec()
+        if faults is None:
+            return run_host_ptg(spec, blocks, bodies,
+                                n_threads=n_threads, timeout=timeout,
+                                transport=transport, device=device)
+        total = sum(v.stats.get("derived_edges", 0)
+                    for v in self.local_views())
+        return run_host_ptg(spec, blocks, bodies,
+                            n_threads=n_threads, timeout=timeout,
+                            faults=faults, rederive=self.derive_local,
+                            total_edges=total, transport=transport,
+                            device=device)
 
     def __repr__(self) -> str:
         state = (f"{len(self._tasks)} tasks, {len(self._seeds)} seeds"

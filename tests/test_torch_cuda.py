@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels (B1
 block_gemm, B2 flash_attention, B3 ssd_scan, B4 decode_attention) against
 their plain versions on the card, the block executor on the card with B1
-and B2 bodies, one mamba2 block through B3, and the reduced yi-6b through
-B2 (prefill) and B4 (decode).
+and B2 bodies, the host TaskTorrent runtime with block stores on the card
+(B1 task bodies, AM payloads that stay on the device), one mamba2 block
+through B3, and the reduced yi-6b through B2 (prefill) and B4 (decode).
 They skip with a reason where there is no GPU. This file imports nothing of
 JAX, so it also runs where JAX is not installed:
 
@@ -10,6 +11,7 @@ JAX, so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -25,7 +27,10 @@ from repro_torch.kernels.flash_attention import (flash_attention, mha_ref,
                                                  task_attention)
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunked_ref, ssd_ref,
                                           ssd_scan)
-from repro_torch.linalg.cholesky import (assemble_lower, cholesky_executor,
+from repro_torch.core import payload_stats, run_ranks, view
+from repro_torch.kernels.block_gemm.ops import matmul
+from repro_torch.linalg.cholesky import (assemble_lower, cholesky_bodies,
+                                         cholesky_executor, cholesky_graph,
                                          cholesky_program, make_spd_blocks)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.mamba2 import mamba2_forward
@@ -156,6 +161,72 @@ def test_cholesky_executor_runs_the_kernel(cuda):
     assert float((l - l_plain).abs().max()) <= 1e-5
     resid = torch.linalg.vector_norm(l @ l.mT - a) / torch.linalg.vector_norm(a)
     assert float(resid) <= 1e-6
+
+
+# ------------------------------------------------- host runtime on the card
+
+def test_host_runtime_cholesky_runs_b1_and_matches_compiled(cuda):
+    """4 ranks x 2 threads with block stores on the card: one B1 launch per
+    syrk/gemm task, no tensor pickled, and the compiled executor's factor
+    (same B1 bodies) within the reference's 2e-5."""
+    nb, b = 8, 128
+    blocks, a = make_spd_blocks(nb, b, seed=0, device=cuda)
+    prog = cholesky_program(nb, 2, 2, b)
+    comp = assemble_lower(prog.unpack(cholesky_executor(
+        prog, matmul=task_matmul, device=cuda)(prog.pack(blocks,
+                                                         device=cuda))),
+        nb, b)
+    block_gemm.launches = 0
+    payload_stats.reset()
+    out = cholesky_graph(nb, 2, 2, b).run_host(
+        blocks, cholesky_bodies(matmul=matmul), device=cuda)
+    syrk_gemm = nb * (nb - 1) // 2 + nb * (nb - 1) * (nb - 2) // 6
+    assert block_gemm.launches == syrk_gemm
+    assert payload_stats.pickled == 0 and payload_stats.copied > 0
+    assert all(t.device.type == "cuda" for t in out.values())
+    low = assemble_lower(out, nb, b)
+    assert _rel(low, comp) <= 2e-5
+    resid = torch.linalg.vector_norm(low @ low.mT - a) / \
+        torch.linalg.vector_norm(a)
+    assert float(resid) <= 1e-6
+
+
+def test_block_gemm_counts_every_launch_from_eight_threads(cuda):
+    a = torch.randn(64, 64, device=cuda)
+    matmul(a, a)                      # built and loaded before the threads
+    block_gemm.launches = 0
+
+    def work():
+        for _ in range(200):
+            matmul(a, a.mT)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert block_gemm.launches == 8 * 200
+
+
+@pytest.mark.parametrize("wrap", ["tensor", "view"])
+def test_cuda_payload_stays_on_the_card_and_is_reusable(cuda, wrap):
+    def main(ctx):
+        got = []
+        am = ctx.comm.make_active_msg(lambda t: got.append(t))
+        if ctx.rank == 0:
+            buf = torch.arange(1024.0, device=cuda)
+            am.send(1, view(buf) if wrap == "view" else buf)
+            buf.fill_(-1.0)
+        ctx.tp.join()
+        return got
+
+    payload_stats.reset()
+    res = run_ranks(2, main)
+    got = res[1][0]
+    assert got.device.type == "cuda"
+    assert torch.equal(got, torch.arange(1024.0, device=cuda))
+    assert payload_stats.pickled == 0 and payload_stats.copied == 1
 
 
 # ------------------------------------------------------ flash attention (B2)

@@ -1,6 +1,8 @@
 """The port stands alone: every ``repro_torch`` module, and
-``chip_smoke.py``, import with JAX blocked and the JAX package ``repro``
-refused (in a subprocess, so this test process keeps its own imports)."""
+``chip_smoke.py``, import with JAX blocked, the JAX package ``repro``
+refused and ``cloudpickle`` blocked (the GPU machine has none; only a
+cross-process run of the ``multiproc`` transport needs it), in a
+subprocess, so this test process keeps its own imports."""
 
 import os
 import subprocess
@@ -15,6 +17,7 @@ import sys
 
 sys.modules["jax"] = None          # "import jax" raises ImportError
 sys.modules["jaxlib"] = None
+sys.modules["cloudpickle"] = None
 
 
 class RefuseRepro:
@@ -37,7 +40,7 @@ for name in names:
 import chip_smoke  # noqa: E402,F401
 
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "cloudpickle")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print("IMPORTED", " ".join(names))
@@ -76,5 +79,13 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.models.attention",
                  "repro_torch.models.transformer",
                  "repro_torch.models.convert",
-                 "repro_torch.serve.decode"):
+                 "repro_torch.serve.decode",
+                 "repro_torch.core.faults", "repro_torch.core.threadpool",
+                 "repro_torch.core.taskflow", "repro_torch.core.stf",
+                 "repro_torch.core.messages", "repro_torch.core.completion",
+                 "repro_torch.core.runtime", "repro_torch.core.comm",
+                 "repro_torch.core.comm.core", "repro_torch.core.comm.inproc",
+                 "repro_torch.core.comm.multiproc",
+                 "repro_torch.train.elastic",
+                 "repro_torch.linalg.host_exec"):
         assert name in imported, name
