@@ -42,7 +42,16 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    idle share under the profiler, and the runtime's own cost per task
    (bodies that return their first operand); and a Cholesky of 8 x 8
    blocks of 512 under message loss, duplication and a rank killed mid-run,
-   bit for bit the fault-free run on the card;
+   bit for bit the fault-free run on the card; then the resident
+   multi-tenant scheduler (``repro_torch.sched`` through
+   ``launch.scheduler.run_stream``, 4 resident ``inproc`` ranks x 2
+   threads, stores on the card): 4 clients x 8 submissions (Task-Bench
+   stencil/fft/tree 16 x 12 and Cholesky N = 8192, blocks of 512; 5 440 B1
+   launches), each bit for bit its one-shot ``run_host``, Cholesky
+   residuals, no tensor pickled, nothing live after the drain, one
+   profiled run; 10 stencil submissions chained through one namespace,
+   bit for bit 10 sequential one-shots, and again with a rank killed
+   mid-stream; the service's own cost a task;
 4. staged GEMM 2D, N = 8192 (8 x 8 blocks of 1024, 2 x 2 shards) against
    ``torch.matmul`` of the assembled matrices;
 5. the attention-chain PTG, seq 4096, dim 128, depth 16, 2 shards, f32,
@@ -79,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -930,6 +940,218 @@ def phase_host_runtime(dev, L_compiled, nb=32, pr=2, pc=2, b=512,
             "busy_ms": busy_ms, "id_us": 1e3 * id_ms / n_tasks}
 
 
+def chained_stream(svc, g, blocks, bodies, m: int) -> list:
+    """One client streams ``m`` submissions of ``g`` chained through one
+    namespace: the first seeds ``blocks``, each later one reads what the
+    one before it wrote. Returns the results in order."""
+    c = svc.client("chain")
+    futs = [c.submit(g, blocks if j == 0 else {}, bodies) for j in range(m)]
+    return [f.result(svc.timeout) for f in futs]
+
+
+def chained_one_shots(g, blocks, bodies, m: int, dev) -> list:
+    """The oracle of :func:`chained_stream`: ``m`` sequential one-shot
+    ``run_host`` calls, each seeded with everything the earlier ones
+    wrote (``chained_refs`` of ``tests/test_scheduler.py``)."""
+    refs, store = [], dict(blocks)
+    for _ in range(m):
+        out = g.run_host(store, bodies, n_threads=2, timeout=600.0,
+                         device=dev)
+        refs.append(out)
+        store.update(out)
+    return refs
+
+
+def same_blocks(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want)
+
+
+def phase_scheduler(dev, nb=16, b=512, width=16, depth=12, n_shards=4,
+                    n_clients=4, n_subs=8, n_chain=10, ov_width=8,
+                    ov_depth=6, ov_subs=6) -> dict:
+    """The resident multi-tenant scheduler on the card
+    (``repro_torch.sched`` through ``launch.scheduler.run_stream``):
+    ``n_shards`` resident ``inproc`` ranks x 2 worker threads, block stores
+    on the card, Cholesky syrk/gemm tasks on B1.
+
+    - sched-mixed-4x8: ``n_clients`` clients (weights 1..4) x ``n_subs``
+      submissions in fresh namespaces: Task-Bench stencil/fft/tree
+      (``width`` x ``depth``, b x b f32 blocks) and, at j = 3 and 7, a
+      Cholesky of ``nb`` x ``nb`` blocks of b (on ``n_shards`` x 1);
+    - sched-chained-10: ``n_chain`` stencil submissions chained through
+      one namespace; sched-chained-10-kill: the same under a rank killed
+      mid-stream (``benchmarks/scheduler_stream.py``'s plan);
+    - overhead: ``n_clients`` x ``ov_subs`` stencil submissions of
+      ``ov_width`` x ``ov_depth`` whose bodies return their first operand:
+      the service's own cost a task (``sched_overhead_us``)."""
+    from repro_torch.launch.scheduler import (one_shot_refs, run_stream,
+                                              stream_inputs)
+    from repro_torch.sched import SchedulerService
+    from repro_torch.taskbench import (taskbench_blocks, taskbench_bodies,
+                                       taskbench_graph)
+
+    check(_build.library_path("block_gemm").exists(), "B1 not built")
+    where = card()
+    torch.cuda.reset_peak_memory_stats()
+    sizes = dict(width=width, depth=depth, nb=nb, b=b, tb_b=b)
+    counts = {"potrf": nb, "trsm": nb * (nb - 1) // 2,
+              "syrk": nb * (nb - 1) // 2,
+              "gemm": nb * (nb - 1) * (nb - 2) // 6}
+    kinds = ["cholesky" if j % 4 == 3 else
+             ("stencil", "fft", "tree")[j % 4] for j in range(n_subs)]
+    n_chol = n_clients * kinds.count("cholesky")
+    n_tasks = n_clients * sum(sum(counts.values()) if k == "cholesky"
+                              else width * depth for k in kinds)
+    want_b1 = n_chol * (counts["syrk"] + counts["gemm"])
+    log(f"[sched] sched-mixed-{n_clients}x{n_subs}: {n_shards} resident "
+        f"inproc ranks x 2 threads, stores on the card; Task-Bench "
+        f"{width}x{depth} at b {b}, Cholesky nb {nb} b {b} (N {nb * b}) "
+        f"{counts}; {n_tasks} tasks, {n_clients * n_subs} submissions, "
+        f"{want_b1} B1 launches expected [{where}]")
+
+    def mixed(inputs):
+        """One mixed stream in a fresh service: (svc, results, wall ms of
+        the first submit to the last result, after a synchronise)."""
+        with SchedulerService(n_shards, n_threads=2, timeout=600.0,
+                              device=dev) as svc:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run_stream(svc, n_clients, n_subs, inputs=inputs,
+                             **sizes)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+        return svc, res, ms
+
+    inputs = stream_inputs(dev, **sizes)
+    reset_launches()
+    payload_stats.reset()
+    svc, results, wall_ms = mixed(inputs)
+    launches = block_gemm.launches
+    pickled, copied = payload_stats.pickled, payload_stats.copied
+    stats = svc.stats()
+    log(f"[sched] mixed: wall {wall_ms:.1f} ms, "
+        f"{1e3 * n_tasks / wall_ms:.0f} tasks/s, "
+        f"{1e3 * n_clients * n_subs / wall_ms:.2f} submissions/s; "
+        f"block_gemm launches {launches} (expected {want_b1}); tensors "
+        f"copied on the card {copied}, pickled {pickled}; live_frac "
+        f"{stats['live_frac']:.4f} (blocks_hwm {stats['blocks_hwm']} / "
+        f"blocks_total {stats['blocks_total']}) [{where}]")
+    check(launches == want_b1,
+          f"scheduler: block_gemm launches {launches} != {want_b1}")
+    check(pickled == 0 and copied > 0,
+          f"scheduler: {pickled} tensors pickled, {copied} copied")
+    check(all(r["tasks_live"] == 0 for r in stats["ranks"]),
+          f"scheduler: tasks live after the drain {stats['ranks']}")
+    check(all(stats["clients"][f"client{i}"]["completed"] == n_subs
+              for i in range(n_clients)),
+          f"scheduler: completed {stats['clients']}")
+    check(stats["live_frac"] < 1.0, f"live_frac {stats['live_frac']}")
+    check(all(v.is_cuda for rows in results.values() for _, out in rows
+              for v in out.values()), "scheduler: a result left the card")
+
+    refs = one_shot_refs(svc, set(kinds), inputs=inputs, **sizes)
+    # stream_inputs' matrix: drawn on the card (numpy's on the CPU)
+    _, a = make_spd_blocks(nb, b, seed=7,
+                           device=dev if dev.type == "cuda" else None)
+    a = torch.as_tensor(a, device=dev)
+    worst = 0.0
+    for name, rows in sorted(results.items()):
+        for kind, out in rows:
+            check(all(torch.equal(v, refs[kind][blk])
+                      for blk, v in out.items()),
+                  f"scheduler: {name} {kind} differs from its one-shot")
+            if kind == "cholesky":
+                L = assemble_lower(out, nb, b)
+                worst = max(worst, float(
+                    torch.linalg.vector_norm(torch.matmul(L, L.mT) - a)
+                    / torch.linalg.vector_norm(a)))
+                del L
+    log(f"[sched] every submission bit for bit its one-shot run_host on "
+        f"the card; worst Cholesky ||L L^T - A||_F / ||A||_F {worst:.3e} "
+        f"(limit {CHOL_RESID_TOL:.0e})")
+    check(worst <= CHOL_RESID_TOL, f"scheduler Cholesky residual {worst}")
+    del results, refs, a, svc
+    busy, busy_ms, prof_ms = profile(f"sched-mixed-{n_clients}x{n_subs}",
+                                     lambda: mixed(inputs), detail=True)
+    del inputs
+    torch.cuda.empty_cache()
+
+    # sched-chained-10, fault-free and with rank 1 killed at its 30th AM
+    g_chain, _ = taskbench_graph("stencil", width, depth, n_shards, b,
+                                 seed=11)
+    blocks = {k: torch.as_tensor(v, device=dev) for k, v in
+              taskbench_blocks(width, depth, b, seed=11).items()}
+    bodies = taskbench_bodies()
+    refs = chained_one_shots(g_chain, blocks, bodies, n_chain, dev)
+    chain = {}
+    for label, plan in (("chained", None),
+                        ("chained-kill", FaultPlan(
+                            seed=11, kill={1: 30}, lease=0.4,
+                            heartbeat_every=0.02))):
+        with SchedulerService(n_shards, timeout=600.0, faults=plan,
+                              device=dev) as svc:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs = chained_stream(svc, g_chain, blocks, bodies, n_chain)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+        st = svc.stats()
+        chain[label] = {"ms": ms, "outs": outs, "svc": svc,
+                        "live_frac": st["live_frac"]}
+        log(f"[sched] sched-{label}-{n_chain}: wall {ms:.1f} ms, "
+            f"{1e3 * n_chain * width * depth / ms:.0f} tasks/s, "
+            f"{1e3 * n_chain / ms:.2f} submissions/s, live_frac "
+            f"{st['live_frac']:.4f} (blocks_hwm {st['blocks_hwm']} / "
+            f"blocks_total {st['blocks_total']}) [{where}]")
+    check(all(same_blocks(o, r)
+              for o, r in zip(chain["chained"]["outs"], refs)),
+          "sched-chained: differs from the sequential one-shots")
+    killed = chain["chained-kill"]
+    check(all(same_blocks(o, r) for o, r in zip(killed["outs"],
+                                                chain["chained"]["outs"])),
+          "sched-chained-kill: differs from the fault-free stream")
+    rep = killed["svc"].recovery_report
+    recover_ms = killed["svc"].capacity()["sched_recover_ms"]
+    replay_frac = rep.bus_replayed / max(killed["svc"].bus.posted, 1)
+    log(f"[sched] kill: bit for bit the fault-free stream; "
+        f"sched_recover_ms {recover_ms}, replay_frac {replay_frac:.4f}; "
+        f"RecoveryReport {rep.to_dict()} [{where}]")
+    check(rep.deaths == [1], f"sched-chained-kill deaths {rep.deaths}")
+    del chain, killed, refs, blocks
+
+    # the service's own cost: bodies that return their first operand
+    go, _ = taskbench_graph("stencil", ov_width, ov_depth, n_shards, b,
+                            seed=11)
+    ob = {k: torch.as_tensor(v, device=dev) for k, v in
+          taskbench_blocks(ov_width, ov_depth, b, seed=11).items()}
+    ident = {t: (lambda *ops: ops[0]) for t in bodies}
+    ov_tasks = n_clients * ov_subs * ov_width * ov_depth
+    with SchedulerService(n_shards, timeout=600.0, device=dev) as svc:
+        clients = [svc.client(f"c{i}", weight=float(i + 1))
+                   for i in range(n_clients)]
+        t1 = time.perf_counter()
+        futs = [c.submit(go, ob, ident, namespace=f"{c.name}/{j}")
+                for c in clients for j in range(ov_subs)]
+        for f in futs:
+            f.result(svc.timeout)
+        torch.cuda.synchronize()
+        ov_ms = 1e3 * (time.perf_counter() - t1)
+    overhead_us = 1e3 * ov_ms / ov_tasks
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the services' rank runtimes hold the namespaces' durable versions and
+    # sit in reference cycles: free them before the model phases
+    del svc, clients, futs, ob
+    gc.collect()
+    log(f"[sched] overhead: {n_clients} x {ov_subs} stencil "
+        f"{ov_width}x{ov_depth} submissions, identity bodies: {ov_ms:.1f} "
+        f"ms, sched_overhead_us {overhead_us:.1f}, "
+        f"{1e3 * n_clients * ov_subs / ov_ms:.2f} submissions/s; phase "
+        f"peak device memory {peak:.2f} GiB [{where}]")
+    return {"launches": launches, "wall_ms": wall_ms, "busy": busy,
+            "busy_ms": busy_ms, "overhead_us": overhead_us}
+
+
 def phase_gemm(dev, nb=8, pr=2, pc=2, b=1024) -> dict:
     n = nb * b
     prog = gemm_2d_program(nb, pr, pc, b, staged=True)
@@ -1627,6 +1849,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     host = phase_host_runtime(dev, chol.pop("L"))
     torch.cuda.empty_cache()
+    sched = phase_scheduler(dev)
+    torch.cuda.empty_cache()
     gemm = phase_gemm(dev)
     torch.cuda.empty_cache()
     chain = phase_attention_chain(dev)
@@ -1655,7 +1879,8 @@ def main() -> int:
         "host_launches": host["launches"], "host_ms": host["ms"],
         "host_plain_ms": host["plain_ms"],
         "host_library_ms": host["library_ms"],
-        "host_bound_ms": host["bound_ms"]}}
+        "host_bound_ms": host["bound_ms"],
+        "sched_launches": sched["launches"]}}
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{

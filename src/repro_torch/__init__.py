@@ -11,5 +11,8 @@ run on ``cuda`` unless the caller passes ``device="cpu"``.
 - ``repro_torch.kernels``: hand-written Hopper kernels and their plain
   PyTorch versions (``block_gemm``);
 - ``repro_torch.linalg``: distributed GEMM (2D/3D) and blocked Cholesky;
+- ``repro_torch.sched``: the resident multi-tenant scheduler service (a
+  stream of PTGs from many clients through resident ranks), launched by
+  ``repro_torch.launch.scheduler``;
 - ``repro_torch.taskbench``: the Task-Bench dependence-pattern sweep.
 """

@@ -16,9 +16,9 @@ TCP sockets:
   shutdown-flag propagation, AM-fingerprint validation, forensic snapshot
   requests, and the final per-rank result.
 - **service plane** (resident scheduler only): an RPC channel per child to
-  the parent-hosted resident scheduler service and its
-  bus; the child's ShardRuntime talks to them through
-  a proxy instead of shared memory.
+  the parent-hosted :class:`~repro_torch.sched.service.SchedulerService`
+  and its bus; the child's ShardRuntime talks to them through
+  :mod:`repro_torch.sched.proxy` instead of shared memory.
 
 Bootstrap is **fork-only** by design: ``main`` and the scheduler's bound
 ``_rank_main`` pass to the child by address-space inheritance, never
@@ -213,7 +213,7 @@ class _RelayEvent(threading.Event):
 
 class _RpcClient:
     """Lock-serialized request/response channel to the parent-hosted
-    scheduler service (see a proxy)."""
+    scheduler service (see :mod:`repro_torch.sched.proxy`)."""
 
     def __init__(self, port: int):
         self._comm = TcpConnector().connect(f"tcp://127.0.0.1:{port}",

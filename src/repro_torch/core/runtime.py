@@ -141,8 +141,8 @@ def run_ranks(
     ``transport`` selects the registered comm backend (default: the
     ``REPRO_TRANSPORT`` env var, else ``inproc``).
 
-    ``serve_scheduler`` (a resident scheduler service; the JAX
-    package's ``repro.sched.SchedulerService``, not yet ported) switches
+    ``serve_scheduler`` (a
+    :class:`repro_torch.sched.SchedulerService`) switches
     to resident mode: ranks stay alive between submissions for as long as
     the service is open, so the deadlock deadline only arms once the
     service's ``draining`` event is set (``close()`` sets it before

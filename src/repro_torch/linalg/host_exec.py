@@ -95,6 +95,21 @@ def store_device(device) -> torch.device:
     return dev
 
 
+def ranks_device(device, transport: Optional[str]) -> torch.device:
+    """:func:`store_device` for ranks on ``transport``: a transport whose
+    ranks are forked processes (``multiproc``) pickles its payloads and
+    takes the CPU only, so any other device raises ``ValueError``."""
+    dev = torch.device(device)
+    backend = get_backend(transport)
+    if dev.type != "cpu" and not backend.carries_device_tensors:
+        raise ValueError(
+            f"transport {backend.name!r} runs each rank in a forked process "
+            f"and carries host payloads only; it cannot run a store on "
+            f"{dev}. Use transport='inproc' on the device, or device='cpu' "
+            "with numpy bodies")
+    return store_device(dev)
+
+
 def to_store(arr, device: torch.device) -> torch.Tensor:
     """A caller's block (numpy array or tensor) as a fresh tensor on
     ``device``: the store's own copy, never an alias of the caller's."""
@@ -220,7 +235,7 @@ class _FaultHost:
     it adopts after a death declaration (see module docstring)."""
 
     def __init__(self, ctx, spec: BlockPTGSpec, blocks, bodies,
-                 rederive: Optional[Callable] = None, device="cpu"):
+                 rederive: Optional[Callable] = None, *, device):
         self.ctx = ctx
         self.rank = ctx.rank
         self.spec = spec
@@ -417,14 +432,7 @@ def run_host_ptg(
     ranks run on; ``multiproc`` takes ``device="cpu"`` only (its forked
     ranks pickle their payloads, and CUDA does not survive the fork)."""
     n = spec.n_shards
-    dev = torch.device(device)
-    if dev.type != "cpu" and not get_backend(transport).carries_device_tensors:
-        raise ValueError(
-            f"transport {get_backend(transport).name!r} runs each rank in a "
-            f"forked process and carries host payloads only; it cannot run "
-            f"a store on {dev}. Use transport='inproc' on the device, or "
-            "device='cpu' with numpy bodies")
-    dev = store_device(dev)
+    dev = ranks_device(device, transport)
 
     if faults is None:
         def main(ctx):

@@ -1,9 +1,10 @@
 """Tests of the port that need a CUDA GPU: the hand-written kernels (B1
 block_gemm, B2 flash_attention, B3 ssd_scan, B4 decode_attention) against
 their plain versions on the card, the block executor on the card with B1
-and B2 bodies, the host TaskTorrent runtime with block stores on the card
-(B1 task bodies, AM payloads that stay on the device), one mamba2 block
-through B3, and the reduced yi-6b through B2 (prefill) and B4 (decode).
+and B2 bodies, the host TaskTorrent runtime and the resident scheduler
+with block stores on the card (B1 task bodies, AM payloads that stay on
+the device), one mamba2 block through B3, and the reduced yi-6b through
+B2 (prefill) and B4 (decode).
 They skip with a reason where there is no GPU. This file imports nothing of
 JAX, so it also runs where JAX is not installed:
 
@@ -227,6 +228,69 @@ def test_cuda_payload_stays_on_the_card_and_is_reusable(cuda, wrap):
     assert got.device.type == "cuda"
     assert torch.equal(got, torch.arange(1024.0, device=cuda))
     assert payload_stats.pickled == 0 and payload_stats.copied == 1
+
+
+def test_scheduler_mixed_stream_runs_b1_bit_for_bit(cuda):
+    """4 clients x 4 mixed submissions (Task-Bench stencil/fft/tree and a
+    Cholesky of 4 x 4 blocks of 128) through the resident scheduler, 4
+    ranks with stores on the card: every result bit for bit its one-shot
+    ``run_host`` on the card, one B1 launch per syrk/gemm task, no tensor
+    pickled, every block on the card."""
+    from repro_torch.launch.scheduler import (one_shot_refs, run_stream,
+                                              stream_inputs)
+    from repro_torch.sched import SchedulerService
+
+    nb = 4
+    sizes = dict(width=8, depth=4, nb=nb, b=128, tb_b=128)
+    matmul(torch.ones(8, 8, device=cuda), torch.ones(8, 8, device=cuda))
+    with SchedulerService(4, device=cuda) as svc:
+        inputs = stream_inputs(cuda, **sizes)
+        block_gemm.launches = 0
+        payload_stats.reset()
+        results = run_stream(svc, 4, 4, inputs=inputs, **sizes)
+        launches = block_gemm.launches
+    syrk_gemm = nb * (nb - 1) // 2 + nb * (nb - 1) * (nb - 2) // 6
+    assert launches == 4 * syrk_gemm
+    assert payload_stats.pickled == 0 and payload_stats.copied > 0
+    refs = one_shot_refs(svc, {"stencil", "fft", "tree", "cholesky"},
+                         inputs=inputs, **sizes)
+    for rows in results.values():
+        assert [k for k, _ in rows] == ["stencil", "fft", "tree",
+                                        "cholesky"]
+        for kind, out in rows:
+            for blk, v in out.items():
+                assert v.is_cuda and torch.equal(v, refs[kind][blk]), \
+                    (kind, blk)
+    stats = svc.stats()
+    assert all(r["tasks_live"] == 0 for r in stats["ranks"])
+    assert stats["live_frac"] < 1.0
+
+
+def test_scheduler_chained_stream_survives_a_killed_rank(cuda):
+    """A stencil stream chained through one namespace, with rank 1 killed
+    at its 12th AM: bit for bit the fault-free stream on the card."""
+    from repro_torch.core import FaultPlan
+    from repro_torch.sched import SchedulerService
+    from repro_torch.taskbench import (taskbench_blocks, taskbench_bodies,
+                                       taskbench_graph)
+
+    g, _ = taskbench_graph("stencil", 8, 6, 4, 64, seed=3)
+    blocks = {k: torch.as_tensor(v, device=cuda)
+              for k, v in taskbench_blocks(8, 6, 64, seed=3).items()}
+    outs = {}
+    for label, plan in (("clean", None), ("kill", FaultPlan(
+            seed=3, kill={1: 12}, lease=0.4, heartbeat_every=0.02))):
+        with SchedulerService(4, timeout=120.0, faults=plan,
+                              device=cuda) as svc:
+            c = svc.client("chain")
+            futs = [c.submit(g, blocks if j == 0 else {},
+                             taskbench_bodies()) for j in range(6)]
+            outs[label] = [f.result(120.0) for f in futs]
+    assert svc.recovery_report.deaths == [1]
+    for got, want in zip(outs["kill"], outs["clean"]):
+        assert got.keys() == want.keys()
+        assert all(got[k].is_cuda and torch.equal(got[k], want[k])
+                   for k in want)
 
 
 # ------------------------------------------------------ flash attention (B2)

@@ -87,5 +87,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.core.comm.core", "repro_torch.core.comm.inproc",
                  "repro_torch.core.comm.multiproc",
                  "repro_torch.train.elastic",
-                 "repro_torch.linalg.host_exec"):
+                 "repro_torch.linalg.host_exec",
+                 "repro_torch.sched", "repro_torch.sched.fair",
+                 "repro_torch.sched.namespace", "repro_torch.sched.proxy",
+                 "repro_torch.sched.service", "repro_torch.sched.state",
+                 "repro_torch.launch.scheduler"):
         assert name in imported, name
