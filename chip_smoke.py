@@ -73,7 +73,22 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    768-position cache filled to 32 752
    (32 B4 launches a step); gates in f32 compute (prefill kernel vs plain,
    prefill(256) vs 256 decode steps, one long-cache decode step with B4 vs
-   ``decode_ref``);
+   ``decode_ref``); then the hybrid, encdec and vlm families:
+   zamba2-1.2b at full width and depth (38 Mamba-2 layers, the shared
+   attention block after every 6 with its 4 096-token window): prefill of
+   2 x 8 192 tokens (6 windowed B2 and 38 B3 launches), 16 greedy tokens
+   at batch 8 from a seeded cache at position 12 288, past the ring's
+   wrap (6 B4 launches a step); seamless-m4t-large-v2 at full width and
+   depth: encoder over 4 x 2 048 seeded frame embeddings and a decoder
+   prompt of 4 x 512 tokens (72 B2 launches, the cross-attention
+   non-causal with Lq != Lk), 16 greedy tokens at batch 4 on from the
+   prefill's own self and cross caches (48 B4 launches a step);
+   llava-next-34b at full width cut to 16 of its 60 layers: prefill of 4 x
+   2 048 seeded embeddings (16 B2 launches), 16 greedy tokens at batch 8
+   over a 4 096-position cache (16 B4 launches a step); each with f32
+   gates (prefill with B2 against the plain attention, one decode step
+   with B4 against ``decode_ref``), a profiled decode step, and no
+   operand copied;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -241,16 +256,19 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_work(q, k, causal=True) -> tuple:
+def attention_work(q, k, causal=True, window=0) -> tuple:
     """B2's (bytes, FLOPs): q, k, v read and o written once; 4·D FLOPs (q·k
     and p·v) per (query, key) pair the mask keeps, as this call's shapes
-    give."""
+    give: query i sits at lk - lq + i and keeps the keys up to it (causal)
+    and after it minus ``window`` (a window)."""
     b, hq, lq, d = q.shape
     lk = k.shape[2]
-    if causal:   # queries are the last lq of lk: query i sees lk - lq + i + 1
-        pairs = sum(min(lk, lk - lq + i + 1) for i in range(lq))
-    else:
-        pairs = lq * lk
+    pairs = 0
+    for i in range(lq):
+        pos = lk - lq + i
+        hi = min(lk, pos + 1) if causal else lk
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += max(0, hi - lo)
     return (q.element_size() * (2 * q.numel() + 2 * k.numel()),
             4.0 * d * pairs * b * hq)
 
@@ -486,8 +504,11 @@ def phase_attention_vs_plain(dev) -> None:
     yi-6b's head layout (Hq 32, Hkv 4, D 128) at B 1, L 4096 and in the
     model's own layout at prefill (B 4, L 2048, strided views), at ragged
     L, at D 64 and 48, and at the attention chain's task [1, 1, 4096,
-    128]; whole tensor and per (batch, q head). None needs a copy for TMA.
-    Then the chain task's batch independence, bit for bit."""
+    128]; with a sliding window (zamba2's shared block, windows 1, 64 and
+    4 096 over 8 192 keys, ragged L), non-causal with Lq != Lk (seamless's
+    cross-attention, and Lq > Lk) and at llava's GQA 7; whole tensor and
+    per (batch, q head). None needs a copy for TMA. Then the chain task's
+    batch independence, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(3)
     yi = get_config("yi-6b")
     hq, hkv, hd = yi.n_heads, yi.n_kv_heads, yi.head_dim
@@ -528,6 +549,50 @@ def phase_attention_vs_plain(dev) -> None:
                       f"flash_attention {name} {dtype}: per-head err {head}")
                 del got, want
             del q, k, v
+    zamba, seam, llava = (get_config(a) for a in (
+        "zamba2-1.2b", "seamless-m4t-large-v2", "llava-next-34b"))
+    zh, zd, w = zamba.n_heads, zamba.head_dim, zamba.sliding_window
+    sh, sd = seam.n_heads, seam.head_dim
+    lh, lg, ld = llava.n_heads, llava.n_kv_heads, llava.head_dim
+    # (name, shape, model layout, causal, window): zamba2's shared block
+    # (window 4 096 over 8 192 keys, head dim 64, group 1) with windows of
+    # 1, one tile and the model's, ragged L, GQA 7 with Lq < Lk; seamless's
+    # encoder, decoder and cross-attention (non-causal Lq < Lk), Lq > Lk;
+    # llava's GQA 7 prefill
+    more = [(f"zamba2 window {win} [1,2|2,8192,{zd}]",
+             (1, 2, 2, 8192, 8192, zd), False, True, win)
+            for win in (1, 64, w)]
+    more += [(f"zamba2 model layout window {w} [1,{zh}|{zh},8192,{zd}]",
+              (1, zh, zh, 8192, 8192, zd), True, True, w),
+             ("ragged window 777 [1,4|4,3000,64]", (1, 4, 4, 3000, 3000, 64),
+              False, True, 777),
+             ("window 300 [2,14|2,1000|1500,128]",
+              (2, 14, 2, 1000, 1500, 128), False, True, 300),
+             (f"seamless encoder [4,{sh}|{sh},2048,{sd}] full",
+              (4, sh, sh, 2048, 2048, sd), True, False, 0),
+             (f"seamless cross [4,{sh}|{sh},512|2048,{sd}] full",
+              (4, sh, sh, 512, 2048, sd), True, False, 0),
+             ("Lq > Lk [1,4|4,2048|512,64] full", (1, 4, 4, 2048, 512, 64),
+              False, False, 0),
+             (f"llava model layout [2,{lh}|{lg},2048,{ld}]",
+              (2, lh, lg, 2048, 2048, ld), True, True, 0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, model, causal, win in more:
+            q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
+            got = flash_attention(q, k, v, causal=causal, window=win)
+            want = mha_ref(q, k, v, causal=causal, window=win)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype,
+                  f"flash_attention {name}: shape/dtype")
+            err, head = rel_err(got, want), head_err(got, want)
+            log(f"[kernel] flash_attention {name:<46} {str(dtype)[6:]:<9} "
+                f"max err {err:.3e}, per head {head:.3e} (tol "
+                f"{TOL[dtype]:.0e})")
+            check(math.isfinite(err) and err <= TOL[dtype],
+                  f"flash_attention {name} {dtype}: err {err}")
+            check(math.isfinite(head) and head <= TOL[dtype],
+                  f"flash_attention {name} {dtype}: per-head err {head}")
+            del q, k, v, got, want
     log(f"[kernel] flash_attention operands copied for TMA: "
         f"{flash_attention.copies}")
     check(flash_attention.copies == 0, "flash_attention copied operands")
@@ -589,12 +654,16 @@ def phase_ssd_vs_plain(dev) -> None:
     (``tests/test_kernels.py:145-181``, the carry test at Q = 32 and 128
     included), at chunks of 256 and 512 with d_state 128 (fault C1), at
     mamba2-1.3b's layer at prefill in its own strided layout (no element-
-    wise copies), whole tensor and per (batch, head); then a head's result
-    independent of its batch, bit for bit."""
+    wise copies), at zamba2-1.2b's layer (d_state 64, 2 x 8 192 tokens,
+    the model's layout), whole tensor and per (batch, head); then a head's
+    result independent of its batch, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(4)
     m = get_config("mamba2-1.3b")
     nh = m.ssm.n_heads(m.d_model)
     layer = (4, 2048, nh, m.ssm.n_groups, m.ssm.head_dim, m.ssm.d_state)
+    z = get_config("zamba2-1.2b")
+    zamba = (2, 8192, z.ssm.n_heads(z.d_model), z.ssm.n_groups,
+             z.ssm.head_dim, z.ssm.d_state)
     cases = [((1, 128, 2, 1, 32, 16), 64, False),
              ((2, 256, 4, 2, 64, 32), 128, False),
              ((1, 64, 8, 8, 16, 16), 32, False),
@@ -603,7 +672,8 @@ def phase_ssd_vs_plain(dev) -> None:
              ((2, 1024, 4, 1, 64, 128), 256, False),    # C1
              ((1, 1024, 4, 2, 64, 128), 512, False),    # C1
              ((1, 1000, 4, 1, 64, 128), 256, False),    # C1, ragged
-             (layer, 128, True), (layer, 256, True)]
+             (layer, 128, True), (layer, 256, True),
+             (zamba, 128, True)]                        # d_state 64
     for dtype in (torch.float32, torch.bfloat16):
         for shape, q, model in cases:
             ops = ssd_operands(gen, dev, dtype, *shape, model=model)
@@ -674,8 +744,11 @@ DECODE_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 def phase_decode_vs_plain(dev) -> None:
     """B4 against ``decode_ref`` at the reference's test shapes
     (``tests/test_kernels.py:114-140``, its ragged lengths included), a
-    ragged S, a cache with replicated KV heads (``kv_head_pad`` 2) and
-    yi-6b's decode layer over a 32 768-position cache, f32 and bf16."""
+    ragged S, a cache with replicated KV heads (``kv_head_pad`` 2),
+    yi-6b's decode layer over a 32 768-position cache, zamba2's ring
+    (group 1, D 64; also past the wrap, against the keys in position
+    order), seamless's self and cross caches and llava's group 7, f32 and
+    bf16."""
     gen = torch.Generator(device=dev).manual_seed(12)
     cases = [((2, 8, 2, 256, 64), None), ((1, 4, 4, 512, 128), None),
              ((4, 16, 1, 128, 64), None), ((3, 4, 2, 256, 64), (256, 100, 17)),
@@ -685,7 +758,14 @@ def phase_decode_vs_plain(dev) -> None:
              # ring); ends one short of and one past a tile and a turn
              ((8, 32, 4, 4096, 128), (63, 65, 127, 129, 255, 257, 1151,
                                       1281)),
-             (DECODE_CELL, DECODE_CELL_LEN)]
+             (DECODE_CELL, DECODE_CELL_LEN),
+             # zamba2's ring (group 1, D 64; every slot live), seamless's
+             # self and cross caches (group 1), llava's group 7
+             ((8, 32, 32, 4096, 64), None),
+             ((4, 16, 16, 2048, 64), None),
+             ((4, 16, 16, 528, 64), (513, 513, 520, 528)),
+             ((8, 56, 8, 4096, 128), (4096, 4080, 1, 2049, 3000, 64, 65,
+                                      4095))]
     decode_attention.narrow = 0
     for dtype in (torch.float32, torch.bfloat16):
         for (b, hq, hkv, s, d), lens in cases:
@@ -710,6 +790,24 @@ def phase_decode_vs_plain(dev) -> None:
             check(math.isfinite(row) and row <= DECODE_ROW_TOL[dtype],
                   f"decode_attention {name} {dtype}: per-row err {row}")
             del q, k, v, got, want
+    # a wrapped ring: zamba2's 4 096 slots at position 3·4096 + 1234 hold
+    # the window's keys out of order (slot = position % 4096); B4 reads the
+    # slots in their order and must give the attention over the keys in
+    # position order
+    b, h, s, d = 8, 32, 4096, 64
+    pos = 3 * s + 1234
+    order = torch.arange(pos - s + 1, pos + 1, device=dev) % s
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = decode_operands(gen, dev, dtype, b, h, h, s, d)
+        got = decode_attention(q, k, v)
+        want = decode_ref(q, k[:, :, order], v[:, :, order])
+        err, row = rel_err(got, want), row_err(got, want)
+        log(f"[kernel] decode_attention ring past the wrap q[{b},{h},{d}] "
+            f"kv[{b},{h},{s},{d}] {str(dtype)[6:]:<9} max err {err:.3e}, "
+            f"per row {row:.3e} (against the keys in position order)")
+        check(err <= TOL[dtype] and row <= DECODE_ROW_TOL[dtype],
+              f"decode_attention ring order {dtype}: {err}, {row}")
+        del q, k, v, got, want
     log(f"[kernel] decode_attention bf16 calls on the CUDA-core kernel: "
         f"{decode_attention.narrow}")
     check(decode_attention.narrow == 0,
@@ -1485,7 +1583,10 @@ def plain_attention():
 # 1.6e-2 and 1.5e-2. The gates run f32 compute and hold the kernels' path
 # to DENSE_TOL: ~80x the CPU gaps, room for full width's sums over 16x more
 # terms (~4x the rounding), while a wrong layer gives differences of order
-# 1. The bf16 comparisons are reported.
+# 1. The bf16 comparisons are reported. The hybrid, encdec and vlm gates
+# hold their f32 logits to the same (B3 runs on both sides of zamba2's,
+# so only B2 or B4 differs; its 38 Mamba-2 layers carry the shared
+# block's f32 rounding to the logits: 1.7e-5 measured at 5 120 tokens).
 DENSE_TOL = 1e-4
 
 
@@ -1500,29 +1601,36 @@ def fill_cache(cache, upto: int, seed: int):
     return cache._replace(pos=upto)
 
 
-def long_step_vs_plain(cfg, params, batch: int, s: int, dev, seed=15):
-    """Logits of one decode step at position s - 16 over a cache of s
-    positions filled with seeded values, with B4 against ``decode_ref``;
-    the cache is filled anew from the seed for each (a step writes it)."""
-    dtype = tfm.dtype_of(cfg.compute_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
-                        device=dev)
+def step_vs_plain(cfg, params, make_cache, tok, b4: int):
+    """(max|diff| / max|plain|, argmax agreement) of one decode step from
+    ``make_cache()`` with B4 (``b4`` launches) against ``decode_ref``; the
+    cache is made anew for each (a step writes it)."""
     out = []
     for plain in (False, True):
-        cache = fill_cache(tfm.init_cache(cfg, batch, s, dtype=dtype,
-                                          device=dev), s - 16, seed)
+        cache = make_cache()
         reset_launches()
         with plain_attention() if plain else contextlib.nullcontext():
             logits, _ = tfm.decode_step(cfg, params, tok, cache)
         torch.cuda.synchronize()
-        check(decode_attention.launches == (0 if plain else cfg.n_layers),
-              f"long-cache step: decode_attention launches "
+        check(decode_attention.launches == (0 if plain else b4),
+              f"{cfg.name} step vs plain: decode_attention launches "
               f"{decode_attention.launches}")
         out.append(logits)
         del cache
         torch.cuda.empty_cache()
     return compare(*out)
+
+
+def long_step_vs_plain(cfg, params, batch: int, s: int, dev, seed=15):
+    """One decode step at position s - 16 over a cache of s positions
+    filled with seeded values, with B4 against ``decode_ref``."""
+    dtype = tfm.dtype_of(cfg.compute_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                        device=dev)
+    return step_vs_plain(cfg, params, lambda: fill_cache(tfm.init_cache(
+        cfg, batch, s, dtype=dtype, device=dev), s - 16, seed), tok,
+        cfg.n_layers)
 
 
 def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
@@ -1600,29 +1708,9 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
         cache = fill_cache(tfm.init_cache(cfg, serve_batch, long_seq,
                                           device=dev),
                            long_seq - tokens - 2, seed=14)
-        tok, _, cache = serve(params, sample[:, -1], cache)     # warm-up
-        last = {}
-        decode_busy = profile(
-            f"yi-6b decode step at position {cache.pos} of {long_seq}",
-            lambda: last.update(out=serve(params, tok, cache)))
-        tok, _, cache = last.pop("out")
-        reset_launches()
-        sample, _, cache, long_s = serve_tokens(cfg, params, tok, cache,
-                                                tokens)
-        b4_long = decode_attention.launches
-        log(f"[dense] serve over a {long_seq}-position cache (positions "
-            f"{long_seq - tokens}..{long_seq - 1}): {tokens} greedy tokens x "
-            f"batch {serve_batch}: {1e3 * long_s / tokens:.2f} ms per step, "
-            f"{serve_batch * tokens / long_s:.1f} tok/s; decode_attention "
-            f"launches {b4_long} ({b4_long // tokens} a step); sample "
-            f"{sample[0].tolist()}")
-        check(cache.pos == long_seq and b4_long == cfg.n_layers * tokens,
-              f"long serve: pos {cache.pos}, launches {b4_long}")
-        log(f"[dense] bf16 B4 calls on the CUDA-core kernel: "
-            f"{decode_attention.narrow}")
-        check(decode_attention.narrow == 0,
-              f"long serve: {decode_attention.narrow} bf16 B4 calls on the "
-              "CUDA-core kernel")
+        long_ms, _, decode_busy = serve_phase(cfg, params, sample[:, -1],
+                                              cache, tokens, "dense",
+                                              cfg.n_layers)
         del cache
         torch.cuda.empty_cache()
         err, agree = long_step_vs_plain(cfg, params, serve_batch, long_seq,
@@ -1634,19 +1722,8 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
         log(f"[dense] bf16 prefill({check_len}) vs {check_len} decode_steps: "
             f"{err:.3e}, argmax agreement {agree:.2f} (reported)")
 
+        prefill_gate(cfg, params, {"tokens": toks}, "dense", cfg.n_layers)
         f32 = dataclasses.replace(cfg, compute_dtype="float32")
-        step32 = make_prefill_step(f32)
-        reset_launches()
-        logits = step32(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        check(flash_attention.launches == cfg.n_layers, "f32 prefill: launches")
-        with plain_attention():
-            want = step32(params, {"tokens": toks})
-        err, agree = compare(logits, want)
-        log(f"[dense] f32 prefill {batch} x {prompt}, B2 vs plain attention: "
-            f"{err:.3e} (tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f}")
-        check(err <= DENSE_TOL, f"f32 prefill kernel vs plain: {err}")
-        del logits, want
         torch.cuda.empty_cache()
         err, agree = prefill_vs_decode(f32, params, toks[:, :check_len], dev,
                                        dtype=torch.float32)
@@ -1660,10 +1737,281 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
             f"(tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f}")
         check(err <= DENSE_TOL, f"f32 long-cache step B4 vs plain: {err}")
     del params
-    return {"b2_launches": b2, "b4_launches": b4_long,
-            "b4_per_step": b4_long // tokens, "prefill_ms": 1e3 * prefill_s,
-            "prefill_busy": prefill_busy, "decode_busy": decode_busy,
-            "long_ms": 1e3 * long_s / tokens}
+    return {"b2_launches": b2, "b4_per_step": cfg.n_layers,
+            "prefill_ms": 1e3 * prefill_s, "prefill_busy": prefill_busy,
+            "decode_busy": decode_busy, "long_ms": long_ms}
+
+
+def model_params(cfg, dev, tag: str):
+    """Seeded f32 parameters of ``cfg`` on the card, logged with their size."""
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers"
+        + (f" (+ {cfg.encoder_layers} encoder)" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} q heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}; {n_par / 1e9:.3f} B params, {4 * n_par / 1e9:.2f}"
+        f" GB f32, compute {cfg.compute_dtype}; init "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def timed_prefill(step, params, batch, tag: str, b2: int, b3: int = 0):
+    """One synchronised prefill after ``reset_launches``: (last logits,
+    seconds); checks the B2 and B3 launch counts and that no operand was
+    copied for TMA nor by B3 element by element."""
+    reset_launches()
+    t1 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    got = (flash_attention.launches, ssd_scan.launches)
+    log(f"[{tag}] flash_attention launches {got[0]}, ssd_scan launches "
+        f"{got[1]}; operands copied for TMA {flash_attention.copies}, "
+        f"ssd_scan element-wise copies {ssd_scan.narrow}")
+    check(got == (b2, b3), f"{tag}: B2, B3 launches {got} != {(b2, b3)}")
+    check(flash_attention.copies == 0 and ssd_scan.narrow == 0,
+          f"{tag}: operands copied")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
+    return logits, seconds
+
+
+def prefill_gate(cfg, params, batch, tag: str, b2: int, b3: int = 0):
+    """f32 prefill logits with B2 against the plain attention."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    step = make_prefill_step(f32)
+    logits, _ = timed_prefill(step, params, batch, f"{tag} f32", b2, b3)
+    with plain_attention():
+        want = step(params, batch)
+    err, agree = compare(logits, want)
+    shape = "x".join(str(n) for n in next(iter(batch.values())).shape[:2])
+    log(f"[{tag}] f32 prefill {shape}, B2 vs plain attention: {err:.3e} "
+        f"(tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f} [{card()}]")
+    check(err <= DENSE_TOL, f"{tag}: f32 prefill kernel vs plain: {err}")
+
+
+def step_gate(cfg, make_cache, tok, params, tag: str, b4: int):
+    """One f32 decode step from ``make_cache()`` with B4 against
+    ``decode_ref``, gated."""
+    err, agree = step_vs_plain(cfg, params, make_cache, tok, b4)
+    log(f"[{tag}] f32 decode step, batch {tok.shape[0]}, B4 vs decode_ref: "
+        f"{err:.3e} (tol {DENSE_TOL:.0e}), argmax agreement {agree:.2f} "
+        f"[{card()}]")
+    check(err <= DENSE_TOL, f"{tag}: f32 decode step B4 vs plain: {err}")
+
+
+def serve_phase(cfg, params, tok, cache, tokens: int, tag: str, b4: int):
+    """One warm-up and one profiled serve step, then ``tokens`` timed greedy
+    steps: B4 ``b4`` times a step, no bf16 call on its CUDA-core kernel.
+    Returns (ms a step, tok/s, busy share of the profiled step)."""
+    serve = make_serve_step(cfg)
+    tok, _, cache = serve(params, tok, cache)              # warm-up
+    last = {}
+    busy = profile(f"{cfg.name} decode step at position {cache.pos}",
+                   lambda: last.update(out=serve(params, tok, cache)))
+    tok, _, cache = last.pop("out")
+    reset_launches()
+    sample, _, cache, seconds = serve_tokens(cfg, params, tok, cache, tokens)
+    launches = decode_attention.launches
+    batch = tok.shape[0]
+    log(f"[{tag}] serve at positions {cache.pos - tokens}..{cache.pos - 1}: "
+        f"{tokens} greedy tokens x batch {batch}: "
+        f"{1e3 * seconds / tokens:.2f} ms per step, "
+        f"{batch * tokens / seconds:.1f} tok/s; decode_attention launches "
+        f"{launches} ({launches // tokens} a step), on its CUDA-core kernel "
+        f"{decode_attention.narrow}; sample {sample[0].tolist()} [{card()}]")
+    check(launches == b4 * tokens and decode_attention.narrow == 0,
+          f"{tag}: decode_attention launches {launches}, narrow "
+          f"{decode_attention.narrow}")
+    return 1e3 * seconds / tokens, batch * tokens / seconds, busy
+
+
+def fill_hybrid(cache, pos: int, seed: int):
+    """Seeded values in every shared site's ring (all its slots: the
+    window's keys after ``pos`` tokens) and in the Mamba-2 states."""
+    gen = torch.Generator(device=cache.layers["ssm"].conv.device)
+    gen.manual_seed(seed)
+    for t in (*cache.layers["shared_kv"], *cache.layers["ssm"]):
+        t.normal_(generator=gen)
+    cache.layers["ssm"].ssm.mul_(0.1)
+    return cache._replace(pos=pos)
+
+
+def phase_hybrid(dev, batch=2, prompt=8192, serve_batch=8, tokens=16,
+                 serve_pos=12288, gate_len=5120, gate_batch=2) -> dict:
+    """zamba2-1.2b at full width and depth (38 Mamba-2 layers, the shared
+    attention block after every 6 with its 4 096-token window). The f32
+    gate's prompt of ``gate_len`` tokens is past the window and a multiple
+    of the plain path's 1 024-key chunk (``chunked_attention`` takes no
+    other length above one chunk)."""
+    cfg = get_config("zamba2-1.2b")
+    sites = len(tfm._hybrid_segments(cfg)) - 1
+    params = model_params(cfg, dev, "hybrid")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg)
+    with torch.inference_mode():
+        step(params, {"tokens": toks[:, :512]})         # warm-up
+        logits, prefill_s = timed_prefill(step, params, {"tokens": toks},
+                                          "hybrid prefill", sites,
+                                          cfg.n_layers)
+        log(f"[hybrid] prefill {batch} x {prompt} tokens (window "
+            f"{cfg.sliding_window} binds): {1e3 * prefill_s:.1f} ms, "
+            f"{batch * prompt / prefill_s:.0f} tok/s [{card()}]")
+        prefill_busy = profile("zamba2-1.2b prefill",
+                               lambda: step(params, {"tokens": toks}))
+        with plain_attention():
+            want = step(params, {"tokens": toks})
+        err, agree = compare(logits, want)
+        log(f"[hybrid] bf16 logits B2 vs plain attention: {err:.3e}, argmax "
+            f"agreement {agree:.2f} (reported; gated in f32 below)")
+        del logits, want
+        torch.cuda.empty_cache()
+
+        cache = fill_hybrid(tfm.init_cache(cfg, serve_batch, 4 * 4096,
+                                           device=dev), serve_pos, seed=22)
+        ring = cache.layers["shared_kv"][0].shape[3]
+        check(ring == cfg.sliding_window, f"hybrid ring of {ring} slots")
+        tok = torch.randint(0, cfg.vocab_size, (serve_batch,), generator=gen,
+                            device=dev)
+        ms, tok_s, decode_busy = serve_phase(cfg, params, tok, cache, tokens,
+                                             "hybrid", sites)
+        del cache
+        torch.cuda.empty_cache()
+
+        prefill_gate(cfg, params, {"tokens": toks[:1, :gate_len]}, "hybrid",
+                     sites, cfg.n_layers)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        step_gate(f32, lambda: fill_hybrid(tfm.init_cache(
+            f32, gate_batch, 4 * 4096, dtype=torch.float32, device=dev),
+            serve_pos + 7, seed=23), tok[:gate_batch], params, "hybrid",
+            sites)
+    del params
+    return {"b2_launches": sites, "b3_launches": cfg.n_layers,
+            "b4_per_step": sites, "prefill_ms": 1e3 * prefill_s,
+            "prefill_tok_s": batch * prompt / prefill_s,
+            "prefill_busy": prefill_busy, "decode_ms": ms,
+            "decode_tok_s": tok_s, "decode_busy": decode_busy}
+
+
+def phase_encdec(dev, batch=4, frames=2048, prompt=512, tokens=16,
+                 gate_frames=2048, gate_prompt=128, gate_batch=2) -> dict:
+    """seamless-m4t-large-v2 at full width and depth (24 encoder layers
+    over seeded frame embeddings, 24 decoder layers with cross-attention),
+    decoding on from its own prefill: the prompt's self caches and the
+    encoder's cross caches that the forward collected."""
+    cfg = get_config("seamless-m4t-large-v2")
+    b2 = cfg.encoder_layers + 2 * cfg.n_layers
+    b4 = 2 * cfg.n_layers
+    params = model_params(cfg, dev, "encdec")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    enc = torch.randn((batch, frames, cfg.d_model), generator=gen,
+                      device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg)
+    with torch.inference_mode():
+        step(params, {"tokens": toks[:, :64], "enc_embeds": enc[:, :256]})
+        logits, prefill_s = timed_prefill(
+            step, params, {"tokens": toks, "enc_embeds": enc},
+            "encdec prefill", b2)
+        log(f"[encdec] prefill: encoder {batch} x {frames} frames, decoder "
+            f"{batch} x {prompt} tokens: {1e3 * prefill_s:.1f} ms, "
+            f"{batch * (frames + prompt) / prefill_s:.0f} positions/s "
+            f"[{card()}]")
+        with plain_attention():
+            want = step(params, {"tokens": toks, "enc_embeds": enc})
+        err, agree = compare(logits, want)
+        log(f"[encdec] bf16 logits B2 vs plain attention: {err:.3e}, argmax "
+            f"agreement {agree:.2f} (reported; gated in f32 below)")
+        del logits, want
+        reset_launches()
+        all_logits, caches = tfm.forward(cfg, params, tokens=toks,
+                                         enc_embeds=enc, collect_cache=True)
+        check(flash_attention.launches == b2, "encdec forward: launches")
+        tok = all_logits[:, -1].float().argmax(-1)
+        del all_logits
+        (k, v), cross = caches["cross"]
+        cache = tfm.init_cache(cfg, batch, prompt + tokens + 2,
+                               enc_out=cross, device=dev)
+        for mine, got in zip(cache.layers["cross_self"], (k, v)):
+            mine[:, :, :, :prompt].copy_(got)
+        del k, v, caches
+        torch.cuda.empty_cache()
+        ms, tok_s, decode_busy = serve_phase(
+            cfg, params, tok, cache._replace(pos=prompt), tokens, "encdec",
+            b4)
+        del cache, cross
+        torch.cuda.empty_cache()
+
+        prefill_gate(cfg, params, {"tokens": toks[:1, :gate_prompt],
+                                   "enc_embeds": enc[:1, :gate_frames]},
+                     "encdec", b2)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+        def gate_cache():
+            g = torch.Generator(device=dev).manual_seed(32)
+            shape = (cfg.n_layers, gate_batch, cfg.n_kv_heads, gate_frames,
+                     cfg.head_dim)
+            out = tuple(torch.randn(shape, generator=g, device=dev)
+                        for _ in range(2))
+            c = tfm.init_cache(f32, gate_batch, prompt, dtype=torch.float32,
+                               enc_out=out, device=dev)
+            for t in c.layers["cross_self"]:
+                t[:, :, :, :prompt - 16].normal_(generator=g)
+            return c._replace(pos=prompt - 16)
+        step_gate(f32, gate_cache, tok[:gate_batch], params, "encdec", b4)
+    del params, enc
+    return {"b2_launches": b2, "b4_per_step": b4,
+            "prefill_ms": 1e3 * prefill_s, "decode_ms": ms,
+            "decode_tok_s": tok_s, "decode_busy": decode_busy}
+
+
+def phase_vlm(dev, layers=16, batch=4, prompt=2048, serve_batch=8,
+              tokens=16, seq=4096, gate_batch=2) -> dict:
+    """llava-next-34b at full width, cut to ``layers`` of its 60 layers for
+    one card's memory (f32 weights: 2.23 GB a layer, 3.67 GB embedding and
+    head), prefilled from seeded patch embeddings (the stub frontend)."""
+    cfg = dataclasses.replace(get_config("llava-next-34b"), n_layers=layers)
+    params = model_params(cfg, dev, "vlm")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    emb = torch.randn((batch, prompt, cfg.d_model), generator=gen,
+                      device=dev) * cfg.d_model ** -0.5
+    step = make_prefill_step(cfg)
+    with torch.inference_mode():
+        step(params, {"embeds": emb[:, :256]})           # warm-up
+        logits, prefill_s = timed_prefill(step, params, {"embeds": emb},
+                                          "vlm prefill", layers)
+        log(f"[vlm] prefill {batch} x {prompt} embeddings: "
+            f"{1e3 * prefill_s:.1f} ms, {batch * prompt / prefill_s:.0f} "
+            f"tok/s [{card()}]")
+        with plain_attention():
+            want = step(params, {"embeds": emb})
+        err, agree = compare(logits, want)
+        log(f"[vlm] bf16 logits B2 vs plain attention: {err:.3e}, argmax "
+            f"agreement {agree:.2f} (reported; gated in f32 below)")
+        del logits, want
+        torch.cuda.empty_cache()
+        cache = fill_cache(tfm.init_cache(cfg, serve_batch, seq, device=dev),
+                           seq - tokens - 2, seed=42)
+        tok = torch.randint(0, cfg.vocab_size, (serve_batch,), generator=gen,
+                            device=dev)
+        ms, tok_s, decode_busy = serve_phase(cfg, params, tok, cache, tokens,
+                                             "vlm", layers)
+        del cache
+        torch.cuda.empty_cache()
+        prefill_gate(cfg, params, {"embeds": emb[:1]}, "vlm", layers)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        step_gate(f32, lambda: fill_cache(tfm.init_cache(
+            f32, gate_batch, seq, dtype=torch.float32, device=dev),
+            seq - 16, seed=43), tok[:gate_batch], params, "vlm", layers)
+    del params, emb
+    return {"b2_launches": layers, "b4_per_step": layers,
+            "prefill_ms": 1e3 * prefill_s, "decode_ms": ms,
+            "decode_tok_s": tok_s, "decode_busy": decode_busy}
 
 
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
@@ -1707,35 +2055,57 @@ def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
 def phase_time_attention(dev, seq: int, dim: int) -> dict:
     """B2 at the attention chain's task ([1, 1, seq, dim] f32, causal, one
     task per launch), at yi-6b's prefill layout ([1, 32|4, 4096, 128]
-    bf16) and at the model's own prefill call ([4, 32|4, 2048, 128] bf16,
-    strided views): the kernel, its plain version and
-    ``scaled_dot_product_attention`` (timed only), with each path's
-    registers, spills and resident blocks."""
+    bf16), at the model's own prefill call ([4, 32|4, 2048, 128] bf16,
+    strided views), at zamba2's windowed prefill call ([2, 32|32, 8192, 64]
+    bf16, window 4 096) and at seamless's cross-attention ([4, 16|16,
+    512|2048, 64] bf16, full): the kernel, its plain version and
+    ``scaled_dot_product_attention`` with the same mask (an explicit band
+    for the window; timed only), with each path's registers, spills and
+    resident blocks."""
     gen = torch.Generator(device=dev).manual_seed(5)
     yi = get_config("yi-6b")
     hq, hkv, hd = yi.n_heads, yi.n_kv_heads, yi.head_dim
+    zamba, seam = get_config("zamba2-1.2b"), get_config("seamless-m4t-large-v2")
+    zh, zd, w = zamba.n_heads, zamba.head_dim, zamba.sliding_window
+    sh, sd = seam.n_heads, seam.head_dim
     rows = {}
-    for name, shape, model, dtype in (
-            ("chain task", (1, 1, 1, seq, seq, dim), False, torch.float32),
+    for name, shape, model, dtype, causal, win in (
+            ("chain task", (1, 1, 1, seq, seq, dim), False, torch.float32,
+             True, 0),
             ("yi-6b prefill", (1, hq, hkv, 4096, 4096, hd), False,
-             torch.bfloat16),
+             torch.bfloat16, True, 0),
             ("yi-6b model prefill", (4, hq, hkv, 2048, 2048, hd), True,
-             torch.bfloat16)):
+             torch.bfloat16, True, 0),
+            ("zamba2 windowed prefill", (2, zh, zh, 8192, 8192, zd), True,
+             torch.bfloat16, True, w),
+            ("seamless cross", (4, sh, sh, 512, 2048, sd), True,
+             torch.bfloat16, False, 0)):
         q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
-        got = flash_attention(q, k, v)
-        err = float((got.float() - mha_ref(q, k, v).float()).abs().max())
+        kw = dict(causal=causal, window=win)
+        got = flash_attention(q, k, v, **kw)
+        err = float((got.float() - mha_ref(q, k, v, **kw).float())
+                    .abs().max())
         gqa = q.shape[1] != k.shape[1]
+        # SDPA with the same mask: causal, an explicit band for the window
+        mask = None
+        if win:
+            pos = torch.arange(q.shape[2], device=dev)[:, None]
+            key = torch.arange(k.shape[2], device=dev)[None, :]
+            mask = (key <= pos) & (key > pos - win)
         reps = 5
-        kernel = cuda_ms(lambda: flash_attention(q, k, v), reps)
-        plain = cuda_ms(lambda: mha_ref(q, k, v), reps)
+        kernel = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps)
+        plain = cuda_ms(lambda: mha_ref(q, k, v, **kw), 2 if win else reps)
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=gqa), reps)
-        kernel2 = cuda_ms(lambda: flash_attention(q, k, v), reps)
-        nbytes, flops = attention_work(q, k)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=gqa), reps)
+        kernel2 = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps)
+        nbytes, flops = attention_work(q, k, causal, win)
         bnd, bound_by = bound(nbytes, flops, dtype)
         info = attention_kernel_info(dtype, q.shape[3], dev.index or 0)
         log(f"[time] flash_attention {name} q{list(q.shape)} "
-            f"kv{list(k.shape)} {str(dtype)[6:]}: kernel {kernel:.3f} / "
+            f"kv{list(k.shape)} {str(dtype)[6:]}"
+            f"{' window %d' % win if win else ''}"
+            f"{'' if causal else ' full'}: kernel {kernel:.3f} / "
             f"{kernel2:.3f} ms, plain {plain:.3f} ms, sdpa {library:.3f} ms, "
             f"bound {bnd:.3f} ms ({bound_by}); kernel "
             f"{1e-9 * flops / min(kernel, kernel2):.1f} TFLOP/s, sdpa "
@@ -1746,22 +2116,23 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
                       "library_ms": library, "bound_ms": bnd,
                       "bound_by": bound_by, "max_abs_err": err,
                       "shape": [list(q.shape), list(k.shape),
-                                str(dtype)[6:]]}
-        del q, k, v, got
+                                str(dtype)[6:]] + ([win] if win else [])}
+        del q, k, v, got, mask
     return rows
 
 
-def phase_time_ssd(dev, shape) -> dict:
-    """B3 at mamba2-1.3b's layer at prefill, in the model's layout (x, B
-    and C views of one projection): bf16 at Q 128 (the model's; the row
-    returned) and Q 256, f32 at Q 128; the kernels and their plain version.
-    No single PyTorch call computes the SSD scan, so there is no library
-    time."""
+def phase_time_ssd(dev, shape, name="mamba2-1.3b", variants=True) -> dict:
+    """B3 at a model's layer at prefill (``name``: mamba2-1.3b, or
+    zamba2-1.2b's at d_state 64), in the model's layout (x, B and C views
+    of one projection): bf16 at Q 128 (the model's; the row returned) and,
+    with ``variants``, Q 256 and f32 at Q 128; the kernels and their plain
+    version. No single PyTorch call computes the SSD scan, so there is no
+    library time."""
     b, l, h, p, g, n = shape
     gen = torch.Generator(device=dev).manual_seed(6)
     row = None
     for dtype, q in ((torch.bfloat16, 128), (torch.bfloat16, 256),
-                     (torch.float32, 128)):
+                     (torch.float32, 128))[:3 if variants else 1]:
         ops = ssd_operands(gen, dev, dtype, b, l, h, g, p, n, model=True)
         got = ssd_scan(*ops, q_chunk=q)
         err = float((got.float() - ssd_chunked_ref(*ops, q_chunk=q).float())
@@ -1773,7 +2144,7 @@ def phase_time_ssd(dev, shape) -> dict:
         nbytes, flops = ssd_work(ops[0], ops[3], q)
         bnd, bound_by = bound(nbytes, flops, dtype)
         kernels = ssd_plan(b, l, h, g, p, n, q, got.element_size()).kernels
-        log(f"[time] ssd_scan mamba2-1.3b layer x[{b},{l},{h},{p}] "
+        log(f"[time] ssd_scan {name} layer x[{b},{l},{h},{p}] "
             f"b/c[{b},{l},{g},{n}] {str(dtype)[6:]} Q{q}: kernel "
             f"{kernel:.3f} / {kernel2:.3f} ms ({kernels} kernels a call), "
             f"plain {plain:.3f} ms, library none, bound {bnd:.3f} ms "
@@ -1788,12 +2159,13 @@ def phase_time_ssd(dev, shape) -> dict:
     return row
 
 
-def phase_time_decode(dev) -> dict:
-    """B4 at yi-6b's decode layer over the long cache (q [8, 32, 128], K/V
-    [8, 4, 32768, 128], bf16, every position live): the kernel, its plain
-    version and ``scaled_dot_product_attention`` with the length mask
-    (timed only)."""
-    b, hq, hkv, s, d = DECODE_CELL
+def phase_time_decode(dev, cell=DECODE_CELL,
+                      name="yi-6b decode layer") -> dict:
+    """B4 at a decode layer (``cell`` = (B, Hq, Hkv, S, D); yi-6b's over the
+    long cache, q [8, 32, 128], K/V [8, 4, 32768, 128], by default), bf16,
+    every position live: the kernel, its plain version and
+    ``scaled_dot_product_attention`` with the length mask (timed only)."""
+    b, hq, hkv, s, d = cell
     gen = torch.Generator(device=dev).manual_seed(16)
     q, k, v = decode_operands(gen, dev, torch.bfloat16, b, hq, hkv, s, d)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
@@ -1803,7 +2175,7 @@ def phase_time_decode(dev) -> dict:
     want = decode_ref(q, k, v, kv_len)
     err = float((got.float() - want.float()).abs().max())
     row = row_err(got, want)
-    log(f"[time] decode_attention all-live cell: per-row err {row:.3e} (tol "
+    log(f"[time] decode_attention {name}: per-row err {row:.3e} (tol "
         f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
     check(math.isfinite(row) and row <= DECODE_ROW_TOL[torch.bfloat16],
           f"decode_attention all-live cell: per-row err {row}")
@@ -1812,12 +2184,12 @@ def phase_time_decode(dev) -> dict:
     kernel = cuda_ms(lambda: decode_attention(q, k, v, kv_len), reps)
     plain = cuda_ms(lambda: decode_ref(q, k, v, kv_len), 3)
     library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps)
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=hq != hkv), reps)
     kernel2 = cuda_ms(lambda: decode_attention(q, k, v, kv_len), reps)
     live = int(kv_len.sum())      # cache positions read, over the batch
     nbytes = q.element_size() * (2 * q.numel() + 2 * hkv * d * live)
     bnd, bound_by = bound(nbytes, 4.0 * d * hq * live, torch.bfloat16)
-    log(f"[time] decode_attention yi-6b decode layer q[{b},{hq},{d}] "
+    log(f"[time] decode_attention {name} q[{b},{hq},{d}] "
         f"kv[{b},{hkv},{s},{d}] bf16: kernel {kernel:.3f} / {kernel2:.3f} "
         f"ms, plain {plain:.3f} ms, sdpa {library:.3f} ms, bound {bnd:.3f} "
         f"ms ({bound_by}); kernel {1e-6 * nbytes / min(kernel, kernel2):.0f} "
@@ -1859,10 +2231,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense = phase_dense(dev)
     torch.cuda.empty_cache()
+    hybrid = phase_hybrid(dev)
+    torch.cuda.empty_cache()
+    encdec = phase_encdec(dev)
+    torch.cuda.empty_cache()
+    vlm = phase_vlm(dev)
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
+    z = get_config("zamba2-1.2b")
+    zamba_ssd = phase_time_ssd(dev, [2, 8192, z.ssm.n_heads(z.d_model),
+                                     z.ssm.head_dim, z.ssm.n_groups,
+                                     z.ssm.d_state], "zamba2-1.2b", False)
     decode_time = phase_time_decode(dev)
+    decode_rows = {name: phase_time_decode(dev, cell, name) for name, cell in (
+        ("zamba2 ring", (8, 32, 32, 4096, 64)),
+        ("seamless cross", (4, 16, 16, 2048, 64)),
+        ("llava decode layer", (8, 56, 8, 4096, 128)))}
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; GEMM main "
         f"path launches {gemm['launches']}")
@@ -1874,13 +2260,33 @@ def main() -> int:
              ssd_time),
             ("decode_attention", "decode_attention/decode_attention.py:65",
              dense["b4_per_step"], decode_time)]
-    # B1 on the host runtime's path: one unbatched block a launch
+    # B1 on the host runtime's path: one unbatched block a launch; B2, B3
+    # and B4 at the hybrid, encdec and vlm paths' shapes, with their
+    # launches on each path (per prefill; B4 per decode step)
     extra = {"block_gemm": {
         "host_launches": host["launches"], "host_ms": host["ms"],
         "host_plain_ms": host["plain_ms"],
         "host_library_ms": host["library_ms"],
         "host_bound_ms": host["bound_ms"],
-        "sched_launches": sched["launches"]}}
+        "sched_launches": sched["launches"]},
+        "flash_attention": {"model_rows": {
+            "zamba2 windowed prefill": attn_times["zamba2 windowed prefill"],
+            "seamless cross": attn_times["seamless cross"],
+            "yi-6b model prefill": attn_times["yi-6b model prefill"]},
+            "launches_per_prefill": {
+                "zamba2-1.2b": hybrid["b2_launches"],
+                "seamless-m4t-large-v2": encdec["b2_launches"],
+                "llava-next-34b-d16": vlm["b2_launches"],
+                "yi-6b": dense["b2_launches"]}},
+        "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd},
+                     "launches_per_prefill": {
+                         "zamba2-1.2b": hybrid["b3_launches"]}},
+        "decode_attention": {"model_rows": decode_rows,
+                             "launches_per_step": {
+                                 "zamba2-1.2b": hybrid["b4_per_step"],
+                                 "seamless-m4t-large-v2":
+                                     encdec["b4_per_step"],
+                                 "llava-next-34b-d16": vlm["b4_per_step"]}}}
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{

@@ -32,7 +32,8 @@ global sums ⇒ every queued message was processed ⇒ quiescence is permanent.
 :class:`~repro_torch.core.faults.FaultPlan`): every non-0 rank heartbeats rank 0
 from its progress loop; rank 0 feeds a
 :class:`~repro_torch.train.elastic.HeartbeatMonitor` (the same lease logic the
-elastic trainer uses at host granularity) and, when a lease expires,
+elastic trainer uses at host granularity), on a clock that runs only while
+rank 0 reads its inbox (``on_poll``), and, when a lease expires,
 *declares* the silent rank dead:
 
 - the quiescence state moves to a new **epoch**; every protocol message
@@ -105,13 +106,31 @@ class CompletionDetector:
         if self.rank == 0 and plan is not None:
             self._monitor = HeartbeatMonitor(self.n_ranks,
                                              dead_after=plan.lease)
+            self._beat_every = plan.heartbeat_every
+        # rank 0's listening clock (see on_poll): the leases' time base
+        self._listened = 0.0
+        self._polled_at: Optional[float] = None
         comm.attach_detector(self)
 
     # ----------------------------------------------------------- inbound
 
     def on_heartbeat(self, src: int) -> None:
         if self._monitor is not None:
-            self._monitor.beat(src)
+            self._monitor.beat(src, self._listened)
+
+    def on_poll(self) -> None:
+        """Rank 0 is about to read its inbox: advance its listening clock
+        by the time since its last read, but by one heartbeat period at
+        most. Leases run on this clock, so silence is charged only while
+        rank 0 listens: beats waiting unread while rank 0 was kept from
+        ``progress()``, or not yet sent by ranks paused with it (a garbage
+        collection, a descheduled process), make no rank look dead."""
+        if self._monitor is None:
+            return
+        now = time.monotonic()
+        if self._polled_at is not None:
+            self._listened += min(now - self._polled_at, self._beat_every)
+        self._polled_at = now
 
     def on_message(self, wire) -> None:
         if wire.kind == DEATH:
@@ -226,7 +245,7 @@ class CompletionDetector:
         if self._monitor is None:
             return
         now = time.monotonic()
-        self._monitor.beat(0, now)
+        self._monitor.beat(0, self._listened)
         # Physical deaths are authoritative (the in-proc world fences a
         # killed rank instantly; a real transport would surface connection
         # loss the same way). Lease expiry applies only to ranks heard from
@@ -236,7 +255,7 @@ class CompletionDetector:
         # depend on the heartbeat path alone.
         phys = [r for r in sorted(self.comm.world.dead)
                 if r not in self.dead and r != 0]
-        lease = [r for r in self._monitor.dead_hosts(now)
+        lease = [r for r in self._monitor.dead_hosts(self._listened)
                  if r in self._monitor.last_seen
                  and r not in self.dead and r != 0]
         newly = sorted(set(phys) | set(lease))

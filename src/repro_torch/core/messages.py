@@ -418,7 +418,12 @@ class Communicator:
         now = time.monotonic()
         if now - self._last_hb >= f.heartbeat_every:
             self._last_hb = now
-            self._post_raw(0, HEARTBEAT, None)
+            self.heartbeat()
+
+    def heartbeat(self) -> None:
+        """Post one heartbeat to rank 0's failure detector now; safe from
+        any thread (the world's send is)."""
+        self._post_raw(0, HEARTBEAT, None)
 
     def _retransmit_due(self) -> None:
         now = time.monotonic()
@@ -457,6 +462,8 @@ class Communicator:
         """One progress step of the main/MPI thread (§II-B2)."""
         self._maybe_heartbeat()
         self._retransmit_due()
+        if self._detector is not None:
+            self._detector.on_poll()
         for wire in self.world.poll(self.rank):
             if self._detector is not None:
                 # any traffic from a rank is proof of life, not just HBs

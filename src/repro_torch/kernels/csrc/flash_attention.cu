@@ -14,8 +14,15 @@
 // q-head), the KV head being h // (Hq / Hkv). Queries are the trailing Lq
 // positions of the Lk-long sequence; with `causal` a logit whose key lies
 // after its query is -1e30 (the reference's -inf would give (-inf) - (-inf)
-// = NaN in a row whose tile is all masked), and keys past Lk have
-// probability 0 (-inf). Tiles past a block's causal bound are never read.
+// = NaN in a row whose tile is all masked), with a sliding `window` > 0 so
+// is a logit whose key lies `window` or more positions before its query
+// (kpos <= qpos - window, as the JAX package's chunked_attention masks),
+// and keys past Lk have probability 0 (-inf). Tiles past a block's causal
+// bound, and tiles wholly before the window of its first query, are never
+// read. A row whose first tiles are all masked sums exp(0) = 1 for them
+// until its first live key, whose running max then scales that sum and
+// its output by exp(-1e30 - max) = 0: with `causal` every row's own key is
+// live, so every row ends with its live keys only.
 // Q, K and V come with their own four strides, so the executor's [T, L, D]
 // task form is read as B = T, H = 1 with no copy.
 //
@@ -55,9 +62,11 @@
 // (batch, head) fills one wave of resident blocks; a block writes its
 // range's f32 (m, l, acc) to a workspace and a second kernel merges the
 // ranges of each query tile with weights exp(m - max) / sum, as B4 does (a
-// query tile with one range writes its output directly). The plan depends
-// only on (Lq, Lk, D, causal) and the card's resident blocks, never on the
-// batch, so a task's result does not depend on the batch it rides in. A
+// query tile with one range writes its output directly). With a window a
+// query tile's walk starts at the first tile its first row's window
+// reaches. The plan depends only on (Lq, Lk, D, causal, window) and the
+// card's resident blocks, never on the batch, so a task's result does not
+// depend on the batch it rides in. A
 // block of 256 threads owns 128 queries and walks 64-key tiles, K and V in
 // separate double buffers filled with cp.async (16 bytes where rows allow
 // it, 4 otherwise; zeros past the edges); P, transposed, goes over the K
@@ -182,7 +191,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const float* __restrict__ v, float* __restrict__ o,
                    float* __restrict__ ws, float* __restrict__ ws_ml,
                    const int* __restrict__ plan, int n_items, int hq, int hkv,
-                   int lq, int lk, int d, int causal, float scale,
+                   int lq, int lk, int d, int causal, int window, float scale,
                    Strides st) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
@@ -270,6 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int kpos = k0 + tx + 16 * j;
         float x = s[a][j] * scale;
         if (causal && kpos > qpos) x = NEG;
+        if (window && kpos <= qpos - window) x = NEG;
         if (kpos >= lk) x = minus_inf();  // past the keys: probability 0
         s[a][j] = x;
         mx = fmaxf(mx, x);
@@ -428,15 +438,16 @@ template <int KC, bool VEC>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* ws, float* ws_ml, const int* plan, int n_items, int n_qt,
            int max_count, int batch, int hq, int hkv, int lq, int lk, int d,
-           int causal, float scale, const Strides& st, cudaStream_t s) {
+           int causal, int window, float scale, const Strides& st,
+           cudaStream_t s) {
   const int smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       partial_kernel<KC, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   partial_kernel<KC, VEC><<<dim3(batch * hq, n_items), THREADS, smem, s>>>(
-      q, k, v, o, ws, ws_ml, plan, n_items, hq, hkv, lq, lk, d, causal, scale,
-      st);
+      q, k, v, o, ws, ws_ml, plan, n_items, hq, hkv, lq, lk, d, causal, window,
+      scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess || max_count < 2) return static_cast<int>(err);
   const int wbytes = 4 * MR * max_count;
@@ -644,7 +655,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               __nv_bfloat16* __restrict__ o, int hq, int hkv, int lq, int lk,
-              int d, int causal, float scale_log2) {
+              int d, int causal, int window, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* const Ks = Qs + NB * BOX;           // [STAGES][NB] boxes
@@ -663,7 +674,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int offset = lk - lq;  // absolute position of query 0
   int kv_end = lk;
   if (causal) kv_end = max(0, min(lk, min(q0 + BQ, lq) + offset));
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int t_end = (kv_end + BK - 1) / BK;
+  // the first tile holding a key inside the window of the block's first row
+  const int t_begin =
+      window ? min(t_end, max(0, q0 + offset - window + 1) / BK) : 0;
+  const int n_tiles = t_end - t_begin;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -690,13 +705,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(k_empty + s, free_parity);
         mbar_expect_tx(k_full + s, NB * BOX);
         for (int c = 0; c < NB; ++c)
-          tma_load(Ks + (s * NB + c) * BOX, &tk, k_full + s, 64 * c, i * BK,
-                   hk, b);
+          tma_load(Ks + (s * NB + c) * BOX, &tk, k_full + s, 64 * c,
+                   (t_begin + i) * BK, hk, b);
         mbar_wait(v_empty + s, free_parity);
         mbar_expect_tx(v_full + s, NB * BOX);
         for (int c = 0; c < NB; ++c)
-          tma_load(Vs + (s * NB + c) * BOX, &tv, v_full + s, 64 * c, i * BK,
-                   hk, b);
+          tma_load(Vs + (s * NB + c) * BOX, &tv, v_full + s, 64 * c,
+                   (t_begin + i) * BK, hk, b);
       }
     }
     return;
@@ -747,8 +762,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // online softmax in the log2 domain; register j holds row r0 + 8·((j
     // >> 1) & 1), key k0 + 8·(j >> 2) + c2 + (j & 1)
-    const int k0 = i * BK;
-    const bool edge = (causal && k0 + BK - 1 > wg_first) || k0 + BK > lk;
+    const int k0 = (t_begin + i) * BK;
+    const bool edge = (causal && k0 + BK - 1 > wg_first) || k0 + BK > lk ||
+                      (window && k0 <= wg_first + 63 - window);
     float mx0 = minus_inf(), mx1 = minus_inf();
 #pragma unroll
     for (int j = 0; j < 64; ++j) {
@@ -757,6 +773,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int kpos = k0 + 8 * (j >> 2) + c2 + (j & 1);
         const int qpos = pos0 + 8 * ((j >> 1) & 1);
         if (causal && kpos > qpos) x = NEG;
+        if (window && kpos <= qpos - window) x = NEG;
         if (kpos >= lk) x = minus_inf();
       }
       sc[j] = x;
@@ -917,8 +934,8 @@ int prepare() {
 
 template <int NB>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int lq, int lk, int d, int causal, float scale,
-           const long long* st, cudaStream_t s) {
+           int hq, int hkv, int lq, int lk, int d, int causal, int window,
+           float scale, const long long* st, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   int err = prepare<NB>();
   if (!err) err = encode(&tq, q, batch, hq, lq, d, st, BQ);
@@ -928,7 +945,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const dim3 grid(batch * hq, (lq + BQ - 1) / BQ);
   fa_kernel<NB><<<grid, THREADS, smem_bytes(NB), s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, lq, lk, d, causal,
-      scale * 1.4426950408889634f);
+      window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -955,15 +972,16 @@ template <int KC>
 int launch_f32(int vec, const float* q, const float* k, const float* v,
                float* o, float* ws, float* ws_ml, const int* plan,
                int n_items, int n_qt, int max_count, int batch, int hq,
-               int hkv, int lq, int lk, int d, int causal, float scale,
-               const Strides& st, cudaStream_t s) {
+               int hkv, int lq, int lk, int d, int causal, int window,
+               float scale, const Strides& st, cudaStream_t s) {
   const auto run = vec ? &f32::launch<KC, true> : &f32::launch<KC, false>;
   return run(q, k, v, o, ws, ws_ml, plan, n_items, n_qt, max_count, batch,
-             hq, hkv, lq, lk, d, causal, scale, st, s);
+             hq, hkv, lq, lk, d, causal, window, scale, st, s);
 }
 
 }  // namespace
 
+// window: 0, or the sliding window (a key kpos <= qpos - window is masked).
 // strides: q (b, h, l, d), k (b, h, l, d), v (b, h, l, d), 12 in all; for
 // bf16 each d stride is 1 and the others are multiples of 8 elements, and
 // every pointer is 16-byte aligned (the wrapper copies operands that are
@@ -971,15 +989,15 @@ int launch_f32(int vec, const float* q, const float* k, const float* v,
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch, int hq,
                                     int hkv, int lq, int lk, int d,
-                                    int causal, float scale,
+                                    int causal, int window, float scale,
                                     const long long* strides, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64)
     return bf16::launch<1>(q, k, v, o, batch, hq, hkv, lq, lk, d, causal,
-                           scale, strides, s);
+                           window, scale, strides, s);
   if (d <= 128)
     return bf16::launch<2>(q, k, v, o, batch, hq, hkv, lq, lk, d, causal,
-                           scale, strides, s);
+                           window, scale, strides, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -993,8 +1011,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    void* ws_ml, const void* plan, int n_items,
                                    int n_qt, int max_count, int batch, int hq,
                                    int hkv, int lq, int lk, int d, int causal,
-                                   float scale, const long long* strides,
-                                   int vec, void* stream) {
+                                   int window, float scale,
+                                   const long long* strides, int vec,
+                                   void* stream) {
   const Strides st = {strides[0], strides[1], strides[2],  strides[3],
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
@@ -1004,7 +1023,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
              static_cast<const float*>(v), static_cast<float*>(o),
              static_cast<float*>(ws), static_cast<float*>(ws_ml),
              static_cast<const int*>(plan), n_items, n_qt, max_count, batch,
-             hq, hkv, lq, lk, d, causal, scale, st,
+             hq, hkv, lq, lk, d, causal, window, scale, st,
              static_cast<cudaStream_t>(stream));
 }
 

@@ -1,5 +1,6 @@
-"""Causal GQA flash attention, forward: the body of the attention-chain PTG
-(the port of the JAX package's Pallas ``flash_attention``)."""
+"""GQA flash attention, forward, causal or full, with an optional sliding
+window: the body of the attention-chain PTG and the models' prefill
+attention (the port of the JAX package's Pallas ``flash_attention``)."""
 
 from .flash_attention import flash_attention
 from .ops import attention, task_attention

@@ -3,7 +3,10 @@
 
 The port of the JAX package's Pallas kernel ``flash_attention``
 (``src/repro/kernels/flash_attention/flash_attention.py``): causal or full
-GQA attention, forward, with the softmax in f32. Two designs in one source:
+GQA attention, forward, with the softmax in f32, and with an optional
+sliding window (keys ``window`` or more positions before their query are
+masked, as the JAX package's ``chunked_attention`` masks them; its Pallas
+kernel has no window). Two designs in one source:
 
 - bf16: both products on the tensor cores (``wgmma``), K and V brought in
   by TMA. TMA reads only rows with unit column stride, 16-byte multiples
@@ -13,8 +16,8 @@ GQA attention, forward, with the softmax in f32. Two designs in one source:
 - f32: IEEE f32 on the CUDA cores. Each query tile's KV walk is cut into
   ranges (``split_plan``) so that one (batch, head) fills the card; the
   ranges' f32 partials are merged by a second kernel. The plan depends on
-  the call's own (Lq, Lk, D, causal) and the card only, never on the batch,
-  so a task's result does not depend on the batch it rides in.
+  the call's own (Lq, Lk, D, causal, window) and the card only, never on
+  the batch, so a task's result does not depend on the batch it rides in.
 
 Every L and every D <= 128 works, through the operands' own strides. See the
 note at the top of the source for what bounds each path.
@@ -68,10 +71,10 @@ def _entry(dtype: torch.dtype):
                  f"flash_attention_{_SUFFIX[dtype]}")
     ints, strides = ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
     if dtype == torch.bfloat16:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ints] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ints] * 8
                        + [ctypes.c_float, strides, ctypes.c_void_p])
     else:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ints] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ints] * 11
                        + [ctypes.c_float, strides, ints, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -107,21 +110,28 @@ class SplitPlan(NamedTuple):
 
 @functools.cache
 def split_plan(lq: int, lk: int, causal: bool, bq: int, bk: int,
-               slots: int) -> SplitPlan:
+               slots: int, window: int = 0) -> SplitPlan:
     """Cut each query tile's KV walk into ranges of at most ``per`` tiles,
     ``per`` the smallest that keeps the ranges of one (batch, head) within
     ``slots`` (the card's resident blocks: one wave). Query tile ``t``
     covers rows [t·bq, (t+1)·bq) at positions Lk - Lq + row and walks the
-    tiles of keys below its causal bound (all Lk keys when not causal); its
-    ranges split that walk into near-equal parts. A function of the call's
-    own shape and the card only: the batch does not enter it."""
+    tiles of keys below its causal bound (all Lk keys when not causal),
+    from the first tile its first row's ``window`` reaches (tile 0 without
+    a window); its ranges split that walk into near-equal parts. A function
+    of the call's own shape and the card only: the batch does not enter
+    it."""
     n_qt = -(-lq // bq)
-    walk = []
+    begin, walk = [], []
     for t in range(n_qt):
         end = lk
         if causal:
             end = max(0, min(lk, min(lq, (t + 1) * bq) + lk - lq))
-        walk.append(-(-end // bk))
+        end = -(-end // bk)
+        first = 0
+        if window:
+            first = min(end, max(0, t * bq + lk - lq - window + 1) // bk)
+        begin.append(first)
+        walk.append(end - first)
 
     def n_items(per):
         return sum(max(1, -(-n // per)) for n in walk)
@@ -139,30 +149,31 @@ def split_plan(lq: int, lk: int, causal: bool, bq: int, bk: int,
         n = walk[t]
         parts = max(1, -(-n // lo))
         tiles[t] = (len(items), parts)
-        items += [(t, p * n // parts, (p + 1) * n // parts)
-                  for p in range(parts)]
+        items += [(t, begin[t] + p * n // parts,
+                   begin[t] + (p + 1) * n // parts) for p in range(parts)]
     return SplitPlan(lo, tuple(items), tuple(tiles))
 
 
 def plan_for(q_shape: Sequence[int], k_shape: Sequence[int], causal: bool,
-             info: KernelInfo, sms: int) -> SplitPlan:
+             info: KernelInfo, sms: int, window: int = 0) -> SplitPlan:
     """The split plan of an f32 call with q ``q_shape`` [B, Hq, Lq, D] and
-    k ``k_shape`` on a card of ``sms`` SMs: only Lq and Lk enter, with the
-    instantiation's tiles and resident blocks (``info``, from D)."""
+    k ``k_shape`` on a card of ``sms`` SMs: only Lq, Lk and the window
+    enter, with the instantiation's tiles and resident blocks (``info``,
+    from D)."""
     return split_plan(q_shape[2], k_shape[2], bool(causal), info.bq, info.bk,
-                      sms * info.blocks_per_sm)
+                      sms * info.blocks_per_sm, window)
 
 
 @functools.lru_cache(maxsize=256)
 def _f32_launch(q_shape: torch.Size, k_shape: torch.Size, causal: bool,
-                index: int):
+                window: int, index: int):
     """What an f32 call of these shapes on CUDA device ``index`` hands the
     kernel, worked out once: (the plan as the kernel reads it, int32 items
     then query tiles, on the device; number of items; number of query
     tiles; the most ranges of one query tile; rows of one item)."""
     info = kernel_info(torch.float32, q_shape[3], index)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    plan = plan_for(q_shape, k_shape, causal, info, sms)
+    plan = plan_for(q_shape, k_shape, causal, info, sms, window)
     flat = [x for item in plan.items for x in item]
     flat += [x for tile in plan.tiles for x in tile]
     return (torch.tensor(flat, dtype=torch.int32,
@@ -205,17 +216,21 @@ def _vec_ok(t: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, Hq, Lq, D]; k/v: [B, Hkv, Lk, D] -> [B, Hq, Lq, D] in q's
-    dtype, f32 or bf16, any strides.
+    dtype, f32 or bf16, any strides. Query i sits at position Lk - Lq + i;
+    ``causal`` masks the keys after it, a ``window`` > 0 the keys ``window``
+    or more positions before it (a window of Lk or more masks none).
 
     On CPU tensors this is the plain version (``ref.mha_ref``); on CUDA
     tensors it launches the kernel, on the current stream, or raises.
     ``flash_attention.launches`` counts the calls that launch (an f32 call
     with split ranges is two launches: partials, then their merge);
     ``flash_attention.copies`` counts bf16 operands copied for TMA."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return mha_ref(q, k, v, causal=causal)
+        return mha_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: operands on {q.device}, "
                          f"{k.device}, {v.device}; all must be on one CUDA "
@@ -236,6 +251,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {d} > {MAX_D}")
     if max(b * hq, lq, lk) > _INT_MAX:
         raise ValueError("flash_attention: a dimension exceeds 2**31 - 1")
+    window = 0 if window >= lk else int(window)     # masks no key
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -251,10 +267,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if q.dtype == torch.bfloat16:
             err = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   out.data_ptr(), b, hq, hkv, lq, lk, d,
-                                  int(causal), d ** -0.5, strides, stream)
+                                  int(causal), window, d ** -0.5, strides,
+                                  stream)
         else:
             plan, n_items, n_qt, max_count, bq = _f32_launch(
-                q.shape, k.shape, bool(causal), index)
+                q.shape, k.shape, bool(causal), window, index)
             rows = b * hq * n_items * bq if max_count > 1 else 0
             dpad = -(-d // 4) * 4
             ws = torch.empty(rows * (dpad + 2) or 1, dtype=torch.float32,
@@ -263,7 +280,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 ws.data_ptr(), ws.data_ptr() + 4 * rows * dpad,
                 plan.data_ptr(), n_items, n_qt, max_count, b, hq, hkv, lq,
-                lk, d, int(causal), d ** -0.5, strides,
+                lk, d, int(causal), window, d ** -0.5, strides,
                 int(_vec_ok(q) and _vec_ok(k) and _vec_ok(v)), stream)
     flash_attention.launches += 1
     if err != 0:

@@ -14,10 +14,10 @@ from .flash_attention import flash_attention
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal (or full) GQA attention, q [B, Hq, Lq, D], k/v [B, Hkv, Lk,
-    D] -> [B, Hq, Lq, D]."""
-    return flash_attention(q, k, v, causal=causal)
+    D] -> [B, Hq, Lq, D], with an optional sliding ``window``."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def task_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

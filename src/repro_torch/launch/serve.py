@@ -7,9 +7,12 @@ decode loop.
 The JAX package's decode loop (``repro.launch.serve``) without its mesh:
 one warm-up step, then ``--tokens`` timed steps from a fresh cache of
 ``--max-seq`` positions (bf16, donated to each step); prints tok/s and the
-first sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. The
-dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b) and ssm (mamba2-1.3b)
-families run so far.
+first sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. Every
+family but moe runs: dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b), vlm
+(llava-next-34b, fed token embeddings as the JAX launcher feeds it), ssm
+(mamba2-1.3b), hybrid (zamba2-1.2b) and encdec (seamless-m4t-large-v2,
+whose cross-attention reads a cache of zeros [L, B, Hkv, max_seq, hd], as
+the JAX launcher makes it: there is no encoder pass).
 """
 
 import argparse
@@ -46,7 +49,14 @@ def main(argv=None) -> None:
     print(f"device: {where}, arch={cfg.name}")
     with torch.inference_mode():
         params = tfm.init_params(cfg, seed=args.seed, device=device)
-        cache = tfm.init_cache(cfg, args.batch, args.max_seq, device=device)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = tuple(torch.zeros(
+                (cfg.n_layers, args.batch, cfg.n_kv_heads, args.max_seq,
+                 cfg.head_dim), dtype=torch.bfloat16, device=device)
+                for _ in range(2))
+        cache = tfm.init_cache(cfg, args.batch, args.max_seq, enc_out=enc_out,
+                               device=device)
         step = make_serve_step(cfg)
         tok = torch.ones((args.batch,), dtype=torch.int64, device=device)
         tok, _, cache = step(params, tok, cache)          # warm-up

@@ -1,14 +1,17 @@
 """Attention of the GQA families: the prefill and decode dispatch, and the
 plain chunked attention (PyTorch).
 
-The port of ``repro.models.attention`` (GQA; MLA is ROADMAP item A10).
-Where the JAX package runs its jnp versions everywhere off the TPU, the
-port sends CUDA tensors to its hand-written kernels and CPU tensors to the
-plain versions:
+The port of ``repro.models.attention`` (GQA; MLA is the moe part of
+ROADMAP item A10). Where the JAX package runs its jnp versions everywhere
+off the TPU, the port sends CUDA tensors to its hand-written kernels and
+CPU tensors to the plain versions:
 
 - prefill: B2 ``flash_attention`` on CUDA, ``chunked_attention`` (the
-  reference's online softmax over KV chunks) on the CPU;
-- decode: B4 ``decode_attention`` on CUDA, ``decode_ref`` on the CPU.
+  reference's online softmax over KV chunks) on the CPU; causal or not,
+  Lq = Lk or not (the encdec family's cross-attention), with or without a
+  sliding window (the hybrid family's shared block);
+- decode: B4 ``decode_attention`` on CUDA, ``decode_ref`` on the CPU; over
+  a cache, a ring (the hybrid's window) or the encoder's keys (encdec).
 
 Neither falls back on CUDA tensors: the kernels launch or raise.
 """
@@ -89,15 +92,11 @@ def _attn_block(q, k, v, causal, window, scale, group):
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """Full-sequence GQA attention of ``_gqa_full``: B2 on CUDA tensors
-    (read through their strides, no copies), ``chunked_attention`` on CPU
-    tensors."""
+    (read through their strides, no copies; the window too),
+    ``chunked_attention`` on CPU tensors."""
     if q.device.type != "cuda":
         return chunked_attention(q, k, v, causal=causal, window=window)
-    if window:
-        raise NotImplementedError(
-            "prefill_attention: the flash attention kernel has no sliding "
-            "window; only the hybrid family passes one (ROADMAP item A10)")
-    return flash_ops.attention(q, k, v, causal=causal)
+    return flash_ops.attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_host(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

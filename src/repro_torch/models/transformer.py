@@ -1,14 +1,16 @@
-"""The model zoo's init / forward / prefill / decode, for the dense family
-(llama-style GQA) and the ssm family (Mamba-2) so far.
+"""The model zoo's init / forward / prefill / decode, for every family but
+moe: dense (llama-style GQA), vlm (dense blocks fed ``embeds``), ssm
+(Mamba-2), hybrid (a Mamba-2 backbone with one shared attention block
+after every ``shared_attn_every`` layers, sliding window, zamba-style) and
+encdec (a non-causal encoder and a causal decoder with cross-attention).
 
-The port of ``repro.models.transformer`` for ``family`` in ``("dense",
-"ssm")``. The other families (vlm, moe, hybrid, encdec) raise
-``NotImplementedError``: their blocks (MoE, MLA, the hybrid's shared
-attention, cross-attention) are ROADMAP item A10 and their serving path
-item A12. Parameters are a dict of tensors with the JAX package's tree and
-stacked ``[n_layers, ...]`` leaves; layers run as a Python loop over that
-stack. There is one device, so the JAX package's sharding annotations have
-no counterpart.
+The port of ``repro.models.transformer``. The moe family (MoE experts, MLA
+attention) raises ``NotImplementedError``: it is the moe part of ROADMAP
+item A10, its serving path item A12. Parameters are a dict of tensors with
+the JAX package's tree and stacked ``[n_layers, ...]`` leaves (the
+hybrid's ``shared`` block unstacked); layers run as a Python loop over
+that stack. There is one device, so the JAX package's sharding
+annotations have no counterpart.
 
 Attention goes through ``prefill_attention`` and ``decode_attention_host``
 (``models/attention.py``): the hand-written kernels on CUDA tensors, the
@@ -17,7 +19,7 @@ plain versions on CPU tensors.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -28,15 +30,16 @@ from .layers import (apply_rope, dense_init, gelu_mlp, rms_norm, rope_freqs,
 from .mamba2 import (Mamba2State, mamba2_forward, mamba2_init_state,
                      mamba2_params_shapes, mamba2_step)
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _require_family(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{what}: the port runs the dense and ssm families so far, not "
-            f"{cfg.family!r} ({cfg.name}); the {cfg.family} family's model is "
-            f"ROADMAP item A10 and its serving path item A12")
+            f"{what}: the port runs the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r} ({cfg.name}); the {cfg.family} family's model "
+            f"(MoE experts, MLA attention) is the moe part of ROADMAP item "
+            f"A10 and its serving path item A12")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -49,7 +52,7 @@ def dtype_of(name: str) -> torch.dtype:
 def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.attention == "mla":
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention is ROADMAP item A10")
+            f"{cfg.name}: MLA attention is the moe part of ROADMAP item A10")
     d, hd = cfg.d_model, cfg.head_dim
     s = {
         "wq": (d, cfg.n_heads * hd),
@@ -74,8 +77,12 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     d = cfg.d_model
     if kind == "ssm":
         return {"ln": (d,), "mamba": mamba2_params_shapes(cfg.ssm, d)}
-    return {"ln1": (d,), "ln2": (d,), "attn": _attn_shapes(cfg),
-            "ffn": _ffn_shapes(cfg)}
+    s: Dict[str, Any] = {"ln1": (d,), "ln2": (d,), "attn": _attn_shapes(cfg)}
+    if kind == "cross":  # encdec decoder block
+        s["ln_cross"] = (d,)
+        s["cross"] = _attn_shapes(cfg)
+    s["ffn"] = _ffn_shapes(cfg)
+    return s
 
 
 def _init_tree(gen: torch.Generator, shapes, n_stack: int, dtype,
@@ -103,9 +110,14 @@ def _zero_biases(tree, names=("router_bias", "conv_b", "dt_bias")):
 
 
 def layer_kinds(cfg: ModelConfig) -> Dict[str, int]:
-    """Named layer segments -> stack depth (one per family so far)."""
+    """Named layer segments -> stack depth (the hybrid's shared attention
+    block is not stacked, so not a segment)."""
     _require_family(cfg, "layer_kinds")
-    return {cfg.family: cfg.n_layers}
+    if cfg.family in ("dense", "vlm"):
+        return {"dense": cfg.n_layers}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ssm": cfg.n_layers}
+    return {"enc": cfg.encoder_layers, "cross": cfg.n_layers}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -127,8 +139,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), 0,
                                        dtype, device)
     for seg, depth in kinds.items():
-        params[seg] = _init_tree(gen, _block_shapes(cfg, seg), depth, dtype,
+        kind = "dense" if seg == "enc" else seg
+        params[seg] = _init_tree(gen, _block_shapes(cfg, kind), depth, dtype,
                                  device)
+    if cfg.family == "hybrid":
+        params["shared"] = _init_tree(gen, _block_shapes(cfg, "dense"), 0,
+                                      dtype, device)
+    if cfg.family == "encdec":
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                        device=device)
     return _zero_biases(params)
 
 
@@ -141,37 +160,44 @@ def _layer(tree, i: int):
 
 # ============================================================== attention
 
-def _gqa_full(cfg: ModelConfig, p, x):
-    """Full-sequence causal GQA (prefill); returns (out, (k, v) cache), k
-    and v [B, Hkv, S, hd] (v a transposed view)."""
+def _gqa_full(cfg: ModelConfig, p, x, *, causal=True, window=0, kv_x=None):
+    """Full-sequence GQA (prefill); returns (out, (k, v) cache), k and v
+    [B, Hkv, S_kv, hd] (v a transposed view). Self-attention (RoPE on q and
+    k) unless ``kv_x`` gives the keys' and values' source: cross-attention,
+    no RoPE."""
     b, s, _ = x.shape
     hd = cfg.head_dim
+    kv_src = x if kv_x is None else kv_x
+    sk = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    k = (kv_src @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = (kv_src @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_freqs(torch.arange(s, device=x.device), hd,
-                          cfg.rope_theta)
-    q = apply_rope(q.transpose(1, 2), cos, sin)
-    k = apply_rope(k.transpose(1, 2), cos, sin)
-    v = v.transpose(1, 2)
-    o = prefill_attention(q, k, v, causal=True)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if kv_x is None:
+        cos, sin = rope_freqs(torch.arange(s, device=x.device), hd,
+                              cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    o = prefill_attention(q, k, v, causal=causal, window=window)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     return o @ p["wo"], (k, v)
 
 
 def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
-                kv_len: torch.Tensor):
+                kv_len: torch.Tensor, *, window: int = 0):
     """x [B, D], cache_kv (k, v) [B, Hkv·pad, S, hd]; writes the new key and
     value at ``pos`` IN PLACE (the cache is donated, as the JAX package's
     launcher donates it) and attends over the first ``kv_len`` positions.
 
-    A write at ``pos >= S`` lands on slot S - 1, as the reference's
-    ``dynamic_update_index_in_dim`` clamps it (PyTorch indexing would
-    raise). A cache of another dtype than the compute dtype raises
-    ``TypeError``, as the reference's update does."""
+    With a ``window`` the cache is a ring: the write lands on slot ``pos %
+    S`` (keys carry their RoPE from the write, so the attention reads the
+    slots in any order). Without one a write at ``pos >= S`` lands on slot
+    S - 1, as the reference's ``dynamic_update_index_in_dim`` clamps it
+    (PyTorch indexing would raise). A cache of another dtype than the
+    compute dtype raises ``TypeError``, as the reference's update does."""
     b, _ = x.shape
     hd = cfg.head_dim
     k_cache, v_cache = cache_kv
@@ -195,7 +221,7 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
     if pad > 1:
         k = k.repeat_interleave(pad, dim=1)
         v = v.repeat_interleave(pad, dim=1)
-    slot = min(pos, s_max - 1)
+    slot = pos % s_max if window else min(pos, s_max - 1)
     k_cache[:, :, slot] = k
     v_cache[:, :, slot] = v
     o = decode_attention_host(q, k_cache, v_cache, kv_len)
@@ -220,16 +246,27 @@ def _ffn_apply(cfg: ModelConfig, p, x):
     return gelu_mlp(x, p["w_in"], p["w_out"])
 
 
-def _block_full(cfg: ModelConfig, kind: str, p, x):
-    """Full-sequence block of the ssm or dense kind; returns (x, the
-    layer's cache: None for ssm, the (k, v) of its attention for dense)."""
+def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
+                window: int = 0):
+    """Full-sequence block of kind ssm, dense (causal), enc (the encoder's,
+    not causal) or cross (the decoder's: causal self-attention, then
+    attention over ``enc_out``); returns (x, the layer's cache: None for
+    ssm, the (k, v) of its self-attention, and for cross ((k, v), (k, v) of
+    the cross-attention))."""
     p = _cast_params(cfg, p)
     if kind == "ssm":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         return x + mamba2_forward(h, p["mamba"], cfg.ssm, cfg.d_model), None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    att, cache = _gqa_full(cfg, p["attn"], h)
+    att, cache = _gqa_full(cfg, p["attn"], h, causal=kind != "enc",
+                           window=window)
     x = x + att
+    if kind == "cross":
+        hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        catt, ccache = _gqa_full(cfg, p["cross"], hc, causal=False,
+                                 kv_x=enc_out)
+        x = x + catt
+        cache = (cache, ccache)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn_apply(cfg, p["ffn"], h2), cache
 
@@ -242,32 +279,104 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 # ============================================================ full forward
 
-def forward(cfg: ModelConfig, params, tokens=None, embeds=None, *,
-            collect_cache: bool = False):
+def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
+            enc_tokens=None, enc_embeds=None, *, collect_cache: bool = False):
     """Training/prefill forward -> (logits [B, S, V], caches or None).
-    With ``collect_cache`` the caches are, per segment, the reference's
-    stacked layer caches: ``caches["dense"]`` = (k, v), each [L, B, Hkv, S,
-    hd]; ``caches["ssm"]`` = None (the ssm blocks collect none)."""
+    With ``collect_cache`` the caches are the reference's: per segment the
+    stacked layer caches, ``caches["dense"]`` = (k, v), each [L, B, Hkv, S,
+    hd]; ``caches["ssm"]`` = None (the ssm blocks collect none);
+    ``caches["cross"]`` = ((k, v) of the decoder's self-attention, (k, v)
+    over the encoder's output, [L, B, Hkv, S_enc, hd]); for the hybrid
+    ``{"ssm": [], "shared_kv": [(k, v) of each shared site]}``. The encdec
+    family's encoder reads ``enc_tokens`` or ``enc_embeds``."""
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens] if embeds is None else embeds
     x = x.to(dtype_of(cfg.compute_dtype))
     caches: Dict[str, Any] = {}
-    for seg, depth in kinds.items():
-        layer_caches = []
-        for i in range(depth):
-            x, cache = _block_full(cfg, seg, _layer(params[seg], i), x)
-            if collect_cache and cache is not None:
-                layer_caches.append(cache)
-        if collect_cache:
-            caches[seg] = (tuple(torch.stack(c) for c in zip(*layer_caches))
-                           if layer_caches else None)
+    enc_out = None
+    if cfg.family == "encdec":
+        e = params["embed"][enc_tokens] if enc_embeds is None else enc_embeds
+        e, _ = _scan_segment(cfg, "dense", params["enc"], e.to(x.dtype),
+                             causal_kind="enc")
+        enc_out = rms_norm(e, params["enc_norm"], cfg.norm_eps)
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_forward(cfg, params, x, collect_cache)
+    else:
+        for seg in kinds:
+            if seg == "enc":
+                continue
+            x, cache = _scan_segment(cfg, seg, params[seg], x,
+                                     enc_out=enc_out,
+                                     collect_cache=collect_cache)
+            if collect_cache:
+                caches[seg] = cache
     return _head(cfg, params, x), (caches if collect_cache else None)
 
 
-def prefill(cfg: ModelConfig, params, tokens=None, embeds=None):
+def _stack(caches: List[Any]) -> Any:
+    """Per-layer caches (tensors, tuples of them, or None) stacked layer
+    first, as ``lax.scan`` stacks the reference's."""
+    if not caches or caches[0] is None:
+        return None
+    if isinstance(caches[0], tuple):
+        return tuple(_stack(list(c)) for c in zip(*caches))
+    return torch.stack(caches)
+
+
+def _scan_segment(cfg, kind, seg_params, x, *, enc_out=None,
+                  collect_cache=False, causal_kind=None, layers=None):
+    """The blocks of a stacked segment in order (all of them, or the
+    indices ``layers``), a Python loop in place of the reference's
+    ``lax.scan``; ``causal_kind`` overrides the block kind (the encoder's
+    "enc"). Returns (x, the stacked caches or None)."""
+    kind = causal_kind or kind
+    layer_caches = []
+    for i in (range(_depth(seg_params)) if layers is None else layers):
+        x, cache = _block_full(cfg, kind, _layer(seg_params, i), x,
+                               enc_out=enc_out)
+        if collect_cache:
+            layer_caches.append(cache)
+    return x, (_stack(layer_caches) if collect_cache else None)
+
+
+def _depth(tree) -> int:
+    """Layers of a stacked parameter tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _hybrid_forward(cfg, params, x, collect_cache):
+    """The Mamba-2 backbone with the shared attention block (sliding
+    window) between its segments."""
+    segs = _hybrid_segments(cfg)
+    caches: Dict[str, Any] = {"ssm": [], "shared_kv": []}
+    offset = 0
+    for si, depth in enumerate(segs):
+        x, _ = _scan_segment(cfg, "ssm", params["ssm"], x,
+                             layers=range(offset, offset + depth))
+        offset += depth
+        if si < len(segs) - 1:
+            x, kv = _block_full(cfg, "dense", params["shared"], x,
+                                window=cfg.sliding_window)
+            if collect_cache:
+                caches["shared_kv"].append(kv)
+    return x, caches
+
+
+def _hybrid_segments(cfg) -> Tuple[int, ...]:
+    """Depths of the hybrid's Mamba-2 segments: ``shared_attn_every``
+    layers each, the last one shorter if the layers do not divide."""
+    every, n = cfg.shared_attn_every, cfg.n_layers
+    return tuple(min(every, n - done) for done in range(0, n, every))
+
+
+def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
+            enc_tokens=None, enc_embeds=None):
     """Forward over the prompt; returns last-position logits (cache wiring
     for incremental decode is exercised via decode_step)."""
-    logits, _ = forward(cfg, params, tokens=tokens, embeds=embeds)
+    logits, _ = forward(cfg, params, tokens=tokens, embeds=embeds,
+                        enc_tokens=enc_tokens, enc_embeds=enc_embeds)
     return logits[:, -1]
 
 
@@ -279,22 +388,42 @@ class DecodeCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, *, device="cuda",
+               dtype=torch.bfloat16, enc_out=None, *, device="cuda",
                kv_head_pad: int = 1) -> DecodeCache:
-    """The decode cache at position 0. For the dense family it is the
-    stacked (k, v), each [L, B, Hkv · kv_head_pad, max_seq, hd] of zeros
-    (``kv_head_pad`` replicates each KV head in the layout; the decode step
-    detects the factor from the shape); for the ssm family the stacked
-    Mamba-2 state, which does not grow with ``max_seq``."""
+    """The decode cache at position 0. A KV cache is the stacked (k, v),
+    each [L, B, Hkv · kv_head_pad, S, hd] of zeros (``kv_head_pad``
+    replicates each KV head in the layout; the decode step detects the
+    factor from the shape). Per family: dense and vlm one over all layers
+    (S = ``max_seq``); ssm the stacked Mamba-2 state, which does not grow
+    with ``max_seq``; hybrid that state and a ring of min(max_seq,
+    sliding_window) slots per shared attention site; encdec one over the
+    decoder's layers for their self-attention (``cross_self``) and
+    ``enc_out``, the (k, v) pair [L, B, Hkv, S_enc, hd] the
+    cross-attention reads (the forward's collected cross caches, or the
+    serve launcher's zeros)."""
     _require_family(cfg, "init_cache")
-    if cfg.family == "ssm":
-        return DecodeCache(pos=0, layers={"ssm": _stacked_ssm_state(
-            cfg, cfg.n_layers, batch, dtype, device)})
     hkv = max(cfg.n_kv_heads, 1) * max(kv_head_pad, 1)
-    shape = (cfg.n_layers, batch, hkv, max_seq, cfg.head_dim)
-    return DecodeCache(pos=0, layers={"dense": (
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device))})
+
+    def kv(n, s):
+        shape = (n, batch, hkv, s, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    if cfg.family in ("dense", "vlm"):
+        layers = {"dense": kv(cfg.n_layers, max_seq)}
+    elif cfg.family == "ssm":
+        layers = {"ssm": _stacked_ssm_state(cfg, cfg.n_layers, batch, dtype,
+                                            device)}
+    elif cfg.family == "hybrid":
+        window = cfg.sliding_window or 0
+        sites = len(_hybrid_segments(cfg)) - 1
+        layers = {"ssm": _stacked_ssm_state(cfg, cfg.n_layers, batch, dtype,
+                                            device),
+                  "shared_kv": kv(max(sites, 1), min(max_seq, window)
+                                  if window else max_seq)}
+    else:
+        layers = {"cross_self": kv(cfg.n_layers, max_seq), "enc_out": enc_out}
+    return DecodeCache(pos=0, layers=layers)
 
 
 def _stacked_ssm_state(cfg, n, batch, dtype, device) -> Mamba2State:
@@ -305,49 +434,78 @@ def _stacked_ssm_state(cfg, n, batch, dtype, device) -> Mamba2State:
 def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
                 cache: DecodeCache):
     """One decode step: token [B] (or embed [B, D]) -> (logits [B, V],
-    cache). The ssm family leaves the input cache as it is. The dense
-    family's cache is donated: the step writes the new keys and values into
-    its tensors in place and returns them, so a cache must not be used again
-    after a step."""
+    cache). Mamba-2 states are returned anew and the input's left as they
+    are. KV caches are donated: the step writes the new keys and values
+    into their tensors in place and returns them, so a cache must not be
+    used again after a step."""
     _require_family(cfg, "decode_step")
     if token_or_embed.dim() == 1:
         x = params["embed"][token_or_embed]
     else:
         x = token_or_embed
     x = x.to(dtype_of(cfg.compute_dtype))
-    scan = _decode_scan_ssm if cfg.family == "ssm" else _decode_scan_gqa
-    x, new = scan(cfg, params[cfg.family], x, cache.layers[cfg.family],
-                  cache.pos)
-    layers = dict(cache.layers, **{cfg.family: new})
-    return _head(cfg, params, x), DecodeCache(pos=cache.pos + 1,
-                                              layers=layers)
+    pos, layers = cache.pos, dict(cache.layers)
+    if cfg.family in ("dense", "vlm"):
+        x, layers["dense"] = _decode_scan_gqa(cfg, params["dense"], x,
+                                              layers["dense"], pos)
+    elif cfg.family == "ssm":
+        x, layers["ssm"] = _decode_scan_ssm(cfg, params["ssm"], x,
+                                            layers["ssm"], pos)
+    elif cfg.family == "hybrid":
+        x, layers = _decode_hybrid(cfg, params, x, layers, pos)
+    else:
+        x, layers["cross_self"] = _decode_scan_gqa(
+            cfg, params["cross"], x, layers["cross_self"], pos,
+            enc_out=layers["enc_out"])
+    return _head(cfg, params, x), DecodeCache(pos=pos + 1, layers=layers)
 
 
-def _decode_block_gqa(cfg, p, x, kv, pos, kv_len):
+def _kv_len(x: torch.Tensor, pos: int, s_max: int) -> torch.Tensor:
+    """kv_len = min(pos + 1, S) for the batch, built once a step on the
+    device for every layer."""
+    return torch.full((x.shape[0],), min(pos + 1, s_max), dtype=torch.int32,
+                      device=x.device)
+
+
+def _decode_block_gqa(cfg, p, x, kv, pos, kv_len, *, window=0,
+                      enc_out_kv=None):
+    """A decode block: self-attention over ``kv`` (written in place), then
+    with ``enc_out_kv`` attention over the encoder's (k, v) (every
+    position, no RoPE), then the FFN."""
     p = _cast_params(cfg, p)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    att, kv = _gqa_decode(cfg, p["attn"], h, kv, pos, kv_len)
+    att, kv = _gqa_decode(cfg, p["attn"], h, kv, pos, kv_len, window=window)
     x = x + att
+    if enc_out_kv is not None:
+        hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        q = (hc @ p["cross"]["wq"]).reshape(x.shape[0], cfg.n_heads,
+                                            cfg.head_dim)
+        o = decode_attention_host(q, enc_out_kv[0], enc_out_kv[1])
+        x = x + o.reshape(x.shape[0], -1) @ p["cross"]["wo"]
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn_apply(cfg, p["ffn"], h2), kv
 
 
-def _decode_scan_gqa(cfg, seg_params, x, kv_cache, pos: int):
+def _decode_scan_gqa(cfg, seg_params, x, kv_cache, pos: int, *,
+                     enc_out=None):
     """Every layer's decode block over the stacked (k, v) cache, written in
-    place. kv_len = min(pos + 1, S) is built once, on the device, for all
-    layers."""
+    place; with ``enc_out`` (the encdec decoder) layer i also attends over
+    the encoder's (k, v) ``enc_out[0][i], enc_out[1][i]``."""
     k_all, v_all = kv_cache
-    kv_len = torch.full((x.shape[0],), min(pos + 1, k_all.shape[3]),
-                        dtype=torch.int32, device=x.device)
+    kv_len = _kv_len(x, pos, k_all.shape[3])
     for i in range(k_all.shape[0]):
-        x, _ = _decode_block_gqa(cfg, _layer(seg_params, i), x,
-                                 (k_all[i], v_all[i]), pos, kv_len)
+        x, _ = _decode_block_gqa(
+            cfg, _layer(seg_params, i), x, (k_all[i], v_all[i]), pos, kv_len,
+            enc_out_kv=None if enc_out is None else (enc_out[0][i],
+                                                     enc_out[1][i]))
     return x, (k_all, v_all)
 
 
-def _decode_scan_ssm(cfg, seg_params, x, states: Mamba2State, pos):
+def _ssm_steps(cfg, seg_params, x, states: Mamba2State, layers):
+    """The Mamba-2 decode steps of ``layers``; returns (x, their new conv
+    states, their new SSM states)."""
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
+    for i in layers:
         layer_p = _cast_params(cfg, _layer(seg_params, i))
         h = rms_norm(x, layer_p["ln"], cfg.norm_eps)
         y, st = mamba2_step(h, Mamba2State(states.conv[i], states.ssm[i]),
@@ -355,4 +513,34 @@ def _decode_scan_ssm(cfg, seg_params, x, states: Mamba2State, pos):
         x = x + y
         convs.append(st.conv)
         ssms.append(st.ssm)
+    return x, convs, ssms
+
+
+def _decode_scan_ssm(cfg, seg_params, x, states: Mamba2State, pos):
+    x, convs, ssms = _ssm_steps(cfg, seg_params, x, states,
+                                range(cfg.n_layers))
     return x, Mamba2State(torch.stack(convs), torch.stack(ssms))
+
+
+def _decode_hybrid(cfg, params, x, layers, pos: int):
+    """The backbone's decode steps with the shared block between its
+    segments, site ``si`` over its own ring ``shared_kv[·][si]`` (written
+    in place at slot ``pos % S``)."""
+    segs = _hybrid_segments(cfg)
+    states = layers["ssm"]
+    k_all, v_all = layers["shared_kv"]
+    kv_len = _kv_len(x, pos, k_all.shape[3])
+    convs, ssms = [], []
+    offset = 0
+    for si, depth in enumerate(segs):
+        x, c, s = _ssm_steps(cfg, params["ssm"], x, states,
+                             range(offset, offset + depth))
+        convs += c
+        ssms += s
+        offset += depth
+        if si < len(segs) - 1:
+            x, _ = _decode_block_gqa(cfg, params["shared"], x,
+                                     (k_all[si], v_all[si]), pos, kv_len,
+                                     window=cfg.sliding_window)
+    return x, {"ssm": Mamba2State(torch.stack(convs), torch.stack(ssms)),
+               "shared_kv": (k_all, v_all)}

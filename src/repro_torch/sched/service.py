@@ -1120,6 +1120,32 @@ class ShardRuntime:
     # ------------------------------------------------------------ the loop
 
     def serve(self) -> None:
+        """The serve loop, with a heartbeat thread beside it when faults
+        are active: the loop applies every pending bus command before it
+        pumps ``progress()`` again, so a rank assimilating a batch of
+        submissions (or re-deriving a dead rank's shards) can stay away
+        from ``progress()``, where heartbeats are sent, longer than the
+        lease, and would be declared dead while alive."""
+        stop = threading.Event()
+        if self._recover and self.rank != 0:
+            threading.Thread(target=self._heartbeats, args=(stop,),
+                             name=f"heartbeat-{self.rank}",
+                             daemon=True).start()
+        try:
+            self._serve()
+        finally:
+            stop.set()
+
+    def _heartbeats(self, stop: threading.Event) -> None:
+        """Beat every ``heartbeat_every`` seconds until ``stop``; a killed
+        rank falls silent (the world fences its sends too)."""
+        comm = self.ctx.comm
+        while not stop.wait(comm.world.faults.heartbeat_every):
+            if self.rank in comm.world.dead:
+                return
+            comm.heartbeat()
+
+    def _serve(self) -> None:
         world = self.ctx.comm.world
         while True:
             if self.rank in world.dead:

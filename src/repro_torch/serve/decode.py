@@ -11,7 +11,8 @@ from ..models import transformer as tfm
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
         return tfm.prefill(cfg, params, tokens=batch.get("tokens"),
-                           embeds=batch.get("embeds"))
+                           embeds=batch.get("embeds"),
+                           enc_embeds=batch.get("enc_embeds"))
     return prefill_step
 
 

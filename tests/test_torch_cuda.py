@@ -3,8 +3,10 @@ block_gemm, B2 flash_attention, B3 ssd_scan, B4 decode_attention) against
 their plain versions on the card, the block executor on the card with B1
 and B2 bodies, the host TaskTorrent runtime and the resident scheduler
 with block stores on the card (B1 task bodies, AM payloads that stay on
-the device), one mamba2 block through B3, and the reduced yi-6b through
-B2 (prefill) and B4 (decode).
+the device), one mamba2 block through B3, the reduced yi-6b through B2
+(prefill) and B4 (decode), and the reduced zamba2-1.2b (B2 with a sliding
+window, B3, B4 over a ring), seamless-m4t-large-v2 (non-causal B2 with Lq
+!= Lk, B4 over the encoder's keys) and llava-next-34b (fed embeddings).
 They skip with a reason where there is no GPU. This file imports nothing of
 JAX, so it also runs where JAX is not installed:
 
@@ -873,3 +875,202 @@ def test_dense_model_runs_flash_and_decode_kernels(cuda, kv_head_pad):
         assert decode_attention.launches == cfg.n_layers
         want, caches[1] = tfm.decode_step(cfg, params, toks[:, t], caches[1])
         assert _rel(got.cpu(), want) <= 1e-4, t
+
+
+# ----------------------------------- the hybrid, encdec and vlm families' shapes
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,window", [
+    (1, 4, 4, 1024, 1024, 64, 1), (1, 4, 4, 1024, 1024, 64, 64),
+    (2, 8, 8, 1000, 1000, 64, 300), (1, 14, 2, 700, 900, 128, 129),
+    (1, 2, 2, 777, 777, 128, 777), (1, 2, 2, 300, 300, 64, 5000),
+    (1, 4, 4, 4608, 4608, 64, 4096), (1, 2, 2, 8192, 8192, 64, 4096),
+])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_window_matches_plain(cuda, dtype, causal, b, hq,
+                                              hkv, lq, lk, d, window):
+    """B2 with a sliding window (zamba2's shared block: window 4 096 over
+    8 192 keys, head dim 64, group 1; and windows of 1, of a tile and off
+    the tiles, GQA 7, Lq < Lk, a window of Lk or more) against ``mha_ref``
+    with the window, whole and per (batch, q head)."""
+    gen = torch.Generator(device=cuda).manual_seed(lq + window)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = mha_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _rel(got, want) <= TOL[dtype]
+    assert _head_rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (4, 16, 16, 512, 2048, 64),      # seamless's cross-attention
+    (2, 4, 4, 2048, 512, 64),        # Lq > Lk
+    (1, 14, 2, 300, 1000, 128), (1, 4, 4, 1000, 77, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_full_with_lq_not_lk(cuda, dtype, b, hq, hkv, lq,
+                                             lk, d):
+    """Non-causal B2 with Lq != Lk (queries over another sequence's keys):
+    no mask whatever Lk - Lq, in the model's strided layout, no copy."""
+    gen = torch.Generator(device=cuda).manual_seed(lq * 3 + lk)
+    q = torch.randn((b, lq, hq, d), generator=gen,
+                    device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, lk, hkv, d), generator=gen,
+                        device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    copies = flash_attention.copies
+    got = flash_attention(q, k, v, causal=False)
+    want = mha_ref(q, k, v, causal=False)
+    assert flash_attention.copies == copies
+    assert _rel(got, want) <= TOL[dtype]
+    assert _head_rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_at_d_state_64(cuda, dtype):
+    """B3 at zamba2-1.2b's layer (H 64, P 64, one group, N 64; L cut to
+    1 024) in the model's layout: whole and per (batch, head), no
+    element-wise copies."""
+    b, l, h, p, g, n = 2, 1024, 64, 64, 1, 64
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    proj = (torch.randn((b, l, h * p + 2 * g * n), generator=gen,
+                        device=cuda) * 0.5).to(dtype)
+    x, bm, cm = proj.split([h * p, g * n, g * n], dim=-1)
+    x, bm, cm = (x.unflatten(-1, (h, p)), bm.unflatten(-1, (g, n)),
+                 cm.unflatten(-1, (g, n)))
+    dt = (torch.nn.functional.softplus(torch.randn(
+        (b, l, h), generator=gen, device=cuda)) * 0.1).to(dtype)
+    a = -torch.exp(torch.randn(h, generator=gen, device=cuda) * 0.5)
+    d = torch.full((h,), 0.5, device=cuda)
+    narrow = ssd_scan.narrow
+    got = ssd_scan(x, dt, a, bm, cm, d, q_chunk=128)
+    want = ssd_chunked_ref(x, dt, a, bm, cm, d, q_chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.narrow == narrow
+    assert _rel(got, want) <= TOL_SSD[dtype]
+    assert _ssd_head_rel(got, want) <= SSD_ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (8, 32, 32, 4096, 64),       # zamba2's ring, group 1
+    (4, 16, 16, 2048, 64),       # seamless's cross-attention
+    (8, 56, 8, 1000, 128),       # llava's group 7
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_groups_1_and_7(cuda, dtype, b, hq, hkv, s, d):
+    """B4 at one q head per KV head (D 64) and at 7: ragged lengths, whole
+    and per row; bf16 of these layouts stays on the ring kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(hq + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kv_len = torch.randint(1, s + 1, (b,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    kv_len[0] = s
+    narrow = decode_attention.narrow
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_ref(q, k, v, kv_len)
+    assert decode_attention.narrow == narrow
+    assert _rel(got, want) <= TOL[dtype]
+    assert _row_rel(got, want) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_reads_a_ring_in_any_order(cuda, dtype):
+    """A wrapped ring (zamba2's 4 096 slots at a position past the wrap)
+    holds the window's keys out of order; B4's result is the plain
+    attention over the same keys in order."""
+    b, h, s, d = 4, 32, 4096, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, h, d), (b, h, s, d), (b, h, s, d)))
+    pos = 3 * s + 1234                 # the ring's slot of position p: p % s
+    order = (torch.arange(pos - s + 1, pos + 1, device=cuda)) % s
+    got = decode_attention(q, k, v)
+    want = decode_ref(q, k[:, :, order], v[:, :, order])
+    assert _rel(got, want) <= TOL[dtype]
+    assert _row_rel(got, want) <= ROW_TOL[dtype]
+
+
+def _model_on_both(cuda, cfg, prefill_kw, n_steps, max_seq, enc_out=None):
+    """Prefill on the card and on the CPU, then ``n_steps`` decode steps
+    from ``init_cache`` on each (f32 compute); returns the B2 launches of
+    the prefill, the B4 launches of each step, and the worst relative
+    difference of the logits."""
+    params = init_params(cfg, seed=0, device="cpu")
+    params_c = _to(params, cuda)
+    flash_attention.launches = 0
+    got = tfm.prefill(cfg, params_c, **{k: v.to(cuda)
+                                        for k, v in prefill_kw.items()})
+    torch.cuda.synchronize()
+    b2 = flash_attention.launches
+    errs = [_rel(got.cpu(), tfm.prefill(cfg, params, **prefill_kw))]
+    toks = torch.randint(0, cfg.vocab_size, (2, n_steps),
+                         generator=torch.Generator().manual_seed(3))
+    caches = [tfm.init_cache(cfg, 2, max_seq, dtype=torch.float32,
+                             device=dev, enc_out=None if enc_out is None
+                             else tuple(t.to(dev) for t in enc_out))
+              for dev in (cuda, "cpu")]
+    b4 = []
+    for t in range(n_steps):
+        decode_attention.launches = 0
+        got, caches[0] = tfm.decode_step(cfg, params_c, toks[:, t].to(cuda),
+                                         caches[0])
+        b4.append(decode_attention.launches)
+        want, caches[1] = tfm.decode_step(cfg, params, toks[:, t], caches[1])
+        errs.append(_rel(got.cpu(), want))
+    return b2, b4, max(errs)
+
+
+def test_hybrid_model_runs_windowed_kernels(cuda):
+    """The reduced zamba2-1.2b with 5 layers (two shared sites) and window
+    16, f32 compute: prefill of 40 tokens launches B2 (windowed) once per
+    site and B3 once per Mamba-2 layer; 40 decode steps over 16-slot rings
+    launch B4 once per site a step; logits as on the CPU to 1e-4."""
+    cfg = reduced(get_config("zamba2-1.2b"), compute_dtype="float32",
+                  sliding_window=16, n_layers=5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    ssd_scan.launches = 0
+    b2, b4, err = _model_on_both(cuda, cfg, {"tokens": toks}, 40, 64)
+    assert b2 == 2 and ssd_scan.launches == cfg.n_layers
+    assert b4 == [2] * 40
+    assert err <= 1e-4
+
+
+def test_encdec_model_runs_cross_attention_kernels(cuda):
+    """The reduced seamless-m4t-large-v2, f32 compute: a prefill over 48
+    frame embeddings and 16 tokens launches B2 once per encoder layer and
+    twice per decoder layer (self, then cross with Lq != Lk); decode steps
+    over a cross cache launch B4 twice per decoder layer a step; logits as
+    on the CPU to 1e-4."""
+    cfg = reduced(get_config("seamless-m4t-large-v2"),
+                  compute_dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    kw = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16), generator=gen),
+          "enc_embeds": torch.randn((2, 48, cfg.d_model), generator=gen)}
+    enc_out = tuple(torch.randn((cfg.n_layers, 2, cfg.n_kv_heads, 48,
+                                 cfg.head_dim), generator=gen)
+                    for _ in range(2))
+    b2, b4, err = _model_on_both(cuda, cfg, kw, 8, 16, enc_out=enc_out)
+    assert b2 == cfg.encoder_layers + 2 * cfg.n_layers
+    assert b4 == [2 * cfg.n_layers] * 8
+    assert err <= 1e-4
+
+
+def test_vlm_model_runs_from_embeds(cuda):
+    """The reduced llava-next-34b, f32 compute, prefill from embeddings:
+    B2 once per layer, B4 once per layer a step, logits as on the CPU."""
+    cfg = reduced(get_config("llava-next-34b"), compute_dtype="float32")
+    emb = torch.randn((2, 40, cfg.d_model),
+                      generator=torch.Generator().manual_seed(5))
+    b2, b4, err = _model_on_both(cuda, cfg, {"embeds": emb}, 8, 48)
+    assert b2 == cfg.n_layers and b4 == [cfg.n_layers] * 8
+    assert err <= 1e-4

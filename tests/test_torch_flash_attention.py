@@ -18,9 +18,19 @@ the JAX package's executor.
   under jax 0.9.0 (ROADMAP, "Reference caveats"); its jnp-body lowering
   runs.
 
+- The sliding window (``window`` > 0: keys ``window`` or more positions
+  before their query are masked) of ``mha_ref``, ``flash_attention`` and
+  ``attention`` on CPU tensors, against the JAX package's
+  ``chunked_attention(window=)`` (its ``mha_ref`` and Pallas kernel have no
+  window) over windows {1, 7, 64, >= Lk} x causal and full x Lq = Lk and
+  Lq < Lk x D {64, 128} x GQA groups {1, 4, 7}, at 2e-5; the bf16 kernel's
+  rounding with a window (``mha_bf16_p_ref``) at 2e-2; and non-causal
+  attention with Lq > Lk and Lq < Lk (the encdec family's encoder and
+  cross-attention) against the Pallas kernel and ``chunked_attention``.
 - The host side of the CUDA kernel, which runs before any launch: the f32
   path's split plan (every live key of a query tile in exactly one range,
-  none past the causal bound, the same plan whatever the batch) and the
+  from the first tile the window reaches to the causal bound, the same
+  plan whatever the batch) and the
   bf16 path's layout check (a copy exactly where TMA cannot read the
   operand). And the bf16 path's one extra rounding in plain form
   (``mha_bf16_p_ref``: P rounded to bf16 before P·V) against ``mha_ref``
@@ -46,6 +56,7 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention as jx_flash_attention)
 from repro.kernels.flash_attention.ops import task_attention as jx_task_attn
 from repro.kernels.flash_attention.ref import mha_ref as jx_mha_ref
+from repro.models.attention import chunked_attention as jx_chunked
 
 from repro_torch.kernels.flash_attention import (attention, flash_attention,
                                                  mha_bf16_p_ref, mha_ref,
@@ -135,6 +146,88 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert flash_attention.launches == before
 
 
+WINDOW_SHAPES = [(1, 2, 2, 96, 96), (2, 8, 2, 40, 96), (1, 14, 2, 96, 96)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk", WINDOW_SHAPES,
+                         ids=["group1", "group4-lq<lk", "group7"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("window", [1, 7, 64, 96, 200])
+def test_plain_window_matches_reference_chunked_attention(window, causal, b,
+                                                          hq, hkv, lq, lk,
+                                                          d):
+    """The window as the JAX package's ``chunked_attention`` masks it (key
+    k kept for query i when k > Lk - Lq + i - window), in one block and in
+    chunks of 32; a window of Lk or more masks nothing."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(20 + window, (b, hq, lq, d), (b, hkv, lk, d),
+                (b, hkv, lk, d)), "float32")
+    for chunk in (1024, 32):
+        want = np.asarray(jx_chunked(jq, jk, jv, causal=causal,
+                                     window=window, chunk=chunk))
+        for got in (mha_ref(tq, tk, tv, causal=causal, window=window),
+                    flash_attention(tq, tk, tv, causal=causal,
+                                    window=window),
+                    attention(tq, tk, tv, causal=causal, window=window)):
+            assert got.shape == (b, hq, lq, d)
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                                       atol=2e-5)
+    if window >= lk:
+        np.testing.assert_array_equal(
+            mha_ref(tq, tk, tv, causal=causal, window=window).numpy(),
+            mha_ref(tq, tk, tv, causal=causal).numpy())
+
+
+@pytest.mark.parametrize("window", [1, 7, 64])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_p_rounding_with_a_window(window, causal):
+    """The bf16 kernel's rounding (P to bf16 before P·V) with the window,
+    over tiles of 32 keys so that rows meet tiles wholly before their
+    window, against ``mha_ref`` and ``chunked_attention`` on the same bf16
+    inputs: within the reference's bf16 tolerance, whole and per (batch,
+    q head)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(30 + window, (2, 14, 100, 64), (2, 2, 160, 64),
+                (2, 2, 160, 64)), "bfloat16")
+    got = mha_bf16_p_ref(tq, tk, tv, causal=causal, bk=32, window=window)
+    assert got.dtype == torch.bfloat16
+    for want in (mha_ref(tq, tk, tv, causal=causal, window=window),
+                 np.asarray(jx_chunked(jq, jk, jv, causal=causal,
+                                       window=window), np.float32)):
+        whole, rows = _rel_rows(got.float().numpy(),
+                                np.asarray(want.float() if isinstance(
+                                    want, torch.Tensor) else want))
+        assert whole <= 2e-2 and rows <= 2e-2, (whole, rows)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (2, 4, 4, 256, 64, 64),      # Lq > Lk (more queries than keys)
+    (1, 4, 4, 64, 192, 64),      # Lq < Lk (cross-attention's shape)
+    (1, 14, 2, 128, 384, 128),   # GQA 7, Lq < Lk
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_full_attention_with_lq_not_lk(b, hq, hkv, lq, lk, d, dtype):
+    """Non-causal attention with Lq != Lk, as the encdec family's
+    cross-attention (decoder queries over encoder keys) runs it: no mask,
+    whatever Lk - Lq, against the Pallas kernel (interpret mode), its jnp
+    oracle and ``chunked_attention``."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs(40 + lq, (b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)),
+        dtype)
+    wants = [np.asarray(jx_flash_attention(
+        jq, jk, jv, causal=False, bq=64, bk=64, interpret=True),
+        np.float32), np.asarray(jx_mha_ref(jq, jk, jv, causal=False),
+                                np.float32),
+        np.asarray(jx_chunked(jq, jk, jv, causal=False, chunk=64),
+                   np.float32)]
+    for got in (flash_attention(tq, tk, tv, causal=False),
+                attention(tq, tk, tv, causal=False)):
+        for want in wants:
+            np.testing.assert_allclose(got.float().numpy(), want,
+                                       **_tol(dtype))
+
+
 def test_plain_masks_the_keys_after_each_query():
     """Causal with Lk > Lq: query i sits at position Lk - Lq + i and sees
     exactly the keys up to it, so changing a later key leaves it alone."""
@@ -152,27 +245,43 @@ def test_plain_masks_the_keys_after_each_query():
 
 # ------------------------------------------ the CUDA kernel's host side
 
-@pytest.mark.parametrize("lq,lk,causal,slots", [
-    (4096, 4096, True, 132),     # the attention-chain task
-    (4096, 4096, False, 132),
-    (2048, 2048, True, 132),     # yi-6b's prefill length
-    (1000, 3000, True, 264),     # ragged, queries the last 1000 of 3000
-    (37, 100, True, 264),
-    (1, 1, True, 132),
-    (300, 300, False, 1),        # one slot: no split
-    (4096, 4096, True, 7),       # fewer slots than query tiles
+def _plan_case(lq, lk, causal, slots, window=0):
+    label = f"{lq}-{lk}-{causal}-{slots}" + (f"-w{window}" if window else "")
+    return pytest.param(lq, lk, causal, slots, window, id=label)
+
+
+@pytest.mark.parametrize("lq,lk,causal,slots,window", [
+    _plan_case(4096, 4096, True, 132),     # the attention-chain task
+    _plan_case(4096, 4096, False, 132),
+    _plan_case(2048, 2048, True, 132),     # yi-6b's prefill length
+    _plan_case(1000, 3000, True, 264),     # queries the last 1000 of 3000
+    _plan_case(37, 100, True, 264),
+    _plan_case(1, 1, True, 132),
+    _plan_case(300, 300, False, 1),        # one slot: no split
+    _plan_case(4096, 4096, True, 7),       # fewer slots than query tiles
+    _plan_case(8192, 8192, True, 132, 4096),   # zamba2's prefill
+    _plan_case(4608, 4608, True, 132, 4096),   # its f32 gate
+    _plan_case(8192, 8192, True, 132, 64),
+    _plan_case(1000, 1000, True, 132, 1),
+    _plan_case(1000, 3000, True, 264, 300),
+    _plan_case(300, 700, False, 132, 100),     # full, windowed
+    _plan_case(4096, 4096, True, 7, 1000),
 ])
-def test_split_plan_covers_every_live_key_once(lq, lk, causal, slots):
+def test_split_plan_covers_every_live_key_once(lq, lk, causal, slots,
+                                               window):
     bq, bk = 128, 64
-    plan = split_plan(lq, lk, causal, bq, bk, slots)
+    plan = split_plan(lq, lk, causal, bq, bk, slots, window)
     n_qt = -(-lq // bq)
     assert len(plan.tiles) == n_qt
     assert sum(count for _, count in plan.tiles) == len(plan.items)
     for t, (first, count) in enumerate(plan.tiles):
         ranges = plan.items[first:first + count]
         assert count >= 1 and all(item[0] == t for item in ranges)
-        # consecutive ranges from key tile 0: each tile in exactly one
-        assert ranges[0][1] == 0
+        # consecutive ranges from the first key tile the window of the
+        # tile's first row reaches (tile 0 without a window): each tile in
+        # exactly one, none wholly before the window
+        first_key = max(0, t * bq + lk - lq - window + 1) if window else 0
+        assert ranges[0][1] == min(first_key // bk, ranges[-1][2])
         assert all(a[2] == b[1] for a, b in zip(ranges, ranges[1:]))
         assert all(0 < t1 - t0 <= plan.per for _, t0, t1 in ranges) or (
             count == 1 and ranges[0][1] == ranges[0][2])
@@ -183,8 +292,8 @@ def test_split_plan_covers_every_live_key_once(lq, lk, causal, slots):
     if n_qt <= slots:                       # one (batch, head): one wave
         assert len(plan.items) <= slots
     if plan.per > 1:                        # and the least split that fits
-        walk = [r[2] for r in (plan.items[f + c - 1]
-                               for f, c in plan.tiles)]
+        walk = [plan.items[f + c - 1][2] - plan.items[f][1]
+                for f, c in plan.tiles]
         assert sum(-(-n // (plan.per - 1)) for n in walk) > slots
 
 
@@ -198,6 +307,14 @@ def test_split_plan_does_not_depend_on_the_batch():
         assert plan_for((b, h, 4096, 128), (b, 1, 4096, 128), True, info,
                         132) == one
     assert len(one.items) > len(one.tiles)      # the task is split
+    # with zamba2's window the same holds, and the window shortens walks
+    one_w = plan_for((1, 1, 8192, 64), (1, 1, 8192, 64), True, info, 132,
+                     window=4096)
+    for b, h in ((2, 32), (8, 1), (1, 32)):
+        assert plan_for((b, h, 8192, 64), (b, h, 8192, 64), True, info, 132,
+                        window=4096) == one_w
+    full = plan_for((1, 1, 8192, 64), (1, 1, 8192, 64), True, info, 132)
+    assert one_w != full and one_w.items[-1][2] == full.items[-1][2]
 
 
 @pytest.mark.parametrize("shape,strides,address,copy", [

@@ -178,8 +178,7 @@ def test_prefill_equals_decoding_the_prompt(weights, dtype):
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch in ("llava-next-34b", "deepseek-v3-671b", "zamba2-1.2b",
-                 "seamless-m4t-large-v2"):     # vlm, moe, hybrid, encdec
+    for arch in ("deepseek-v3-671b", "grok-1-314b"):    # moe (MLA, GQA)
         cfg = pt_base.reduced(get_config(arch))
         with pytest.raises(NotImplementedError, match="A10"):
             tfm.init_params(cfg, device="cpu")

@@ -50,6 +50,8 @@ from repro.sched import service as jx_service
 from repro.sched import state as jx_state
 
 import repro_torch.core.faults as pt_faults
+import repro_torch.core.messages as pt_messages
+import repro_torch.core.comm.inproc as pt_inproc
 import repro_torch.ptg as pt_ptg
 import repro_torch.sched as pt_sched
 from repro_torch import taskbench as pt_tb
@@ -920,6 +922,89 @@ def test_multiproc_kill_point_sweep_stream_bit_identical(at):
     assert_same({"torch": outs, "jax": chained_refs(
         JAX, "stencil", jx_tb.taskbench_blocks(W, D, seed=at), m,
         seed=at)})
+
+
+def test_a_rank_busy_past_the_lease_is_not_declared_dead(monkeypatch):
+    """A resident rank applies every pending bus command before it pumps
+    ``progress()`` again, and a submission's assimilation can outlast the
+    lease (0.4 s). Rank 1 here spends 1 s on the second submission, after
+    the first has run (so rank 0 has heard from it): its heartbeats must
+    keep coming, so no rank is declared dead, and the stream is bit for
+    bit its one-shots."""
+    real, subs = pt_service.ShardRuntime._apply, []
+
+    def slow_apply(self, cmd):
+        if self.rank == 1 and cmd[0] == "submit":
+            subs.append(cmd)
+            if len(subs) == 2:
+                time.sleep(1.0)
+        return real(self, cmd)
+
+    monkeypatch.setattr(pt_service.ShardRuntime, "_apply", slow_apply)
+    blocks = pt_tb.taskbench_blocks(W, D, seed=5)
+    plan = pt_faults.FaultPlan(seed=5, lease=0.4, heartbeat_every=0.02)
+    with TORCH.svc(S, timeout=60.0, faults=plan) as svc:
+        c = svc.client("alice")
+        outs = [c.submit(pt_tb.taskbench_graph("stencil", W, D, S,
+                                               seed=5)[0],
+                         blocks if j == 0 else {},
+                         pt_tb.taskbench_bodies()).result(60.0)
+                for j in range(2)]
+    assert len(subs) == 2 and svc.recovery_report.deaths == []
+    for out, ref in zip(outs, chained_refs(TORCH, "stencil", blocks, 2,
+                                           seed=5)):
+        assert_blocks_equal(out, ref)
+
+
+@pytest.mark.parametrize("others", ["beating", "paused"])
+def test_rank0_away_past_the_lease_declares_no_rank_dead(monkeypatch,
+                                                         others):
+    """Rank 0's serve loop checks the leases before it reads its inbox
+    again. Rank 0 here stays away for 1 s after one ``progress()`` during
+    the second submission. ``beating``: the other rank's beats wait unread
+    in rank 0's inbox. ``paused``: the whole process pauses (a garbage
+    collection, a host that stops scheduling it), so the other rank's
+    sends wait until 0.1 s after rank 0 is back. Rank 0's lease clock runs
+    only while it reads its inbox, so neither silence is charged to the
+    other rank."""
+    real_apply = pt_service.ShardRuntime._apply
+    real_progress = pt_messages.Communicator.progress
+    real_send = pt_inproc.InProcWorld.send
+    subs, release = [], []
+
+    def counting_apply(self, cmd):
+        if self.rank == 0 and cmd[0] == "submit":
+            subs.append(cmd)
+        return real_apply(self, cmd)
+
+    def away_progress(self, **kw):
+        real_progress(self, **kw)
+        if self.rank == 0 and len(subs) == 2 and not release:
+            release.append(time.monotonic() + 1.1)
+            time.sleep(1.0)
+
+    def paused_send(self, dst, wire):
+        if wire.src != 0 and release:
+            time.sleep(max(release[0] - time.monotonic(), 0.0))
+        return real_send(self, dst, wire)
+
+    monkeypatch.setattr(pt_service.ShardRuntime, "_apply", counting_apply)
+    monkeypatch.setattr(pt_messages.Communicator, "progress", away_progress)
+    if others == "paused":
+        monkeypatch.setattr(pt_inproc.InProcWorld, "send", paused_send)
+    blocks = pt_tb.taskbench_blocks(W, D, seed=5)
+    plan = pt_faults.FaultPlan(seed=5, lease=0.4, heartbeat_every=0.02)
+    with TORCH.svc(S, timeout=60.0, faults=plan) as svc:
+        c = svc.client("alice")
+        outs = [c.submit(pt_tb.taskbench_graph("stencil", W, D, S,
+                                               seed=5)[0],
+                         blocks if j == 0 else {},
+                         pt_tb.taskbench_bodies()).result(60.0)
+                for j in range(2)]
+    assert release and svc.recovery_report.deaths == []
+    for out, ref in zip(outs, chained_refs(TORCH, "stencil", blocks, 2,
+                                           seed=5)):
+        assert_blocks_equal(out, ref)
 
 
 # -------------------------------------------------------- the port's device
