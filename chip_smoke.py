@@ -18,16 +18,16 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    at the reference's test shapes and at the main paths' shapes: B1
    block_gemm (each of its four layout instantiations at ragged M, N and
    K too, every batched case bit for bit against its tasks alone), B2
-   flash_attention (with yi-6b's prefill head layout and
-   the model's own strided prefill call, ragged L, D 64 and 48, the chain
-   task; per (batch, q head) too; no operand copied; a chain task's result
-   independent of its batch), B3 ssd_scan (with mamba2-1.3b's layer at
-   prefill, in its own strided layout, and chunks of 256 and 512 at
-   d_state 128; per (batch, head) too; no element-wise copies of the
+   flash_attention (with yi-6b's prefill head layout and the model's own
+   strided prefill call, ragged L, D 64 and 48, the chain task, grok-1's
+   GQA 6; per (batch, q head) too; no operand copied; a chain task's
+   result independent of its batch), B3 ssd_scan (with mamba2-1.3b's
+   layer at prefill, in its own strided layout, and chunks of 256 and 512
+   at d_state 128; per (batch, head) too; no element-wise copies of the
    model's layout; a head's result independent of its batch) and B4
-   decode_attention (with yi-6b's decode layer over a
-   32 768-position cache, and ranges of several tiles that end one short
-   of and one past a tile and a ring stage; no bf16 call of the model's
+   decode_attention (with yi-6b's decode layer over a 32 768-position
+   cache, and ranges of several tiles that end one short of and one past
+   a tile and a ring stage, grok-1's group 6; no bf16 call of the model's
    layout on the CUDA-core kernel); each kernel's registers, spills and
    resident blocks per SM;
 3. Cholesky, N = 16384 (32 x 32 blocks of 512, 2 x 2 shards, f32) through
@@ -88,7 +88,21 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    over a 4 096-position cache (16 B4 launches a step); each with f32
    gates (prefill with B2 against the plain attention, one decode step
    with B4 against ``decode_ref``), a profiled decode step, and no
-   operand copied;
+   operand copied; then the moe family, bf16 weights (the configs'
+   ``param_dtype``): grok-1-314b at full width cut to 8 of its 64 layers
+   (48 q heads over 8 KV heads of 128, GQA 6; 8 experts of d_ff 32 768,
+   top-2): prefill of 4 x 2 048 seeded tokens (8 B2 launches), 16 greedy
+   tokens at batch 8 over a 4 096-position cache (8 B4 launches a step),
+   f32 gates of B2 and B4 against the plain versions; deepseek-v3-671b at
+   full width with its 3 dense layers and 2 of its 58 MoE layers (MLA, 256
+   experts top-8 and one shared): prefill of 4 x 2 048 (MLA through
+   ``chunked_attention``: 0 B2 launches), 16 greedy tokens at batch 8 over
+   a 4 096-position latent cache (0 B4 launches), an f32 gate of the
+   latent cache (prefill over P + 1 tokens against prefill over P and one
+   absorbed decode step) and, with the model freed, ``moe_ffn`` against
+   ``moe_ref`` on one MoE layer in f32 (kept masks equal); for both the
+   MoE's kept share of routed slots in prefill and decode, profiled
+   prefill and decode step, and the peak device memory;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -143,7 +157,8 @@ from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
 from repro_torch.linalg.host_exec import run_host_ptg  # noqa: E402
 from repro_torch.linalg.gemm import (assemble, gemm_2d_program,  # noqa: E402
                                      gemm_executor)
-from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import mamba2, moe  # noqa: E402
+from repro_torch.models.layers import dense_init  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.ptg import Graph  # noqa: E402
@@ -506,7 +521,8 @@ def phase_attention_vs_plain(dev) -> None:
     L, at D 64 and 48, and at the attention chain's task [1, 1, 4096,
     128]; with a sliding window (zamba2's shared block, windows 1, 64 and
     4 096 over 8 192 keys, ragged L), non-causal with Lq != Lk (seamless's
-    cross-attention, and Lq > Lk) and at llava's GQA 7; whole tensor and
+    cross-attention, and Lq > Lk), at llava's GQA 7 and at grok-1's GQA 6
+    (its prefill call in the model's layout, ragged, full); whole tensor and
     per (batch, q head). None needs a copy for TMA. Then the chain task's
     batch independence, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -554,11 +570,13 @@ def phase_attention_vs_plain(dev) -> None:
     zh, zd, w = zamba.n_heads, zamba.head_dim, zamba.sliding_window
     sh, sd = seam.n_heads, seam.head_dim
     lh, lg, ld = llava.n_heads, llava.n_kv_heads, llava.head_dim
+    grok = get_config("grok-1-314b")
+    gh, gg, gd = grok.n_heads, grok.n_kv_heads, grok.head_dim
     # (name, shape, model layout, causal, window): zamba2's shared block
     # (window 4 096 over 8 192 keys, head dim 64, group 1) with windows of
     # 1, one tile and the model's, ragged L, GQA 7 with Lq < Lk; seamless's
     # encoder, decoder and cross-attention (non-causal Lq < Lk), Lq > Lk;
-    # llava's GQA 7 prefill
+    # llava's GQA 7 prefill; grok-1's GQA 6 prefill, ragged and full
     more = [(f"zamba2 window {win} [1,2|2,8192,{zd}]",
              (1, 2, 2, 8192, 8192, zd), False, True, win)
             for win in (1, 64, w)]
@@ -575,7 +593,13 @@ def phase_attention_vs_plain(dev) -> None:
              ("Lq > Lk [1,4|4,2048|512,64] full", (1, 4, 4, 2048, 512, 64),
               False, False, 0),
              (f"llava model layout [2,{lh}|{lg},2048,{ld}]",
-              (2, lh, lg, 2048, 2048, ld), True, True, 0)]
+              (2, lh, lg, 2048, 2048, ld), True, True, 0),
+             (f"grok model layout [2,{gh}|{gg},2048,{gd}]",
+              (2, gh, gg, 2048, 2048, gd), True, True, 0),
+             ("GQA 6 ragged [1,12|2,1000,128]", (1, 12, 2, 1000, 1000, 128),
+              False, True, 0),
+             ("GQA 6 full Lq < Lk [1,12|2,700|1500,128]",
+              (1, 12, 2, 700, 1500, 128), True, False, 0)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, model, causal, win in more:
             q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
@@ -747,8 +771,8 @@ def phase_decode_vs_plain(dev) -> None:
     ragged S, a cache with replicated KV heads (``kv_head_pad`` 2),
     yi-6b's decode layer over a 32 768-position cache, zamba2's ring
     (group 1, D 64; also past the wrap, against the keys in position
-    order), seamless's self and cross caches and llava's group 7, f32 and
-    bf16."""
+    order), seamless's self and cross caches, llava's group 7 and grok-1's
+    group 6, f32 and bf16."""
     gen = torch.Generator(device=dev).manual_seed(12)
     cases = [((2, 8, 2, 256, 64), None), ((1, 4, 4, 512, 128), None),
              ((4, 16, 1, 128, 64), None), ((3, 4, 2, 256, 64), (256, 100, 17)),
@@ -765,7 +789,11 @@ def phase_decode_vs_plain(dev) -> None:
              ((4, 16, 16, 2048, 64), None),
              ((4, 16, 16, 528, 64), (513, 513, 520, 528)),
              ((8, 56, 8, 4096, 128), (4096, 4080, 1, 2049, 3000, 64, 65,
-                                      4095))]
+                                      4095)),
+             # grok-1's decode layer, group 6
+             ((8, 48, 8, 4096, 128), (4096, 4095, 1, 2047, 129, 3333, 64,
+                                      4000)),
+             ((3, 12, 2, 1000, 128), (1000, 999, 17))]
     decode_attention.narrow = 0
     for dtype in (torch.float32, torch.bfloat16):
         for (b, hq, hkv, s, d), lens in cases:
@@ -1591,13 +1619,14 @@ DENSE_TOL = 1e-4
 
 
 def fill_cache(cache, upto: int, seed: int):
-    """Seeded normal values in every layer's K and V at positions [0,
-    upto): the cache after ``upto`` decoded tokens."""
-    k_all, v_all = cache.layers["dense"]
-    gen = torch.Generator(device=k_all.device).manual_seed(seed)
-    for t in (k_all, v_all):
+    """Seeded normal values in every segment's cache at positions [0,
+    upto) (K and V [L, B, H, S, hd], or MLA's ckv and k_rope [L, B, S, *]):
+    the cache after ``upto`` decoded tokens."""
+    tensors = [t for seg in cache.layers.values() for t in seg]
+    gen = torch.Generator(device=tensors[0].device).manual_seed(seed)
+    for t in tensors:
         for i in range(t.shape[0]):
-            t[i, :, :, :upto].normal_(generator=gen)
+            t[i].narrow(t.dim() - 3, 0, upto).normal_(generator=gen)
     return cache._replace(pos=upto)
 
 
@@ -1743,17 +1772,21 @@ def phase_dense(dev, batch=4, prompt=2048, serve_batch=8, tokens=16,
 
 
 def model_params(cfg, dev, tag: str):
-    """Seeded f32 parameters of ``cfg`` on the card, logged with their size."""
+    """Seeded parameters of ``cfg`` on the card, in its ``param_dtype``,
+    logged with their size."""
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    heads = (f"MLA over {cfg.n_heads} heads" if cfg.attention == "mla" else
+             f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads of "
+             f"{cfg.head_dim}")
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers"
         + (f" (+ {cfg.encoder_layers} encoder)" if cfg.encoder_layers else "")
-        + f", d_model {cfg.d_model}, {cfg.n_heads} q heads over "
-        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, vocab "
-        f"{cfg.vocab_size}; {n_par / 1e9:.3f} B params, {4 * n_par / 1e9:.2f}"
-        f" GB f32, compute {cfg.compute_dtype}; init "
+        + f", d_model {cfg.d_model}, {heads}, vocab {cfg.vocab_size}; "
+        f"{n_par / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB "
+        f"{cfg.param_dtype}, compute {cfg.compute_dtype}; init "
         f"{time.perf_counter() - t0:.2f} s")
     return params
 
@@ -2014,6 +2047,284 @@ def phase_vlm(dev, layers=16, batch=4, prompt=2048, serve_batch=8,
             "decode_tok_s": tok_s, "decode_busy": decode_busy}
 
 
+# ------------------------------------------------------------ the moe family
+
+PEAK_SO_FAR = [0]
+
+
+def reset_peak() -> None:
+    """Start a phase's own window of peak device memory; the run's peak
+    (``run_peak``) keeps the windows before it."""
+    PEAK_SO_FAR[0] = run_peak()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_peak() -> int:
+    return max(PEAK_SO_FAR[0], torch.cuda.max_memory_allocated())
+
+
+def kept_share(fn, tag: str) -> float:
+    """Runs ``fn`` with each ``moe_ffn`` call of the model preceded by
+    ``moe.route`` on its tokens (the call's own dispatch, computed once
+    more; untimed): logs and returns the share of routed slots that fit
+    their expert's capacity."""
+    counts = []
+    ffn = tfm.moe_ffn
+
+    def recording(x, p, cfg_moe, *args):
+        r = moe.route(x.reshape(-1, x.shape[-1]), p, cfg_moe)
+        counts.append((r.keep.sum(), r.keep.numel(), r.capacity))
+        return ffn(x, p, cfg_moe, *args)
+
+    tfm.moe_ffn = recording
+    try:
+        fn()
+    finally:
+        tfm.moe_ffn = ffn
+    kept = sum(int(k) for k, _, _ in counts)
+    routed = sum(n for _, n, _ in counts)
+    log(f"[{tag}] MoE kept {kept} of {routed} routed slots "
+        f"({kept / routed:.4f}) over {len(counts)} moe_ffn calls, capacity "
+        f"{sorted({c for *_, c in counts})} per expert [{card()}]")
+    return kept / routed
+
+
+def phase_moe_grok(dev, layers=8, batch=4, prompt=2048, serve_batch=8,
+                   tokens=16, seq=4096, gate_len=1024, gate_batch=2) -> dict:
+    """grok-1-314b at full width (d_model 6 144, 48 q heads over 8 KV heads
+    of 128: GQA group 6; 8 experts of d_ff 32 768, top-2, softmax router,
+    GELU; vocab 131 072), cut to ``layers`` of its 64 layers for one card's
+    memory: bf16 weights (the config's ``param_dtype``), 6.62 GB a layer
+    and 3.22 GB of embedding and head, and an f32 gate casts one layer
+    (13.2 GB) at a time. Prefill of ``batch`` x ``prompt`` seeded tokens
+    (B2 once a layer), ``tokens`` greedy tokens at ``serve_batch`` over a
+    ``seq``-position cache (B4 once a layer a step); f32 gates of B2 and
+    B4 against the plain versions (a ``gate_len`` prompt: the plain
+    attention's chunk divides it)."""
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=layers)
+    reset_peak()
+    params = model_params(cfg, dev, "moe-grok")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg)
+    run = lambda: step(params, {"tokens": toks})            # noqa: E731
+    with torch.inference_mode():
+        step(params, {"tokens": toks[:, :256]})             # warm-up
+        logits, prefill_s = timed_prefill(step, params, {"tokens": toks},
+                                          "moe-grok prefill", layers)
+        log(f"[moe-grok] prefill {batch} x {prompt} tokens: "
+            f"{1e3 * prefill_s:.1f} ms, {batch * prompt / prefill_s:.0f} "
+            f"tok/s, capacity {moe.capacity(batch * prompt, cfg.moe)} per "
+            f"expert [{card()}]")
+        prefill_busy = profile(f"{cfg.name}-d{layers} prefill", run)
+        prefill_kept = kept_share(run, "moe-grok prefill")
+        with plain_attention():
+            want = run()
+        err, agree = compare(logits, want)
+        log(f"[moe-grok] bf16 logits B2 vs plain attention: {err:.3e}, "
+            f"argmax agreement {agree:.2f} (reported; gated in f32 below)")
+        del logits, want
+        torch.cuda.empty_cache()
+        cache = fill_cache(tfm.init_cache(cfg, serve_batch, seq, device=dev),
+                           seq - tokens - 2, seed=52)
+        tok = torch.randint(0, cfg.vocab_size, (serve_batch,), generator=gen,
+                            device=dev)
+        ms, tok_s, decode_busy = serve_phase(cfg, params, tok, cache, tokens,
+                                             "moe-grok", layers)
+        fill_cache(cache, seq - tokens - 2, seed=52)
+        decode_kept = kept_share(lambda: serve_tokens(
+            cfg, params, tok, cache, tokens), "moe-grok decode")
+        del cache
+        torch.cuda.empty_cache()
+        prefill_gate(cfg, params, {"tokens": toks[:1, :gate_len]},
+                     "moe-grok", layers)
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        step_gate(f32, lambda: fill_cache(tfm.init_cache(
+            f32, gate_batch, seq, dtype=torch.float32, device=dev),
+            seq - 16, seed=53), tok[:gate_batch], params, "moe-grok", layers)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[moe-grok] peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB) [{card()}]")
+    del params
+    return {"b2_launches": layers, "b4_per_step": layers,
+            "prefill_ms": 1e3 * prefill_s,
+            "prefill_tok_s": batch * prompt / prefill_s,
+            "prefill_busy": prefill_busy, "decode_ms": ms,
+            "decode_tok_s": tok_s, "decode_busy": decode_busy,
+            "prefill_kept": prefill_kept, "decode_kept": decode_kept,
+            "peak_gb": peak / 1e9}
+
+
+def first_layers(tree, n: int):
+    """The first ``n`` layers of a stacked parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def mla_gate(cfg, params, dev, batch: int, length: int, seed=63) -> float:
+    """MLA's latent cache and absorbed decode against its prefill, on the
+    config's leading dense layers in f32: the last logits of a prefill over
+    ``length`` + 1 seeded tokens against those of one ``decode_step`` over
+    the (ckv, k_rope) that a forward over the first ``length`` collected.
+    ``length`` + 1 fits one chunk of the plain attention."""
+    f32 = dataclasses.replace(cfg, n_layers=cfg.moe.first_dense_layers,
+                              compute_dtype="float32")
+    prefix = dict(params, moe=first_layers(params["moe"], 0))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, length + 1),
+                         generator=gen, device=dev)
+    want = make_prefill_step(f32)(prefix, {"tokens": toks})
+    _, caches = tfm.forward(f32, prefix, tokens=toks[:, :length],
+                            collect_cache=True)
+    cache = tfm.init_cache(f32, batch, length + 1, dtype=torch.float32,
+                           device=dev)
+    for mine, got in zip(cache.layers["dense"], caches["dense"]):
+        mine[:, :, :length].copy_(got)
+    del caches
+    logits, _ = tfm.decode_step(f32, prefix, toks[:, length],
+                                cache._replace(pos=length))
+    err, agree = compare(logits, want)
+    log(f"[moe-deepseek] MLA f32, {f32.n_layers} dense layers, batch "
+        f"{batch}: prefill over {length + 1} tokens vs prefill over {length} "
+        f"and one absorbed decode step over the latent cache: {err:.3e} (tol "
+        f"{DENSE_TOL:.0e}), argmax agreement {agree:.2f} [{card()}]")
+    check(err <= DENSE_TOL, f"MLA prefill vs latent-cache decode: {err}")
+    return err
+
+
+def moe_gate(cfg, dev, batch: int, length: int, seed=64) -> tuple:
+    """One MoE layer of ``cfg`` at full width with seeded f32 weights (the
+    port's init rule; a seeded router bias): ``moe_ffn`` against
+    ``moe_ref`` on ``batch`` x ``length`` seeded tokens in f32 at the
+    config's capacity factor, outputs within DENSE_TOL of max|plain| and
+    kept masks equal, with slots dropped. Returns (error, kept share)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = {n: (torch.randn(shape, generator=gen, device=dev) * 0.1
+             if len(shape) == 1 else
+             dense_init(gen, shape, 0, torch.float32, dev))
+         for n, shape in moe.moe_params_shapes(cfg.moe, cfg.d_model,
+                                               cfg.ffn).items()}
+    n_bytes = sum(t.numel() * t.element_size() for t in p.values())
+    x = torch.randn((batch, length, cfg.d_model), generator=gen, device=dev)
+    got = moe.moe_ffn(x, p, cfg.moe, cfg.ffn, torch.float32)
+    want, keep = moe.moe_ref(x, p, cfg.moe, cfg.ffn, torch.float32)
+    same = torch.equal(keep, moe.route(x.reshape(-1, cfg.d_model), p,
+                                       cfg.moe).keep)
+    err = float((got - want).abs().max() / want.abs().max())
+    share = float(keep.float().mean())
+    log(f"[moe-deepseek] moe_ffn vs moe_ref, one MoE layer in f32 "
+        f"({n_bytes / 1e9:.2f} GB), {batch} x {length} tokens, capacity "
+        f"{moe.capacity(batch * length, cfg.moe)}: {err:.3e} (tol "
+        f"{DENSE_TOL:.0e}); kept masks equal: {same}; kept {share:.4f} of "
+        f"routed slots [{card()}]")
+    check(err <= DENSE_TOL and same and share < 1.0,
+          f"moe_ffn vs moe_ref: err {err}, masks equal {same}, kept {share}")
+    return err, share
+
+
+def time_mla_attention(cfg, dev, batch: int, length: int) -> dict:
+    """MLA's prefill attention at ``cfg``'s heads (q and k of nope + rope,
+    v of v_head_dim; bf16, causal) as the model runs it, through
+    ``chunked_attention`` (f32 on the CUDA cores, no kernel of the port
+    takes it), beside ``scaled_dot_product_attention`` on the same inputs
+    and the bound of the work at the bf16 rate: the cost a B2 variant for
+    MLA would take on (ROADMAP queue B)."""
+    m = cfg.mla
+    gen = torch.Generator(device=dev).manual_seed(65)
+    dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    q, k = (torch.randn((batch, cfg.n_heads, length, dk), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((batch, cfg.n_heads, length, dv), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    got = chunked_attention(q, k, v, causal=True)
+    want = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    err = rel_err(got, want)
+    plain = cuda_ms(lambda: chunked_attention(q, k, v, causal=True), 3)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 5)
+    pairs = batch * cfg.n_heads * length * (length + 1) / 2
+    nbytes = q.element_size() * (2 * q.numel() + 2 * v.numel())
+    bnd, bound_by = bound(nbytes, 2.0 * (dk + dv) * pairs, torch.bfloat16)
+    log(f"[time] MLA prefill attention q/k[{batch},{cfg.n_heads},{length},"
+        f"{dk}] v[..,{dv}] bf16 causal: chunked_attention {plain:.3f} ms a "
+        f"layer, sdpa {library:.3f} ms, bound {bnd:.3f} ms ({bound_by}); "
+        f"chunked vs sdpa {err:.3e} [{card()}]")
+    check(err <= TOL[torch.bfloat16], f"MLA chunked_attention vs sdpa {err}")
+    return {"plain_ms": plain, "library_ms": library, "bound_ms": bnd}
+
+
+def phase_moe_deepseek(dev, moe_layers=2, batch=4, prompt=2048,
+                       serve_batch=8, tokens=16, seq=4096, mla_batch=2,
+                       mla_len=1023, moe_batch=2, moe_len=512) -> dict:
+    """deepseek-v3-671b at full width (d_model 7 168; MLA over 128 heads:
+    q_lora 1 536, kv_lora 512, nope 128, rope 64, v 128; 256 routed experts
+    of d_ff 2 048 top-8 and one shared, sigmoid router; vocab 129 280),
+    keeping its 3 leading dense layers and ``moe_layers`` of its 58 MoE
+    layers for one card's memory: bf16 weights, 1.17 GB a dense layer,
+    23.0 GB a MoE layer, 3.71 GB embedding and head. As in the reference,
+    MLA runs without B2 or B4: prefill through ``chunked_attention``,
+    decode absorbed over the latent cache. Prefill ``batch`` x ``prompt``,
+    ``tokens`` greedy tokens at ``serve_batch`` over a ``seq``-position
+    latent cache; then the MLA gate on the dense prefix and, with the model
+    freed, the MoE gate on one f32 layer."""
+    base = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(
+        base, n_layers=base.moe.first_dense_layers + moe_layers)
+    reset_peak()
+    params = model_params(cfg, dev, "moe-deepseek")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg)
+    run = lambda: step(params, {"tokens": toks})            # noqa: E731
+    with torch.inference_mode():
+        step(params, {"tokens": toks[:, :256]})             # warm-up
+        logits, prefill_s = timed_prefill(step, params, {"tokens": toks},
+                                          "moe-deepseek prefill", 0)
+        del logits
+        log(f"[moe-deepseek] prefill {batch} x {prompt} tokens: "
+            f"{1e3 * prefill_s:.1f} ms, {batch * prompt / prefill_s:.0f} "
+            f"tok/s, capacity {moe.capacity(batch * prompt, cfg.moe)} per "
+            f"expert [{card()}]")
+        prefill_busy = profile(f"{cfg.name}-d{cfg.n_layers} prefill", run)
+        prefill_kept = kept_share(run, "moe-deepseek prefill")
+        torch.cuda.empty_cache()
+        mla = time_mla_attention(cfg, dev, batch, prompt)
+        torch.cuda.empty_cache()
+        cache = fill_cache(tfm.init_cache(cfg, serve_batch, seq, device=dev),
+                           seq - tokens - 2, seed=62)
+        tok = torch.randint(0, cfg.vocab_size, (serve_batch,), generator=gen,
+                            device=dev)
+        ms, tok_s, decode_busy = serve_phase(cfg, params, tok, cache, tokens,
+                                             "moe-deepseek", 0)
+        fill_cache(cache, seq - tokens - 2, seed=62)
+        decode_kept = kept_share(lambda: serve_tokens(
+            cfg, params, tok, cache, tokens), "moe-deepseek decode")
+        del cache
+        torch.cuda.empty_cache()
+        mla_err = mla_gate(cfg, params, dev, mla_batch, mla_len)
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak()
+        moe_err, gate_kept = moe_gate(cfg, dev, moe_batch, moe_len)
+    log(f"[moe-deepseek] peak device memory with the model "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB); of the MoE gate "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card()}]")
+    torch.cuda.empty_cache()
+    return {"b2_launches": 0, "b4_per_step": 0,
+            "prefill_ms": 1e3 * prefill_s,
+            "prefill_tok_s": batch * prompt / prefill_s,
+            "prefill_busy": prefill_busy, "decode_ms": ms,
+            "decode_tok_s": tok_s, "decode_busy": decode_busy,
+            "prefill_kept": prefill_kept, "decode_kept": decode_kept,
+            "mla_err": mla_err, "moe_err": moe_err, "gate_kept": gate_kept,
+            "peak_gb": peak / 1e9, "mla_attention": mla}
+
+
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
                     b_gemm=1024) -> dict:
     """Times at the main path's largest body calls (the Cholesky gemm
@@ -2057,8 +2368,9 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
     task per launch), at yi-6b's prefill layout ([1, 32|4, 4096, 128]
     bf16), at the model's own prefill call ([4, 32|4, 2048, 128] bf16,
     strided views), at zamba2's windowed prefill call ([2, 32|32, 8192, 64]
-    bf16, window 4 096) and at seamless's cross-attention ([4, 16|16,
-    512|2048, 64] bf16, full): the kernel, its plain version and
+    bf16, window 4 096), at seamless's cross-attention ([4, 16|16,
+    512|2048, 64] bf16, full) and at grok-1's prefill call ([4, 48|8, 2048,
+    128] bf16, GQA 6, strided views): the kernel, its plain version and
     ``scaled_dot_product_attention`` with the same mask (an explicit band
     for the window; timed only), with each path's registers, spills and
     resident blocks."""
@@ -2068,6 +2380,8 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
     zamba, seam = get_config("zamba2-1.2b"), get_config("seamless-m4t-large-v2")
     zh, zd, w = zamba.n_heads, zamba.head_dim, zamba.sliding_window
     sh, sd = seam.n_heads, seam.head_dim
+    grok = get_config("grok-1-314b")
+    gh, gg, gd = grok.n_heads, grok.n_kv_heads, grok.head_dim
     rows = {}
     for name, shape, model, dtype, causal, win in (
             ("chain task", (1, 1, 1, seq, seq, dim), False, torch.float32,
@@ -2079,7 +2393,9 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
             ("zamba2 windowed prefill", (2, zh, zh, 8192, 8192, zd), True,
              torch.bfloat16, True, w),
             ("seamless cross", (4, sh, sh, 512, 2048, sd), True,
-             torch.bfloat16, False, 0)):
+             torch.bfloat16, False, 0),
+            ("grok prefill", (4, gh, gg, 2048, 2048, gd), True,
+             torch.bfloat16, True, 0)):
         q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
         kw = dict(causal=causal, window=win)
         got = flash_attention(q, k, v, **kw)
@@ -2237,6 +2553,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm = phase_vlm(dev)
     torch.cuda.empty_cache()
+    grok = phase_moe_grok(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = phase_moe_deepseek(dev)
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
@@ -2248,10 +2569,11 @@ def main() -> int:
     decode_rows = {name: phase_time_decode(dev, cell, name) for name, cell in (
         ("zamba2 ring", (8, 32, 32, 4096, 64)),
         ("seamless cross", (4, 16, 16, 2048, 64)),
-        ("llava decode layer", (8, 56, 8, 4096, 128)))}
+        ("llava decode layer", (8, 56, 8, 4096, 128)),
+        ("grok decode layer", (8, 48, 8, 4096, 128)))}
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; GEMM main "
-        f"path launches {gemm['launches']}")
+        f"{run_peak() / 2 ** 30:.2f} GiB; GEMM main path launches "
+        f"{gemm['launches']}")
     rows = [("block_gemm", "block_gemm/block_gemm.py:40", chol["launches"],
              times["cholesky gemm"]),
             ("flash_attention", "flash_attention/flash_attention.py:76",
@@ -2272,12 +2594,15 @@ def main() -> int:
         "flash_attention": {"model_rows": {
             "zamba2 windowed prefill": attn_times["zamba2 windowed prefill"],
             "seamless cross": attn_times["seamless cross"],
-            "yi-6b model prefill": attn_times["yi-6b model prefill"]},
+            "yi-6b model prefill": attn_times["yi-6b model prefill"],
+            "grok prefill": attn_times["grok prefill"]},
             "launches_per_prefill": {
                 "zamba2-1.2b": hybrid["b2_launches"],
                 "seamless-m4t-large-v2": encdec["b2_launches"],
                 "llava-next-34b-d16": vlm["b2_launches"],
-                "yi-6b": dense["b2_launches"]}},
+                "yi-6b": dense["b2_launches"],
+                "grok-1-314b-d8": grok["b2_launches"],
+                "deepseek-v3-671b-d5": deepseek["b2_launches"]}},
         "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd},
                      "launches_per_prefill": {
                          "zamba2-1.2b": hybrid["b3_launches"]}},
@@ -2286,7 +2611,10 @@ def main() -> int:
                                  "zamba2-1.2b": hybrid["b4_per_step"],
                                  "seamless-m4t-large-v2":
                                      encdec["b4_per_step"],
-                                 "llava-next-34b-d16": vlm["b4_per_step"]}}}
+                                 "llava-next-34b-d16": vlm["b4_per_step"],
+                                 "grok-1-314b-d8": grok["b4_per_step"],
+                                 "deepseek-v3-671b-d5":
+                                     deepseek["b4_per_step"]}}}
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{

@@ -20,3 +20,10 @@ def attn_chunk():
     default 1024)."""
     v = os.environ.get("REPRO_ATTN_CHUNK")
     return int(v) if v else None
+
+
+def moe_capacity_factor():
+    """REPRO_MOE_CF: the MoE capacity factor (None: the config's). Both
+    packages' ``moe_ffn`` read it."""
+    v = os.environ.get("REPRO_MOE_CF")
+    return float(v) if v else None

@@ -8,8 +8,10 @@ The JAX package's decode loop (``repro.launch.serve``) without its mesh:
 one warm-up step, then ``--tokens`` timed steps from a fresh cache of
 ``--max-seq`` positions (bf16, donated to each step); prints tok/s and the
 first sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. Every
-family but moe runs: dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b), vlm
-(llava-next-34b, fed token embeddings as the JAX launcher feeds it), ssm
+family runs: dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b), vlm
+(llava-next-34b, fed token embeddings as the JAX launcher feeds it), moe
+(grok-1-314b; deepseek-v3-671b with MLA's latent cache; their bf16
+weights, 0.43 and 1.34 TB, fit one card only ``--reduced``), ssm
 (mamba2-1.3b), hybrid (zamba2-1.2b) and encdec (seamless-m4t-large-v2,
 whose cross-attention reads a cache of zeros [L, B, Hkv, max_seq, hd], as
 the JAX launcher makes it: there is no encoder pass).

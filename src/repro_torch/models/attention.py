@@ -1,10 +1,11 @@
-"""Attention of the GQA families: the prefill and decode dispatch, and the
-plain chunked attention (PyTorch).
+"""Attention: the GQA prefill and decode dispatch, and the plain chunked
+attention (PyTorch).
 
-The port of ``repro.models.attention`` (GQA; MLA is the moe part of
-ROADMAP item A10). Where the JAX package runs its jnp versions everywhere
-off the TPU, the port sends CUDA tensors to its hand-written kernels and
-CPU tensors to the plain versions:
+The port of ``repro.models.attention``. MLA (``models/transformer.py``)
+calls ``chunked_attention`` directly for its prefill, as the reference
+does: its q and k are wider than v, which B2 does not take. Where the JAX
+package runs its jnp versions everywhere off the TPU, the port sends CUDA
+tensors to its hand-written kernels and CPU tensors to the plain versions:
 
 - prefill: B2 ``flash_attention`` on CUDA, ``chunked_attention`` (the
   reference's online softmax over KV chunks) on the CPU; causal or not,

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -45,6 +46,12 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor
     return F.gelu(x @ w_in, approximate="tanh") @ w_out
 
 
+# Elements of an f32 draw for a narrower tensor (1 GiB): a bf16 matrix
+# larger than this is drawn piece by piece, so its f32 draw is never whole
+# in memory (an expert stack of grok-1 is 12.9 G elements).
+DRAW = 1 << 28
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis: Optional[int] = 0, dtype=torch.float32,
                device=None) -> torch.Tensor:
@@ -54,8 +61,17 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
     for ax in range(len(shape) - 1) if in_axis is None else [in_axis]:
         fan_in *= shape[ax]
     device = gen.device if device is None else device
-    return (torch.randn(tuple(shape), generator=gen, device=device)
-            * fan_in ** -0.5).to(dtype)
+    n = math.prod(shape)
+    if dtype == torch.float32 or n <= DRAW:
+        return (torch.randn(tuple(shape), generator=gen, device=device)
+                * fan_in ** -0.5).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, n, DRAW):
+        m = min(DRAW, n - i)
+        flat[i:i + m] = torch.randn(m, generator=gen,
+                                    device=device) * fan_in ** -0.5
+    return out
 
 
 def stacked_dense_init(gen: torch.Generator, n: int, shape: Sequence[int],

@@ -1,0 +1,211 @@
+"""Mixture-of-Experts layer: token-choice top-k with capacity (PyTorch).
+
+The port of ``repro.models.moe`` on one device, where the JAX package's
+``data_rows()`` is 1: every token of the call is one dispatch row. The
+steps that decide which tokens an expert keeps follow the reference step
+for step:
+
+- router logits in f32 (from weights already cast to the compute dtype);
+  ``"softmax"`` selects and weights by the softmax, ``"sigmoid"``
+  (deepseek-v3, aux-loss-free) selects by affinity + ``router_bias`` and
+  weights by the affinity;
+- the top k, ties broken toward the lower expert index as ``lax.top_k``
+  breaks them (a stable descending sort; ``torch.topk`` leaves the order
+  of ties unspecified), renormalised by their sum + 1e-9;
+- capacity ``int(T·k/E·cf) + 1``; a slot's position in its expert is the
+  cumulative count over the token-major [T·k, E] one-hot; kept when
+  ``pos < cap``;
+- slot by slot scatter into [E, C, D] buffers in the compute dtype (a
+  dropped slot adds zeros at (E-1, C-1)), a batched expert FFN, slot by
+  slot combine in f32, then the shared experts.
+
+The expert products are plain batched matrix products (``torch.bmm``), as
+the JAX package computes them outside any Pallas kernel. ``moe_ref`` is a
+plain version written apart from the dispatch: it walks the experts one by
+one and runs one FFN per expert on the tokens it keeps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import MoEConfig
+from ..launch.flags import moe_capacity_factor
+
+
+def moe_params_shapes(cfg_moe: MoEConfig, d_model: int, ffn: str) -> dict:
+    e = cfg_moe.n_experts
+    f = cfg_moe.d_ff
+    shapes = {
+        "router": (d_model, e),
+        "router_bias": (e,),
+        "w_in": (e, d_model, f),
+        "w_out": (e, f, d_model),
+    }
+    if ffn == "swiglu":
+        shapes["w_gate"] = (e, d_model, f)
+    if cfg_moe.n_shared_experts:
+        fs = f * cfg_moe.n_shared_experts
+        shapes["shared_w_in"] = (d_model, fs)
+        shapes["shared_w_out"] = (fs, d_model)
+        if ffn == "swiglu":
+            shapes["shared_w_gate"] = (d_model, fs)
+    return shapes
+
+
+class Routing(NamedTuple):
+    """Where each token's k slots go: ``expert``, ``pos`` (its place in the
+    expert's buffer) and ``weight`` [T, k]; ``keep`` [T, k] whether the slot
+    fits the ``capacity``."""
+    expert: torch.Tensor
+    weight: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def _with_env(cfg_moe: MoEConfig) -> MoEConfig:
+    """The config with ``REPRO_MOE_CF``'s capacity factor, when set."""
+    cf = moe_capacity_factor()
+    if cf is None:
+        return cfg_moe
+    return dataclasses.replace(cfg_moe, capacity_factor=cf)
+
+
+def _scores(xt: torch.Tensor, p: dict, cfg_moe: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(selection scores, weight source) [T, E] in f32."""
+    logits = xt.float() @ p["router"].float()
+    if cfg_moe.router == "sigmoid":
+        affinity = torch.sigmoid(logits)
+        return affinity + p["router_bias"].float(), affinity
+    select = torch.softmax(logits, dim=-1)
+    return select, select
+
+
+def capacity(t: int, cfg_moe: MoEConfig) -> int:
+    """Slots per expert for ``t`` tokens."""
+    return int(t * cfg_moe.experts_per_token / cfg_moe.n_experts
+               * cfg_moe.capacity_factor) + 1
+
+
+def route(xt: torch.Tensor, p: dict, cfg_moe: MoEConfig) -> Routing:
+    """The dispatch of ``moe_ffn`` for tokens xt [T, D]."""
+    cfg_moe = _with_env(cfg_moe)
+    t, e, k = xt.shape[0], cfg_moe.n_experts, cfg_moe.experts_per_token
+    select, weights_src = _scores(xt, p, cfg_moe)
+    expert = torch.sort(select, dim=-1, descending=True,
+                        stable=True).indices[:, :k]              # [T, k]
+    weight = weights_src.gather(1, expert)
+    weight = weight / (weight.sum(-1, keepdim=True) + 1e-9)
+    cap = capacity(t, cfg_moe)
+    flat = expert.reshape(-1, 1)                                 # [T*k, 1]
+    onehot = torch.zeros((t * k, e), dtype=torch.int64, device=xt.device)
+    onehot.scatter_(1, flat, 1)
+    pos = (onehot.cumsum(0).gather(1, flat) - 1).reshape(t, k)
+    return Routing(expert, weight, pos, pos < cap, cap)
+
+
+def _expert_ffn(h: torch.Tensor, w: dict, ffn: str, prefix: str = ""
+                ) -> torch.Tensor:
+    """The FFN of one expert (h [C, D], 2-D weights) or of every expert at
+    once (h [E, C, D], stacked weights)."""
+    mm = torch.bmm if h.dim() == 3 else torch.matmul
+    if ffn == "swiglu":
+        a = F.silu(mm(h, w[prefix + "w_gate"])) * mm(h, w[prefix + "w_in"])
+    else:
+        a = F.gelu(mm(h, w[prefix + "w_in"]), approximate="tanh")
+    return mm(a, w[prefix + "w_out"])
+
+
+def _add_shared(y: torch.Tensor, xt: torch.Tensor, p: dict,
+                cfg_moe: MoEConfig, ffn: str, compute_dtype) -> torch.Tensor:
+    """y [T, D] plus the shared experts' output, if the layer has any."""
+    if not cfg_moe.n_shared_experts:
+        return y
+    return y + _expert_ffn(xt.to(compute_dtype), p, ffn, "shared_").to(
+        y.dtype)
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D]."""
+    b, s, d = x.shape
+    e, k = cfg_moe.n_experts, cfg_moe.experts_per_token
+    xt = x.reshape(b * s, d)
+    r = route(xt, p, cfg_moe)
+    cap = r.capacity
+
+    # scatter, slot by slot: a kept slot owns its (expert, pos) alone; a
+    # dropped one adds zeros at (E-1, C-1). On CUDA ``index_put_`` with
+    # accumulate adds in no fixed order, but only that dump slot receives
+    # more than one value, and all but one of them are zeros, so the sum is
+    # exact whatever the order.
+    xin = torch.zeros((e, cap, d), dtype=compute_dtype, device=x.device)
+    xc = xt.to(compute_dtype)
+    for j in range(k):
+        kj = r.keep[:, j]
+        xin.index_put_((torch.where(kj, r.expert[:, j], e - 1),
+                        torch.where(kj, r.pos[:, j], cap - 1)),
+                       torch.where(kj[:, None], xc, 0), accumulate=True)
+
+    yout = _expert_ffn(xin, p, ffn)                              # [E, C, D]
+
+    # combine, slot by slot, in f32
+    acc = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        kj = r.keep[:, j]
+        g = yout[torch.where(kj, r.expert[:, j], 0),
+                 torch.where(kj, r.pos[:, j], 0)]                # [T, D]
+        acc += torch.where(kj[:, None], g, 0).float() * r.weight[:, j, None]
+    y = _add_shared(acc.to(x.dtype), xt, p, cfg_moe, ffn, compute_dtype)
+    return y.reshape(b, s, d)
+
+
+def moe_ref(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
+            compute_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``moe_ffn``: (y [B, S, D], keep [T, k]).
+
+    Top-k by k rounds of ``argmax`` (the first of equal maxima) with the
+    winner masked out; then expert by expert, the tokens routed to it in
+    token order, of which the first ``capacity`` are kept, through that
+    expert's own FFN, weighted into an f32 sum."""
+    cfg_moe = _with_env(cfg_moe)
+    b, s, d = x.shape
+    t, e, k = b * s, cfg_moe.n_experts, cfg_moe.experts_per_token
+    xt = x.reshape(t, d)
+    select, weights_src = _scores(xt, p, cfg_moe)
+    chosen = []
+    masked = select.clone()
+    for _ in range(k):
+        best = masked.argmax(-1)
+        chosen.append(best)
+        masked.scatter_(1, best[:, None], float("-inf"))
+    expert = torch.stack(chosen, 1)                              # [T, k]
+    w = weights_src.gather(1, expert)
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    cap = capacity(t, cfg_moe)
+    keep = torch.zeros((t, k), dtype=torch.bool, device=x.device)
+    acc = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    xc = xt.to(compute_dtype)
+    for ex in range(e):
+        hit = expert == ex                                       # [T, k]
+        tokens = hit.any(1).nonzero()[:, 0][:cap]                # in order
+        if tokens.numel() == 0:
+            continue
+        slot = hit[tokens].int().argmax(1)
+        keep[tokens, slot] = True
+        w_e = {n: p[n][ex] for n in ("w_in", "w_out", "w_gate") if n in p}
+        y_e = _expert_ffn(xc[tokens], w_e, ffn)
+        acc[tokens] += y_e.float() * w[tokens, slot][:, None]
+    y = _add_shared(acc.to(x.dtype), xt, p, cfg_moe, ffn, compute_dtype)
+    return y.reshape(b, s, d), keep
+
+
+__all__ = ["Routing", "capacity", "moe_ffn", "moe_params_shapes", "moe_ref",
+           "route"]

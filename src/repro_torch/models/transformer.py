@@ -1,20 +1,22 @@
-"""The model zoo's init / forward / prefill / decode, for every family but
-moe: dense (llama-style GQA), vlm (dense blocks fed ``embeds``), ssm
-(Mamba-2), hybrid (a Mamba-2 backbone with one shared attention block
+"""The model zoo's init / forward / prefill / decode, for every family:
+dense (llama-style GQA), vlm (dense blocks fed ``embeds``), moe (GQA or
+MLA attention, top-k experts after ``first_dense_layers`` dense layers),
+ssm (Mamba-2), hybrid (a Mamba-2 backbone with one shared attention block
 after every ``shared_attn_every`` layers, sliding window, zamba-style) and
 encdec (a non-causal encoder and a causal decoder with cross-attention).
 
-The port of ``repro.models.transformer``. The moe family (MoE experts, MLA
-attention) raises ``NotImplementedError``: it is the moe part of ROADMAP
-item A10, its serving path item A12. Parameters are a dict of tensors with
-the JAX package's tree and stacked ``[n_layers, ...]`` leaves (the
+The port of ``repro.models.transformer``. Parameters are a dict of tensors
+with the JAX package's tree and stacked ``[n_layers, ...]`` leaves (the
 hybrid's ``shared`` block unstacked); layers run as a Python loop over
 that stack. There is one device, so the JAX package's sharding
 annotations have no counterpart.
 
-Attention goes through ``prefill_attention`` and ``decode_attention_host``
-(``models/attention.py``): the hand-written kernels on CUDA tensors, the
-plain versions on CPU tensors.
+GQA attention goes through ``prefill_attention`` and
+``decode_attention_host`` (``models/attention.py``): the hand-written
+kernels on CUDA tensors, the plain versions on CPU tensors. MLA (deepseek-
+v3) runs as the reference runs it: prefill through ``chunked_attention``
+(its q and k are 192 wide and v 128, which B2 does not take), decode in
+the absorbed form over the latent cache (ckv, k_rope), einsums in f32.
 """
 
 from __future__ import annotations
@@ -24,22 +26,13 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import decode_attention_host, prefill_attention
+from .attention import (NEG_INF, chunked_attention, decode_attention_host,
+                        prefill_attention)
 from .layers import (apply_rope, dense_init, gelu_mlp, rms_norm, rope_freqs,
                      stacked_dense_init, swiglu)
 from .mamba2 import (Mamba2State, mamba2_forward, mamba2_init_state,
                      mamba2_params_shapes, mamba2_step)
-
-FAMILIES = ("dense", "vlm", "ssm", "hybrid", "encdec")
-
-
-def _require_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{what}: the port runs the {', '.join(FAMILIES)} families, not "
-            f"{cfg.family!r} ({cfg.name}); the {cfg.family} family's model "
-            f"(MoE experts, MLA attention) is the moe part of ROADMAP item "
-            f"A10 and its serving path item A12")
+from .moe import moe_ffn, moe_params_shapes
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -50,10 +43,20 @@ def dtype_of(name: str) -> torch.dtype:
 # =============================================================== parameters
 
 def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is the moe part of ROADMAP item A10")
     d, hd = cfg.d_model, cfg.head_dim
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {
+            "wq_a": (d, m.q_lora_rank),
+            "q_ln": (m.q_lora_rank,),
+            "wq_b": (m.q_lora_rank,
+                     cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim)),
+            "wkv_a": (d, m.kv_lora_rank + m.qk_rope_dim),
+            "kv_ln": (m.kv_lora_rank,),
+            "wkv_b": (m.kv_lora_rank,
+                      cfg.n_heads * (m.qk_nope_dim + m.v_head_dim)),
+            "wo": (cfg.n_heads * m.v_head_dim, d),
+        }
     s = {
         "wq": (d, cfg.n_heads * hd),
         "wk": (d, cfg.n_kv_heads * hd),
@@ -78,6 +81,9 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind == "ssm":
         return {"ln": (d,), "mamba": mamba2_params_shapes(cfg.ssm, d)}
     s: Dict[str, Any] = {"ln1": (d,), "ln2": (d,), "attn": _attn_shapes(cfg)}
+    if kind == "moe":
+        s["moe"] = moe_params_shapes(cfg.moe, d, cfg.ffn)
+        return s
     if kind == "cross":  # encdec decoder block
         s["ln_cross"] = (d,)
         s["cross"] = _attn_shapes(cfg)
@@ -111,13 +117,19 @@ def _zero_biases(tree, names=("router_bias", "conv_b", "dt_bias")):
 
 def layer_kinds(cfg: ModelConfig) -> Dict[str, int]:
     """Named layer segments -> stack depth (the hybrid's shared attention
-    block is not stacked, so not a segment)."""
-    _require_family(cfg, "layer_kinds")
+    block is not stacked, so not a segment). The moe family's leading
+    dense layers are a segment of their own, left out when there are
+    none."""
     if cfg.family in ("dense", "vlm"):
         return {"dense": cfg.n_layers}
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        return {**({"dense": fd} if fd else {}), "moe": cfg.n_layers - fd}
     if cfg.family in ("ssm", "hybrid"):
         return {"ssm": cfg.n_layers}
-    return {"enc": cfg.encoder_layers, "cross": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"enc": cfg.encoder_layers, "cross": cfg.n_layers}
+    raise ValueError(cfg.family)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -212,11 +224,7 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
                           cfg.rope_theta)                      # [1, hd/2]
     q = apply_rope(q[:, :, None], cos, sin)[:, :, 0]
     k = apply_rope(k[:, :, None], cos, sin)[:, :, 0]
-    if k.dtype != k_cache.dtype:
-        raise TypeError(
-            f"decode_step: the new keys are {k.dtype} (compute dtype "
-            f"{cfg.compute_dtype}) but the cache holds {k_cache.dtype}; pass "
-            f"init_cache the compute dtype (the reference raises here too)")
+    _check_cache_dtype(k, k_cache, cfg)
     pad = k_cache.shape[1] // cfg.n_kv_heads  # cache with replicated heads
     if pad > 1:
         k = k.repeat_interleave(pad, dim=1)
@@ -227,6 +235,84 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
     o = decode_attention_host(q, k_cache, v_cache, kv_len)
     o = o.reshape(b, cfg.n_heads * hd)
     return o @ p["wo"], (k_cache, v_cache)
+
+
+def _check_cache_dtype(new: torch.Tensor, cache: torch.Tensor,
+                       cfg: ModelConfig) -> None:
+    if new.dtype != cache.dtype:
+        raise TypeError(
+            f"decode_step: the new entries are {new.dtype} (compute dtype "
+            f"{cfg.compute_dtype}) but the cache holds {cache.dtype}; pass "
+            f"init_cache the compute dtype (the reference raises here too)")
+
+
+def _mla_full(cfg: ModelConfig, p, x):
+    """Full-sequence MLA (prefill); returns (out, (ckv [B, S, r] after its
+    norm, k_rope [B, S, rope] after RoPE)). The attention (q and k of nope +
+    rope, v of v_head_dim) runs through ``chunked_attention``, as in the
+    reference."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    ckv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
+                                         dim=-1)
+    ckv = rms_norm(ckv, p["kv_ln"], cfg.norm_eps)
+    kvb = (ckv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kvb.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    cos, sin = rope_freqs(torch.arange(s, device=x.device), m.qk_rope_dim,
+                          cfg.rope_theta)
+    q_rope = apply_rope(q_rope.transpose(1, 2), cos, sin)
+    k_rope = apply_rope(k_rope[:, None], cos, sin)            # [B, 1, S, rope]
+    q_full = torch.cat([q_nope.transpose(1, 2), q_rope], -1)
+    k_full = torch.cat([k_nope.transpose(1, 2),
+                        k_rope.expand(b, h, s, m.qk_rope_dim)], -1)
+    o = chunked_attention(q_full, k_full, v.transpose(1, 2), causal=True)
+    o = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
+    return o @ p["wo"], (ckv, k_rope[:, 0])
+
+
+def _mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
+    """Absorbed MLA decode: attention runs in the latent space over cache
+    (ckv [B, S, r], k_rope [B, S, rope]), written IN PLACE at ``pos`` (slot
+    S - 1 for ``pos >= S``, as the reference's update clamps it), over the
+    positions ``<= pos``; the einsums in f32."""
+    m = cfg.mla
+    b, _ = x.shape
+    h = cfg.n_heads
+    ckv_cache, krope_cache = cache
+    s_max = ckv_cache.shape[1]
+    q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(b, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    ckv_t, krope_t = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
+                                            dim=-1)
+    ckv_t = rms_norm(ckv_t, p["kv_ln"], cfg.norm_eps)
+    cos, sin = rope_freqs(torch.full((1,), pos, device=x.device),
+                          m.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope[:, :, None], cos, sin)[:, :, 0]
+    krope_t = apply_rope(krope_t[:, None, None], cos, sin)[:, 0, 0]
+    _check_cache_dtype(ckv_t, ckv_cache, cfg)
+    slot = min(pos, s_max - 1)
+    ckv_cache[:, slot] = ckv_t
+    krope_cache[:, slot] = krope_t
+
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    w_k, w_v = wkv_b.float().split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    ckv_f = ckv_cache.float()
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_k)   # [B, H, r]
+    scores = (torch.einsum("bhr,bsr->bhs", q_abs, ckv_f)
+              + torch.einsum("bhp,bsp->bhs", q_rope.float(),
+                             krope_cache.float()))
+    scores = scores * (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    mask = torch.arange(s_max, device=x.device) <= pos
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", w, ckv_f)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_v)
+    o = o.reshape(b, h * m.v_head_dim).to(x.dtype)
+    return o @ p["wo"], (ckv_cache, krope_cache)
 
 
 # ================================================================= blocks
@@ -246,20 +332,33 @@ def _ffn_apply(cfg: ModelConfig, p, x):
     return gelu_mlp(x, p["w_in"], p["w_out"])
 
 
+def _mlp(cfg: ModelConfig, p, h):
+    """A block's FFN on h [B, S, D]: the experts of a moe block (``"moe"``
+    in its parameters), the dense FFN otherwise."""
+    if "moe" in p:
+        return moe_ffn(h, p["moe"], cfg.moe, cfg.ffn,
+                       dtype_of(cfg.compute_dtype))
+    return _ffn_apply(cfg, p["ffn"], h)
+
+
 def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
                 window: int = 0):
-    """Full-sequence block of kind ssm, dense (causal), enc (the encoder's,
-    not causal) or cross (the decoder's: causal self-attention, then
-    attention over ``enc_out``); returns (x, the layer's cache: None for
-    ssm, the (k, v) of its self-attention, and for cross ((k, v), (k, v) of
-    the cross-attention))."""
+    """Full-sequence block of kind ssm, dense (causal), moe (causal, the
+    experts for its FFN), enc (the encoder's, not causal) or cross (the
+    decoder's: causal self-attention, then attention over ``enc_out``);
+    returns (x, the layer's cache: None for ssm, the (k, v) of its
+    self-attention, or (ckv, k_rope) with MLA, and for cross ((k, v),
+    (k, v) of the cross-attention))."""
     p = _cast_params(cfg, p)
     if kind == "ssm":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         return x + mamba2_forward(h, p["mamba"], cfg.ssm, cfg.d_model), None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    att, cache = _gqa_full(cfg, p["attn"], h, causal=kind != "enc",
-                           window=window)
+    if cfg.attention == "mla" and kind in ("dense", "moe"):
+        att, cache = _mla_full(cfg, p["attn"], h)
+    else:
+        att, cache = _gqa_full(cfg, p["attn"], h, causal=kind != "enc",
+                               window=window)
     x = x + att
     if kind == "cross":
         hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
@@ -267,8 +366,7 @@ def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
                                  kv_x=enc_out)
         x = x + catt
         cache = (cache, ccache)
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn_apply(cfg, p["ffn"], h2), cache
+    return x + _mlp(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps)), cache
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -283,12 +381,14 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
             enc_tokens=None, enc_embeds=None, *, collect_cache: bool = False):
     """Training/prefill forward -> (logits [B, S, V], caches or None).
     With ``collect_cache`` the caches are the reference's: per segment the
-    stacked layer caches, ``caches["dense"]`` = (k, v), each [L, B, Hkv, S,
-    hd]; ``caches["ssm"]`` = None (the ssm blocks collect none);
-    ``caches["cross"]`` = ((k, v) of the decoder's self-attention, (k, v)
-    over the encoder's output, [L, B, Hkv, S_enc, hd]); for the hybrid
-    ``{"ssm": [], "shared_kv": [(k, v) of each shared site]}``. The encdec
-    family's encoder reads ``enc_tokens`` or ``enc_embeds``."""
+    stacked layer caches, ``caches["dense"]`` (and the moe family's
+    ``caches["moe"]``) = (k, v), each [L, B, Hkv, S, hd], or with MLA
+    (ckv [L, B, S, r], k_rope [L, B, S, rope]); ``caches["ssm"]`` = None
+    (the ssm blocks collect none); ``caches["cross"]`` = ((k, v) of the
+    decoder's self-attention, (k, v) over the encoder's output, [L, B,
+    Hkv, S_enc, hd]); for the hybrid ``{"ssm": [], "shared_kv": [(k, v)
+    of each shared site]}``. The encdec family's encoder reads
+    ``enc_tokens`` or ``enc_embeds``."""
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens] if embeds is None else embeds
     x = x.to(dtype_of(cfg.compute_dtype))
@@ -394,23 +494,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     each [L, B, Hkv · kv_head_pad, S, hd] of zeros (``kv_head_pad``
     replicates each KV head in the layout; the decode step detects the
     factor from the shape). Per family: dense and vlm one over all layers
-    (S = ``max_seq``); ssm the stacked Mamba-2 state, which does not grow
-    with ``max_seq``; hybrid that state and a ring of min(max_seq,
-    sliding_window) slots per shared attention site; encdec one over the
-    decoder's layers for their self-attention (``cross_self``) and
-    ``enc_out``, the (k, v) pair [L, B, Hkv, S_enc, hd] the
-    cross-attention reads (the forward's collected cross caches, or the
-    serve launcher's zeros)."""
-    _require_family(cfg, "init_cache")
+    (S = ``max_seq``); moe one per segment ("dense", if the config has
+    leading dense layers, and "moe"), with MLA the latent cache (ckv [L, B,
+    S, r], k_rope [L, B, S, rope]) in its place; ssm the stacked Mamba-2
+    state, which does not grow with ``max_seq``; hybrid that state and a
+    ring of min(max_seq, sliding_window) slots per shared attention site;
+    encdec one over the decoder's layers for their self-attention
+    (``cross_self``) and ``enc_out``, the (k, v) pair [L, B, Hkv, S_enc,
+    hd] the cross-attention reads (the forward's collected cross caches,
+    or the serve launcher's zeros)."""
     hkv = max(cfg.n_kv_heads, 1) * max(kv_head_pad, 1)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     def kv(n, s):
         shape = (n, batch, hkv, s, cfg.head_dim)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
+        return zeros(*shape), zeros(*shape)
 
     if cfg.family in ("dense", "vlm"):
         layers = {"dense": kv(cfg.n_layers, max_seq)}
+    elif cfg.family == "moe":
+        m = cfg.mla
+        layers = {seg: ((zeros(n, batch, max_seq, m.kv_lora_rank),
+                         zeros(n, batch, max_seq, m.qk_rope_dim))
+                        if cfg.attention == "mla" else kv(n, max_seq))
+                  for seg, n in layer_kinds(cfg).items()}
     elif cfg.family == "ssm":
         layers = {"ssm": _stacked_ssm_state(cfg, cfg.n_layers, batch, dtype,
                                             device)}
@@ -435,10 +544,9 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
                 cache: DecodeCache):
     """One decode step: token [B] (or embed [B, D]) -> (logits [B, V],
     cache). Mamba-2 states are returned anew and the input's left as they
-    are. KV caches are donated: the step writes the new keys and values
+    are. KV and latent caches are donated: the step writes the new entries
     into their tensors in place and returns them, so a cache must not be
     used again after a step."""
-    _require_family(cfg, "decode_step")
     if token_or_embed.dim() == 1:
         x = params["embed"][token_or_embed]
     else:
@@ -448,6 +556,11 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
     if cfg.family in ("dense", "vlm"):
         x, layers["dense"] = _decode_scan_gqa(cfg, params["dense"], x,
                                               layers["dense"], pos)
+    elif cfg.family == "moe":
+        scan = _decode_scan_mla if cfg.attention == "mla" else \
+            _decode_scan_gqa
+        for seg in layer_kinds(cfg):
+            x, layers[seg] = scan(cfg, params[seg], x, layers[seg], pos)
     elif cfg.family == "ssm":
         x, layers["ssm"] = _decode_scan_ssm(cfg, params["ssm"], x,
                                             layers["ssm"], pos)
@@ -482,8 +595,14 @@ def _decode_block_gqa(cfg, p, x, kv, pos, kv_len, *, window=0,
                                             cfg.head_dim)
         o = decode_attention_host(q, enc_out_kv[0], enc_out_kv[1])
         x = x + o.reshape(x.shape[0], -1) @ p["cross"]["wo"]
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn_apply(cfg, p["ffn"], h2), kv
+    return x + _decode_mlp(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+
+
+def _decode_mlp(cfg: ModelConfig, p, h):
+    """A block's FFN on one token a row, h [B, D]: a moe block routes the
+    batch as B tokens of one position (capacity from T = B)."""
+    return _mlp(cfg, p, h[:, None])[:, 0] if "moe" in p else \
+        _ffn_apply(cfg, p["ffn"], h)
 
 
 def _decode_scan_gqa(cfg, seg_params, x, kv_cache, pos: int, *,
@@ -499,6 +618,20 @@ def _decode_scan_gqa(cfg, seg_params, x, kv_cache, pos: int, *,
             enc_out_kv=None if enc_out is None else (enc_out[0][i],
                                                      enc_out[1][i]))
     return x, (k_all, v_all)
+
+
+def _decode_scan_mla(cfg, seg_params, x, cache, pos: int):
+    """Every layer's MLA decode block over the stacked latent cache (ckv,
+    k_rope), written in place; dense FFN or experts by the layer."""
+    ckv_all, krope_all = cache
+    for i in range(ckv_all.shape[0]):
+        p = _cast_params(cfg, _layer(seg_params, i))
+        att, _ = _mla_decode(cfg, p["attn"],
+                             rms_norm(x, p["ln1"], cfg.norm_eps),
+                             (ckv_all[i], krope_all[i]), pos)
+        x = x + att
+        x = x + _decode_mlp(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x, (ckv_all, krope_all)
 
 
 def _ssm_steps(cfg, seg_params, x, states: Mamba2State, layers):

@@ -6,9 +6,12 @@ with block stores on the card (B1 task bodies, AM payloads that stay on
 the device), one mamba2 block through B3, the reduced yi-6b through B2
 (prefill) and B4 (decode), and the reduced zamba2-1.2b (B2 with a sliding
 window, B3, B4 over a ring), seamless-m4t-large-v2 (non-causal B2 with Lq
-!= Lk, B4 over the encoder's keys) and llava-next-34b (fed embeddings).
-They skip with a reason where there is no GPU. This file imports nothing of
-JAX, so it also runs where JAX is not installed:
+!= Lk, B4 over the encoder's keys) and llava-next-34b (fed embeddings),
+and the moe family: B2 and B4 at grok-1's GQA group of 6, ``moe_ffn``
+against ``moe_ref``, the reduced grok-1-314b through B2 and B4 and the
+reduced deepseek-v3-671b (MLA: no B2 or B4 launch), prefill against
+decode. They skip with a reason where there is no GPU. This file imports
+nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -35,6 +38,7 @@ from repro_torch.kernels.block_gemm.ops import matmul
 from repro_torch.linalg.cholesky import (assemble_lower, cholesky_bodies,
                                          cholesky_executor, cholesky_graph,
                                          cholesky_program, make_spd_blocks)
+from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.mamba2 import mamba2_forward
 from repro_torch.models.transformer import init_params
@@ -1074,3 +1078,116 @@ def test_vlm_model_runs_from_embeds(cuda):
     b2, b4, err = _model_on_both(cuda, cfg, {"embeds": emb}, 8, 48)
     assert b2 == cfg.n_layers and b4 == [cfg.n_layers] * 8
     assert err <= 1e-4
+
+
+# ------------------------------------------------------------ the moe family
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (2, 48, 8, 1024, 1024, 128),     # grok-1's heads
+    (1, 12, 2, 1000, 1000, 128), (2, 6, 1, 300, 777, 64),
+])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_at_group_6(cuda, dtype, causal, b, hq, hkv, lq, lk,
+                                    d):
+    """B2 with six q heads over each KV head (grok-1-314b: 48 over 8), in
+    the model's strided layout, ragged L, Lq < Lk: whole and per (batch,
+    q head), no copy."""
+    gen = torch.Generator(device=cuda).manual_seed(hq * lq + lk)
+    q = torch.randn((b, lq, hq, d), generator=gen,
+                    device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, lk, hkv, d), generator=gen,
+                        device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    copies = flash_attention.copies
+    got = flash_attention(q, k, v, causal=causal)
+    want = mha_ref(q, k, v, causal=causal)
+    assert flash_attention.copies == copies
+    assert _rel(got, want) <= TOL[dtype]
+    assert _head_rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (8, 48, 8, 4096, 128),       # grok-1's decode layer
+    (2, 12, 2, 1000, 128), (3, 6, 1, 333, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_decode_attention_at_group_6(cuda, dtype, b, hq, hkv, s, d):
+    """B4 at six q heads per KV head: ragged lengths, whole and per row;
+    bf16 stays on the ring kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(hq + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kv_len = torch.randint(1, s + 1, (b,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    kv_len[0] = s
+    narrow = decode_attention.narrow
+    got = decode_attention(q, k, v, kv_len)
+    want = decode_ref(q, k, v, kv_len)
+    assert decode_attention.narrow == narrow
+    assert _rel(got, want) <= TOL[dtype]
+    assert _row_rel(got, want) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("cf", [None, "0.5"], ids=["cf-config", "cf-0.5"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_moe_ffn_matches_moe_ref_on_the_card(cuda, monkeypatch, arch, cf):
+    """``moe_ffn`` against ``moe_ref`` on CUDA tensors, f32, at 16 experts
+    (top-2 softmax for grok, top-4 sigmoid with a bias and a shared expert
+    for deepseek) and d_model 256: outputs within 1e-4 of max|plain|, kept
+    masks equal, and equal to the dispatch on the CPU."""
+    if cf:
+        monkeypatch.setenv("REPRO_MOE_CF", cf)
+    cfg = reduced(get_config(arch), d_model=256)
+    cfg_moe = dataclasses.replace(cfg.moe, n_experts=16, experts_per_token=(
+        2 if arch == "grok-1-314b" else 4))
+    gen = torch.Generator().manual_seed(6)
+    p = {n: torch.randn(shape, generator=gen) * shape[0] ** -0.5
+         for n, shape in moe.moe_params_shapes(cfg_moe, cfg.d_model,
+                                               cfg.ffn).items()}
+    p["router_bias"] = torch.randn(16, generator=gen) * 0.1
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    p_c, x_c = _to(p, cuda), x.to(cuda)
+    got = moe.moe_ffn(x_c, p_c, cfg_moe, cfg.ffn, torch.float32)
+    want, keep = moe.moe_ref(x_c, p_c, cfg_moe, cfg.ffn, torch.float32)
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(keep, moe.route(x_c.reshape(-1, cfg.d_model), p_c,
+                                       cfg_moe).keep)
+    assert torch.equal(keep.cpu(), moe.route(x.reshape(-1, cfg.d_model), p,
+                                             cfg_moe).keep)
+    if cf:
+        assert not keep.all()
+
+
+def test_moe_gqa_model_runs_flash_and_decode_kernels(cuda):
+    """The reduced grok-1-314b, f32 compute: B2 once per layer a prefill,
+    B4 once per layer a step, logits as on the CPU to 1e-4."""
+    cfg = reduced(get_config("grok-1-314b"), compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(7))
+    b2, b4, err = _model_on_both(cuda, cfg, {"tokens": toks}, 8, 48)
+    assert b2 == cfg.n_layers and b4 == [cfg.n_layers] * 8
+    assert err <= 1e-4
+
+
+def test_mla_model_prefill_equals_decode_on_the_card(cuda, monkeypatch):
+    """The reduced deepseek-v3-671b at d_model 256, f32 compute, no slot
+    dropped: MLA launches neither B2 nor B4; the card's logits are the
+    CPU's, and the prefill's last logits equal those after feeding the
+    prompt through the absorbed decode over the latent cache (1e-4)."""
+    monkeypatch.setenv("REPRO_MOE_CF", "8")
+    cfg = reduced(get_config("deepseek-v3-671b"), compute_dtype="float32",
+                  d_model=256)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(8))
+    b2, b4, err = _model_on_both(cuda, cfg, {"tokens": toks}, 8, 48)
+    assert b2 == 0 and b4 == [0] * 8
+    assert err <= 1e-4
+    params = _to(init_params(cfg, seed=0, device="cpu"), cuda)
+    want = tfm.prefill(cfg, params, tokens=toks.to(cuda))
+    cache = tfm.init_cache(cfg, 2, 40, dtype=torch.float32, device=cuda)
+    for t in range(toks.shape[1]):
+        got, cache = tfm.decode_step(cfg, params, toks[:, t].to(cuda), cache)
+    assert _rel(got, want) <= 1e-4

@@ -78,7 +78,7 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.models.layers", "repro_torch.models.mamba2",
                  "repro_torch.models.attention",
                  "repro_torch.models.transformer",
-                 "repro_torch.models.convert",
+                 "repro_torch.models.moe", "repro_torch.models.convert",
                  "repro_torch.serve.decode",
                  "repro_torch.core.faults", "repro_torch.core.threadpool",
                  "repro_torch.core.taskflow", "repro_torch.core.stf",

@@ -7,7 +7,9 @@
   chunk) and S = 200 (no tiling by 128: both packages then take the token
   recurrence on the CPU);
 - prefill of a prompt equals feeding the prompt through ``decode_step``;
-- the own copies of ``repro.configs`` equal the originals;
+- the own copies of ``repro.configs`` equal the originals, and every arch
+  of the registry inits its parameters and decode cache, reduced, with the
+  reference's tree and cache shapes;
 - ``python -m repro_torch.launch.serve --reduced --device cpu`` runs.
 
 Tolerances. f32: max|port - repro| / max|repro| <= 1e-4 — both compute
@@ -177,13 +179,36 @@ def test_prefill_equals_decoding_the_prompt(weights, dtype):
     assert _err(_pt(got), _pt(want), dtype) <= TOL[dtype]
 
 
-def test_other_families_name_their_roadmap_item():
-    for arch in ("deepseek-v3-671b", "grok-1-314b"):    # moe (MLA, GQA)
-        cfg = pt_base.reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="A10"):
-            tfm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="A12"):
-            tfm.init_cache(cfg, 2, 16, device="cpu")
+def _shapes(tree):
+    """The leaves' shapes of a cache tree (dicts by sorted key, as JAX
+    flattens them; None left out)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _shapes(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [s for t in tree for s in _shapes(t)]
+    return [tuple(tree.shape)]
+
+
+@pytest.mark.parametrize("arch", all_archs())
+def test_every_arch_inits_and_builds_a_cache(arch):
+    """Every arch of the port's registry, reduced, inits its parameters and
+    its decode cache on the CPU, with the reference's parameter tree and
+    cache shapes."""
+    jcfg = jx_base.reduced(jx_get_config(arch))
+    cfg = pt_base.reduced(get_config(arch))
+    params = tfm.init_params(cfg, device="cpu")
+    want = jax.eval_shape(lambda: jx_tfm.init_params(jcfg,
+                                                     jax.random.key(0)))
+    assert ({jax.tree_util.keystr(p): tuple(v.shape) for p, v in
+             jax.tree_util.tree_flatten_with_path(params)[0]}
+            == {jax.tree_util.keystr(p): v.shape for p, v in
+                jax.tree_util.tree_flatten_with_path(want)[0]})
+    cache = tfm.init_cache(cfg, 2, 16, device="cpu")
+    assert cache.pos == 0
+    ref = jax.eval_shape(lambda: jx_tfm.init_cache(jcfg, 2, 16))
+    assert _shapes(cache.layers) == _shapes(ref.layers) != []
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):
