@@ -102,11 +102,26 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    absorbed decode step) and, with the model freed, ``moe_ffn`` against
    ``moe_ref`` on one MoE layer in f32 (kept masks equal); for both the
    MoE's kept share of routed slots in prefill and decode, profiled
-   prefill and decode step, and the peak device memory;
+   prefill and decode step, and the peak device memory; then training
+   (``phase_train``, on a freed card): ``lm_loss`` and every gradient
+   leaf of each family's reduced config on the card against the CPU (f32,
+   no kernel launched); starcoder2-3b at full width cut to 2 layers: remat
+   none against full, an ``AsyncCheckpointer`` resume bit for bit;
+   starcoder2-3b-train at full width and depth (f32 params, AdamW, bf16
+   compute, remat full, 4 x 2 048 tokens of ``SyntheticLM(learnable=True)``
+   a step): 2 warm-up and 8 timed steps with no B1-B4 launch, loss and |g|
+   finite, the loss falling; ms a step, tok/s, model TFLOP/s and its share
+   of the bf16 peak, peak memory, one profiled step's idle share and its
+   device time by projections, f32 attention einsums, the optimizer and
+   casts; a ``no_grad`` prefill of the trained model (30 B2 launches); the
+   plain attention's forward and backward at the layer's shapes against
+   SDPA; and ``python -m repro_torch.launch.train --reduced --elastic``
+   with a fake host killed, on the card;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
 9. print the kernels ported, the card, a JSON line of per-kernel numbers
+   (``train_launches``: each kernel's launches in the train steps, 0)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -123,6 +138,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -132,6 +148,7 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gemm import (block_gemm,  # noqa: E402
@@ -164,6 +181,13 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.ptg import Graph  # noqa: E402
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.data import SyntheticLM  # noqa: E402
+from repro_torch.train.optimizer import adamw_init  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    init_train_state, loss_and_grads, make_train_step)
+from repro_torch.train.tree import (leaf_paths, leaves as tree_leaves,  # noqa: E402,E501
+                                    tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): f32 on the
 # CUDA cores, bf16 on the tensor cores, and device memory bandwidth.
@@ -2325,6 +2349,426 @@ def phase_moe_deepseek(dev, moe_layers=2, batch=4, prompt=2048,
             "peak_gb": peak / 1e9, "mla_attention": mla}
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_ARCHS = ("starcoder2-3b", "yi-6b", "llava-next-34b", "grok-1-314b",
+               "deepseek-v3-671b", "mamba2-1.3b", "zamba2-1.2b",
+               "seamless-m4t-large-v2")
+# Card against CPU, reduced configs in f32 (compute and parameters): the
+# loss to 1e-5 relative, each gradient leaf to 1e-4 of its max|g| — the
+# tolerances of tests/test_torch_train.py against the JAX package (the
+# same f32 function with sums in other orders over two layers of
+# backward; a wrong term moves a leaf by its own size).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# Remat none against full on the card (starcoder2-3b, 2 layers, bf16
+# compute): the recomputation repeats the same kernels on the same inputs,
+# so the gradients should agree bit for bit; gated at 1e-6 of each leaf's
+# max|g| (bf16 rounding of one product is 4e-3), the exact equality
+# reported.
+REMAT_TOL = 1e-6
+
+
+def worst_leaf(got, want) -> tuple:
+    """(max over leaves of max|got - want| / max|want|, that leaf)."""
+    worst = (0.0, "")
+    for (name, g), (_, w) in zip(leaf_paths(got), leaf_paths(want)):
+        err = float((g.float().cpu() - w.float().cpu()).abs().max()
+                    / max(float(w.abs().max()), 1e-30))
+        worst = max(worst, (err, name))
+    return worst
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                tree_leaves(b)))
+
+
+def launches_now() -> dict:
+    return {k.__name__: k.launches for k in (block_gemm, flash_attention,
+                                             ssd_scan, decode_attention)}
+
+
+def train_batch(cfg, step: int, seq: int, batch: int, device, seed=3,
+                learnable=False, mask=True):
+    """``SyntheticLM``'s batch ``step`` for ``cfg``'s family on ``device``
+    (every fifth label of the first row masked, unless not ``mask``)."""
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
+                     embed_dim=cfg.d_model if cfg.embed_inputs else None,
+                     encdec=cfg.family == "encdec", learnable=learnable)
+    b = ds.batch_at(step)
+    if mask:
+        b["labels"][0, ::5] = -1
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def train_grad_gate(dev) -> dict:
+    """``lm_loss`` and every gradient leaf of each family's reduced config
+    (f32; zamba2's window 16), on the card against the CPU from the same
+    weights and batch (2 x 64 tokens, the multi-chunk attention under
+    ``REPRO_ATTN_CHUNK=16``), with no kernel launched on the card."""
+    rows = {}
+    with env(REPRO_ATTN_CHUNK="16"):
+        for arch in TRAIN_ARCHS:
+            kw = {"sliding_window": 16} if arch == "zamba2-1.2b" else {}
+            cfg = reduced(get_config(arch), compute_dtype="float32",
+                          param_dtype="float32", **kw)
+            params = tfm.init_params(cfg, seed=0, device="cpu")
+            batch = train_batch(cfg, 0, 64, 2, "cpu")
+            want_loss, want = loss_and_grads(cfg, params, batch)
+            reset_launches()
+            loss, got = loss_and_grads(
+                cfg, tree_map(lambda t: t.to(dev), params),
+                {k: v.to(dev) for k, v in batch.items()})
+            launched = sum(launches_now().values())
+            loss_err = abs(float(loss) - float(want_loss)) / abs(
+                float(want_loss))
+            grad_err, leaf = worst_leaf(got, want)
+            log(f"[train] {arch} reduced, f32, card vs CPU: loss "
+                f"{float(loss):.6f} (rel {loss_err:.2e}, tol "
+                f"{TRAIN_LOSS_TOL:.0e}), worst gradient leaf {leaf} "
+                f"{grad_err:.2e} (tol {TRAIN_GRAD_TOL:.0e}), kernel "
+                f"launches {launched}")
+            check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+                  and launched == 0,
+                  f"train gate {arch}: loss {loss_err}, grads {grad_err} "
+                  f"at {leaf}, launches {launched}")
+            rows[arch] = {"loss_err": loss_err, "grad_err": grad_err}
+    return rows
+
+
+def remat_gate(cfg, dev, batch) -> dict:
+    """``cfg`` (cut in depth), bf16 compute: loss and gradients with remat
+    none and full, and each one's peak memory."""
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    out = {}
+    for policy in ("none", "full"):
+        with env(REPRO_REMAT=policy):
+            reset_peak()
+            loss, grads = loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+            out[policy] = (loss, grads, torch.cuda.max_memory_allocated())
+    (l0, g0, peak0), (l1, g1, peak1) = out["none"], out["full"]
+    err, leaf = worst_leaf(g1, g0)
+    bits = same_bits(g0, g1) and torch.equal(l0, l1)
+    log(f"[train] {cfg.name}-d{cfg.n_layers} remat none vs full: loss "
+        f"{float(l0):.6f} vs {float(l1):.6f}, worst gradient leaf {leaf} "
+        f"{err:.2e} (tol {REMAT_TOL:.0e}), bit for bit: {bits}; peak "
+        f"{peak0 / 1e9:.2f} GB (none) vs {peak1 / 1e9:.2f} GB (full) "
+        f"[{card()}]")
+    check(torch.isfinite(l0) and float((l0 - l1).abs()) <= REMAT_TOL
+          * float(l0.abs()) and err <= REMAT_TOL,
+          f"remat none vs full: loss {float(l0)} {float(l1)}, grads {err}")
+    del out, g0, g1
+    return {"bitwise": bits, "err": err, "peak_none_gb": peak0 / 1e9,
+            "peak_full_gb": peak1 / 1e9, "params": params}
+
+
+def resume_gate(cfg, params, dev, batch_at) -> dict:
+    """Two steps, an ``AsyncCheckpointer`` save, two more steps (in place,
+    while it writes); then restore and replay the two: parameters and
+    optimizer state bit for bit. In a temporary directory, removed."""
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=3e-4)
+    for s in range(2):
+        step(params, opt, batch_at(s))
+    with tempfile.TemporaryDirectory() as d:
+        saver = ckpt.AsyncCheckpointer(d)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        saver.save(2, {"params": params, "opt": opt})
+        snap_s = time.perf_counter() - t1
+        for s in (2, 3):
+            step(params, opt, batch_at(s))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        saver.wait()
+        wait_s = time.perf_counter() - t1
+        root = os.path.join(d, "step_00000002")
+        nbytes = sum(os.path.getsize(os.path.join(dirpath, f))
+                     for dirpath, _, files in os.walk(root) for f in files)
+        like = tfm.abstract_params(cfg)
+        t1 = time.perf_counter()
+        state = ckpt.restore(d, 2, {"params": like, "opt": adamw_init(like)},
+                             device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    p2, o2 = state["params"], state["opt"]
+    for s in (2, 3):
+        step(p2, o2, batch_at(s))
+    bits = same_bits(params, p2) and same_bits(opt, o2)
+    log(f"[train] {cfg.name}-d{cfg.n_layers} AsyncCheckpointer: "
+        f"{nbytes / 1e9:.3f} GB written; save returned after "
+        f"{snap_s:.3f} s (host snapshot), the write finished "
+        f"{wait_s:.3f} s after two more steps, restore {restore_s:.3f} s; "
+        f"resume bit for bit: {bits}")
+    check(bits, "checkpoint resume is not bit for bit")
+    return {"bytes": nbytes, "save_s": snap_s, "wait_s": wait_s,
+            "restore_s": restore_s}
+
+
+def split_profile(label: str, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device's busy and
+    idle share, and its device time split by the op that launched the
+    kernels: ``aten::mm`` (the projections and the head, forward and
+    backward), ``aten::bmm`` (the f32 attention's einsums), the optimizer
+    (the ``train_step.update`` range) and ``aten::_to_copy`` (dtype casts).
+    The step's own ranges are not kernels and are left out of the busy
+    time."""
+    from torch.profiler import ProfilerActivity, profile as trace
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+    events = prof.key_averages()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda_type
+               and e.self_device_time_total > 0
+               and not e.key.startswith("train_step.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        log(f"[profile] {label}: the profiler recorded no device time; "
+            "busy share and split not measured")
+        return {"wall_ms": wall_ms}
+
+    def op_ms(key, own=True):
+        got = [e for e in events if e.key == key
+               and e.device_type != cuda_type]
+        return sum((e.self_device_time_total if own else
+                    e.device_time_total) for e in got) / 1e3
+
+    split = {"projections (aten::mm)": op_ms("aten::mm"),
+             "attention einsums (aten::bmm, f32)": op_ms("aten::bmm"),
+             "optimizer update": op_ms("train_step.update", own=False),
+             "casts (aten::_to_copy)": op_ms("aten::_to_copy", own=False)}
+    split["other"] = busy_ms - sum(split.values())
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for name, ms in split.items():
+        log(f"[profile]   {ms:9.2f} ms {ms / busy_ms:6.3f}  {name}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.self_device_time_total / 1e3 / busy_ms:6.3f}  x{e.count:<5} "
+            f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle": 1 - busy_ms / wall_ms, "split_ms": split}
+
+
+def train_launcher(dev_type: str) -> dict:
+    """``python -m repro_torch.launch.train`` on the reduced starcoder2-3b
+    (8 steps, checkpoints every 3) with 2 fake hosts and host 1 killed at
+    step 5, in a temporary directory: the failure, restore and ``done``
+    lines. (That its final parameters equal a run without the kill, bit
+    for bit, tests/test_torch_train.py holds on the CPU.)"""
+    environ = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "starcoder2-3b", "--reduced", "--steps", "8", "--device",
+             dev_type, "--elastic", "--fake-hosts", "2", "--kill-host",
+             "1@5", "--lease", "2", "--ckpt-every", "3", "--global-batch",
+             "4", "--seq", "16", "--ckpt-dir", d],
+            capture_output=True, text=True, timeout=600, env=environ,
+            cwd=ROOT)
+        seconds = time.perf_counter() - t1
+    check(proc.returncode == 0, f"train launcher exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    out = proc.stdout
+    check("host failure: survivors [0]" in out
+          and "elastic restore from step 6" in out
+          and out.rstrip().endswith("done"),
+          f"train launcher: elastic lines missing:\n{out}")
+    lines = [ln for ln in out.splitlines() if ln.startswith(
+        ("host failure", "elastic restore", "done"))]
+    log(f"[train] launcher --elastic --kill-host 1@5 on {dev_type}: "
+        f"{' | '.join(lines)}; {seconds:.1f} s")
+    return {"seconds": seconds}
+
+
+def attention_train_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of the plain attention's einsums in one train step under remat
+    full: q·kᵀ and p·v over every (query, key) pair of every chunk (the
+    plain version masks but does not skip), 4·D a pair, in the forward,
+    the block's recompute and the chunk's recompute, and twice that in
+    the backward: 5 forwards' worth."""
+    return 5 * 4.0 * cfg.head_dim * seq * seq * batch * cfg.n_heads \
+        * cfg.n_layers
+
+
+def time_train_attention(cfg, dev, batch: int, seq: int) -> dict:
+    """The plain attention as a train step runs it at ``cfg``'s layer (q
+    [B, Hq, S, D], k, v [B, Hkv, S, D], bf16, causal): forward and
+    backward through ``chunked_attention`` under grad (its chunks
+    checkpointed, so the backward recomputes each chunk) and one more
+    forward (the block's recompute under remat full), by CUDA events;
+    beside ``scaled_dot_product_attention`` doing the same (k and v
+    repeated to the q heads) and the least time of the plain version's
+    f32 work at the f32 rate."""
+    gen = torch.Generator(device=dev).manual_seed(71)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((batch, hq, seq, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    k, v = (torch.randn((batch, hkv, seq, d), generator=gen, device=dev)
+            .to(torch.bfloat16).requires_grad_() for _ in range(2))
+    go = torch.randn((batch, hq, seq, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    group = hq // hkv
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(group, dim=1),
+            v.repeat_interleave(group, dim=1), is_causal=True)
+
+    def train_pass(attn):
+        def run():
+            q.grad = k.grad = v.grad = None
+            attn(q, k, v).backward(go)
+            with torch.no_grad():
+                attn(q, k, v)
+        return run
+
+    def plain(q, k, v):
+        return chunked_attention(q, k, v, causal=True)
+
+    with torch.no_grad():
+        err = rel_err(plain(q, k, v), sdpa(q, k, v))
+    plain_ms = cuda_ms(train_pass(plain), 2)
+    library_ms = cuda_ms(train_pass(sdpa), 5)
+    flops = attention_train_flops(dataclasses.replace(cfg, n_layers=1),
+                                  batch, seq)
+    bnd, _ = bound(0.0, flops, torch.float32)
+    log(f"[time] train attention q[{batch},{hq},{seq},{d}] kv[..,{hkv},..] "
+        f"bf16 causal, forward + backward + the block's recompute: "
+        f"chunked_attention {plain_ms:.2f} ms a layer ({cfg.n_layers} "
+        f"layers: {cfg.n_layers * plain_ms:.1f} ms a step), sdpa "
+        f"{library_ms:.2f} ms; f32 einsums {flops / 1e12:.2f} TFLOP a "
+        f"layer, bound {bnd:.2f} ms at the f32 rate; plain vs sdpa forward "
+        f"{err:.3e} [{card()}]")
+    check(err <= TOL[torch.bfloat16], f"train attention plain vs sdpa {err}")
+    return {"plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bnd, "step_ms": cfg.n_layers * plain_ms}
+
+
+def phase_train(dev, batch=4, seq=2048, warmup=2, steps=8, lr=3e-4,
+                cut_layers=2) -> dict:
+    """Training on the card: the reduced card-vs-CPU gradient gates of every
+    family; starcoder2-3b at full width cut to ``cut_layers`` layers (remat
+    none vs full, an ``AsyncCheckpointer`` resume); then starcoder2-3b-
+    train at full width and depth (30 layers, d_model 3 072, 24 q heads
+    over 2 KV heads of 128, GELU d_ff 12 288, vocab 49 152; f32 params,
+    AdamW, bf16 compute, remat full): ``batch`` x ``seq`` tokens a step of
+    ``SyntheticLM(learnable=True)`` at ``lr``, ``warmup`` steps then
+    ``steps`` timed, no kernel launched, loss and |g| finite, the loss
+    falling; one profiled step; a ``no_grad`` prefill of the same model
+    (B2 once a layer); and the launcher's elastic run."""
+    grads = train_grad_gate(dev)
+    torch.cuda.empty_cache()
+    cfg = get_config("starcoder2-3b")
+    cut = dataclasses.replace(cfg, n_layers=cut_layers)
+
+    def batch_at(s):
+        return train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True,
+                           mask=False)
+
+    remat = remat_gate(cut, dev, batch_at(0))
+    resume = resume_gate(cut, remat.pop("params"), dev, batch_at)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_peak()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    n_mm = sum(t.numel() for name, t in leaf_paths(params)
+               if t.dim() >= 2 and name != "embed")
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_par / 1e9:.3f} B params ({n_mm / 1e9:.3f} B in products), f32 "
+        f"params + AdamW m, v: {4 * 3 * n_par / 1e9:.2f} GB; init "
+        f"{time.perf_counter() - t0:.2f} s")
+    step_fn = make_train_step(cfg, lr=lr)
+    batches = [batch_at(s) for s in range(warmup + steps + 1)]
+    reset_launches()
+    metrics = []
+    for s in range(warmup):
+        params, opt, m = step_fn(params, opt, batches[s])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for s in range(warmup, warmup + steps):
+        params, opt, m = step_fn(params, opt, batches[s])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / steps
+    train_launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    tokens = batch * seq
+    model_flops = 8.0 * n_mm * tokens        # 6·N·T, + 2·N·T recomputed
+    attn_flops = attention_train_flops(cfg, batch, seq)
+    log(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[train] |g| {' '.join(f'{x:.3f}' for x in norms)}")
+    log(f"[train] {cfg.name}-train, {batch} x {seq} tokens a step: "
+        f"{1e3 * step_s:.1f} ms a step over {steps} steps, "
+        f"{tokens / step_s:.0f} tok/s; model {model_flops / 1e12:.1f} TFLOP "
+        f"a step (8·N·T, N = {n_mm / 1e9:.3f} B in products, remat full) = "
+        f"{model_flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{model_flops / step_s / PEAK_BF16_FLOPS:.3f} of the bf16 dense "
+        f"peak; plus {attn_flops / 1e12:.1f} TFLOP of f32 attention "
+        f"einsums; peak device memory {peak / 1e9:.2f} GB; kernel launches "
+        f"in the train steps {train_launches} [{card()}]")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: loss or |g| not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    check(not any(train_launches.values()),
+          f"train: kernels launched in a train step: {train_launches}")
+    prof = split_profile(f"{cfg.name}-train step",
+                         lambda: step_fn(params, opt, batches[-1]))
+    del opt, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        logits, prefill_s = timed_prefill(
+            make_prefill_step(cfg), params, {"tokens": batches[0]["tokens"]},
+            f"{cfg.name} no_grad prefill", cfg.n_layers)
+    log(f"[train] no_grad prefill of the trained model, {batch} x {seq}: "
+        f"{flash_attention.launches} B2 launches, {1e3 * prefill_s:.1f} ms")
+    del params, batches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    attention = time_train_attention(cfg, dev, batch, seq)
+    torch.cuda.empty_cache()
+    launcher = train_launcher(dev.type)
+    return {"launches": train_launches, "ms": 1e3 * step_s,
+            "tok_s": tokens / step_s, "tflops": model_flops / step_s / 1e12,
+            "peak_share": model_flops / step_s / PEAK_BF16_FLOPS,
+            "peak_gb": peak / 1e9, "losses": losses, "profile": prof,
+            "grads": grads, "remat": remat, "resume": resume,
+            "attention": attention, "launcher": launcher}
+
+
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
                     b_gemm=1024) -> dict:
     """Times at the main path's largest body calls (the Cholesky gemm
@@ -2557,6 +3001,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     deepseek = phase_moe_deepseek(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev)
     torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
@@ -2621,6 +3068,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": f"src/repro/kernels/{where}", "launches": launches,
+        "train_launches": train["launches"][name],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

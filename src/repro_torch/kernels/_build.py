@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +45,27 @@ def nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the port's CUDA kernels build only "
                        "where the CUDA toolkit is installed")
+
+
+def needs_grad(*operands) -> bool:
+    """Whether autograd records an op on these operands (None skipped):
+    grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in operands)
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise when autograd would need a gradient through a kernel launch.
+
+    The kernels have no backward: a wrapper fills a fresh tensor through a
+    ctypes call, so its output would carry no gradient and no error. The
+    model routes such calls to the plain versions before they get here
+    (``models/attention.py``, ``kernels/ssd_scan/ops.py``), so this only
+    stops a caller that would lose its gradients."""
+    if needs_grad(*operands):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and the kernel has no "
+            "backward; call its plain version, or run under torch.no_grad()")
 
 
 def library_path(name: str) -> Path:

@@ -97,6 +97,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     N = b.shape[2]
     if max(T, M, N, K) > _INT_MAX:
         raise ValueError("block_gemm: a dimension exceeds 2**31 - 1")
+    _build.refuse_grad("block_gemm", a, b)
     c = torch.empty((T, M, N), dtype=a.dtype, device=a.device)
     if T and M and N:
         fn = _entry(a.dtype)

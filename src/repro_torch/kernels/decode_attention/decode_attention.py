@@ -177,6 +177,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"= [{b}], got {kv_len.dtype} "
                              f"{tuple(kv_len.shape)}")
         kv_len = kv_len.to(torch.int32).contiguous()
+    _build.refuse_grad("decode_attention", q, k, v)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -252,6 +252,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if max(b * hq, lq, lk) > _INT_MAX:
         raise ValueError("flash_attention: a dimension exceeds 2**31 - 1")
     window = 0 if window >= lk else int(window)     # masks no key
+    _build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

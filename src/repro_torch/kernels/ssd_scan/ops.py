@@ -6,13 +6,17 @@ from typing import Optional
 
 import torch
 
-from .ssd_scan import ssd_scan
+from .._build import needs_grad
+from .ssd_scan import plain, ssd_scan
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, d: Optional[torch.Tensor] = None, *,
         q_chunk: int = 128) -> torch.Tensor:
-    """Mamba-2 SSD. On CUDA tensors always the chunked kernel (it masks a
-    ragged last chunk); on CPU tensors the JAX package's off-TPU rule: the
-    chunked plain version when L tiles, else the token recurrence."""
+    """Mamba-2 SSD. On CUDA tensors the chunked kernel (it masks a ragged
+    last chunk); on CPU tensors, and under grad on any device (the kernel
+    has no backward), the JAX package's off-TPU rule, its training path:
+    the chunked plain version when L tiles, else the token recurrence."""
+    if needs_grad(x, dt, a, b, c, d):
+        return plain(x, dt, a, b, c, d, q_chunk)
     return ssd_scan(x, dt, a, b, c, d, q_chunk=q_chunk)

@@ -119,7 +119,7 @@ def kernel_info(dtype: torch.dtype, index: int) -> dict:
             for k, name in enumerate(KERNELS)}
 
 
-def _plain(x, dt, a, b, c, d, q_chunk):
+def plain(x, dt, a, b, c, d, q_chunk):
     """The JAX package's off-TPU rule (``ops.py:15-20``): the chunked
     algorithm when L tiles, else the token recurrence."""
     if x.shape[1] % min(q_chunk, x.shape[1]) == 0:
@@ -142,7 +142,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x, B or C is copied element by element."""
     ops = (x, dt, a, b, c) + ((d,) if d is not None else ())
     if all(t.device.type == "cpu" for t in ops):
-        return _plain(x, dt, a, b, c, d, q_chunk)
+        return plain(x, dt, a, b, c, d, q_chunk)
     if x.device.type != "cuda" or any(t.device != x.device for t in ops):
         raise ValueError("ssd_scan: operands must all be on one CUDA device "
                          "(or all on CPU)")
@@ -161,6 +161,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} do not pair (H % G == 0)")
+    _build.refuse_grad("ssd_scan", *ops)
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y

@@ -14,7 +14,12 @@ tensors to its hand-written kernels and CPU tensors to the plain versions:
 - decode: B4 ``decode_attention`` on CUDA, ``decode_ref`` on the CPU; over
   a cache, a ring (the hybrid's window) or the encoder's keys (encdec).
 
-Neither falls back on CUDA tensors: the kernels launch or raise.
+Neither falls back on CUDA tensors: the kernels launch or raise. The
+kernels have no backward, so under grad (an operand that requires it) the
+prefill takes ``chunked_attention`` on every device, as the reference
+trains; each of its KV chunks then runs under ``torch.utils.checkpoint``,
+as the reference's sits under ``jax.checkpoint``, so that no chunk's
+scores are kept for the backward.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels._build import needs_grad
 from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
 from ..launch.flags import attn_chunk
@@ -52,25 +59,39 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((b, hq, lq, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, hq, lq, 1), device=q.device)
     acc = torch.zeros((b, hq, lq, dv), device=q.device)
+    remat = needs_grad(q, k, v)
     for ci in range(n_chunks):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        kx = k[:, :, sl].repeat_interleave(group, dim=1).float()
-        vx = v[:, :, sl].repeat_interleave(group, dim=1).float()
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kx) * scale
-        kpos = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
-        mask = torch.ones((lq, chunk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        s = torch.where(mask[None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vx)
-        m = m_new
+        args = (m, l, acc, qf, k[:, :, sl], v[:, :, sl], qpos, ci * chunk,
+                causal, window, scale, group)
+        m, l, acc = (checkpoint(_chunk_step, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if remat else _chunk_step(*args))
     return (acc / l).to(q.dtype)
+
+
+def _chunk_step(m, l, acc, qf, kc, vc, qpos, k0: int, causal, window,
+                scale, group):
+    """One KV chunk of the online softmax: the running (max, sum, acc) of
+    the queries against keys ``k0 .. k0 + chunk``."""
+    chunk = kc.shape[2]
+    kx = kc.repeat_interleave(group, dim=1).float()
+    vx = vc.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kx) * scale
+    kpos = k0 + torch.arange(chunk, device=qf.device)[None, :]
+    mask = torch.ones((qf.shape[2], chunk), dtype=torch.bool,
+                      device=qf.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    alpha = torch.exp(m - m_new)
+    l = alpha * l + p.sum(-1, keepdim=True)
+    acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vx)
+    return m_new, l, acc
 
 
 def _attn_block(q, k, v, causal, window, scale, group):
@@ -94,8 +115,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """Full-sequence GQA attention of ``_gqa_full``: B2 on CUDA tensors
     (read through their strides, no copies; the window too),
-    ``chunked_attention`` on CPU tensors."""
-    if q.device.type != "cuda":
+    ``chunked_attention`` on CPU tensors and under grad (B2 has no
+    backward)."""
+    if q.device.type != "cuda" or needs_grad(q, k, v):
         return chunked_attention(q, k, v, causal=causal, window=window)
     return flash_ops.attention(q, k, v, causal=causal, window=window)
 

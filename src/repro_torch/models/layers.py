@@ -56,7 +56,10 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis: Optional[int] = 0, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """LeCun-normal in the input dimension(s), drawn from ``gen`` (on the
-    generator's device unless ``device`` is given)."""
+    generator's device unless ``device`` is given). On the ``meta`` device
+    nothing is drawn or allocated."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = 1
     for ax in range(len(shape) - 1) if in_axis is None else [in_axis]:
         fan_in *= shape[ax]

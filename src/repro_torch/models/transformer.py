@@ -11,6 +11,15 @@ hybrid's ``shared`` block unstacked); layers run as a Python loop over
 that stack. There is one device, so the JAX package's sharding
 annotations have no counterpart.
 
+Training goes through the same forward: ``lm_loss`` is the reference's
+next-token loss, and under grad ``_scan_segment`` checkpoints each block
+by ``cfg.remat`` and ``REPRO_REMAT`` (``full``: ``torch.utils.checkpoint``
+per block; ``dots``: the projections' products saved, the rest recomputed;
+``none``), as the reference's layer scan sits under ``jax.checkpoint``.
+The kernels have no backward, so under grad attention and the SSD take
+their plain versions (``models/attention.py``, ``kernels/ssd_scan/ops.py``),
+as the reference trains.
+
 GQA attention goes through ``prefill_attention`` and
 ``decode_attention_host`` (``models/attention.py``): the hand-written
 kernels on CUDA tensors, the plain versions on CPU tensors. MLA (deepseek-
@@ -21,11 +30,16 @@ the absorbed form over the latent cache (ckv, k_rope), einsums in f32.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..kernels._build import needs_grad
+from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
                         prefill_attention)
 from .layers import (apply_rope, dense_init, gelu_mlp, rms_norm, rope_freqs,
@@ -137,9 +151,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random parameters with the JAX package's tree, shapes and init rules,
     drawn from a generator on ``device`` seeded with ``seed``. The numbers
     differ from ``repro``'s ``init_params``; to compute the same function as
-    ``repro``, convert its parameters with :mod:`repro_torch.models.convert`."""
+    ``repro``, convert its parameters with :mod:`repro_torch.models.convert`.
+    On the ``meta`` device nothing is drawn or allocated
+    (``abstract_params``)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     dtype = dtype_of(cfg.param_dtype)
     kinds = layer_kinds(cfg)
     params: Dict[str, Any] = {
@@ -161,6 +178,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                         device=device)
     return _zero_biases(params)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The tree of ``init_params`` with its shapes and dtypes, on the
+    ``meta`` device: no generator draw, no allocation."""
+    return init_params(cfg, device="meta")
 
 
 def _layer(tree, i: int):
@@ -428,15 +451,72 @@ def _scan_segment(cfg, kind, seg_params, x, *, enc_out=None,
     """The blocks of a stacked segment in order (all of them, or the
     indices ``layers``), a Python loop in place of the reference's
     ``lax.scan``; ``causal_kind`` overrides the block kind (the encoder's
-    "enc"). Returns (x, the stacked caches or None)."""
+    "enc"). ``seg_params`` is the stacked tree, or its layers already
+    unstacked (``unstack``). Under grad each block is checkpointed by
+    ``cfg.remat`` and ``REPRO_REMAT`` (``_remat``). Returns (x, the stacked
+    caches or None)."""
     kind = causal_kind or kind
+    per_layer = (seg_params if isinstance(seg_params, list)
+                 else unstack(seg_params))
+    block = _remat(cfg, _block_full, per_layer[0] if per_layer else {}, x)
     layer_caches = []
-    for i in (range(_depth(seg_params)) if layers is None else layers):
-        x, cache = _block_full(cfg, kind, _layer(seg_params, i), x,
-                               enc_out=enc_out)
+    for i in (range(len(per_layer)) if layers is None else layers):
+        x, cache = block(cfg, kind, per_layer[i], x, enc_out=enc_out)
         if collect_cache:
             layer_caches.append(cache)
     return x, (_stack(layer_caches) if collect_cache else None)
+
+
+def unstack(tree) -> List[Any]:
+    """The per-layer trees of a stacked tree, each leaf unbound once: under
+    grad the backward of ``unbind`` is one ``stack`` per leaf, where
+    indexing layer by layer would allocate a zero gradient the size of the
+    whole stack for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        depth = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(depth)]
+    return list(tree.unbind(0))
+
+
+def _saves_matmuls(ctx, op, *args, **kwargs):
+    """``dots``: keep the outputs of the batch-free products (``aten.mm``:
+    the projections) and recompute the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable``; attention's einsums are
+    ``aten.bmm``, products with batch dims."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, block, layer_p, x):
+    """``block`` as a layer loop runs it: under grad (an operand that needs
+    it) and ``cfg.remat``, checkpointed by ``remat_policy()``, with the
+    weights' casts inside the checkpoint so that no compute-dtype copy of
+    them is kept for the backward; otherwise ``block`` itself."""
+    policy = remat_policy()
+    if (not cfg.remat or policy == "none"
+            or not needs_grad(x, *_leaves(layer_p))):
+        return block
+    if policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _saves_matmuls)
+        return functools.partial(checkpoint, block, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=context)
+    if policy != "full":
+        raise ValueError(f"REPRO_REMAT={policy!r}: none, full or dots")
+    return functools.partial(checkpoint, block, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def _leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _depth(tree) -> int:
@@ -451,14 +531,16 @@ def _hybrid_forward(cfg, params, x, collect_cache):
     window) between its segments."""
     segs = _hybrid_segments(cfg)
     caches: Dict[str, Any] = {"ssm": [], "shared_kv": []}
+    ssm_layers = unstack(params["ssm"])
+    shared = _remat(cfg, _block_full, params["shared"], x)
     offset = 0
     for si, depth in enumerate(segs):
-        x, _ = _scan_segment(cfg, "ssm", params["ssm"], x,
+        x, _ = _scan_segment(cfg, "ssm", ssm_layers, x,
                              layers=range(offset, offset + depth))
         offset += depth
         if si < len(segs) - 1:
-            x, kv = _block_full(cfg, "dense", params["shared"], x,
-                                window=cfg.sliding_window)
+            x, kv = shared(cfg, "dense", params["shared"], x,
+                           window=cfg.sliding_window)
             if collect_cache:
                 caches["shared_kv"].append(kv)
     return x, caches
@@ -478,6 +560,21 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
     logits, _ = forward(cfg, params, tokens=tokens, embeds=embeds,
                         enc_tokens=enc_tokens, enc_embeds=enc_embeds)
     return logits[:, -1]
+
+
+def lm_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward`` over ``batch`` (tokens
+    or embeds, enc_tokens or enc_embeds, labels): log-softmax in f32,
+    labels < 0 masked out, the mean over the labels kept."""
+    logits, _ = forward(cfg, params, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"),
+                        enc_tokens=batch.get("enc_tokens"),
+                        enc_embeds=batch.get("enc_embeds"))
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ================================================================ serving

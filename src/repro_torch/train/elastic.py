@@ -2,8 +2,8 @@
 port's copy of the JAX package's ``repro.train.elastic``; pure Python).
 
 The host runtime's failure detector (``core.completion``) uses
-:class:`HeartbeatMonitor`; the rest serves the training loop, which the
-port has not taken up yet.
+:class:`HeartbeatMonitor`; the rest serves the training launcher
+(``launch/train.py --elastic``).
 
 At 1000+ nodes, failures are routine. The control loop here is
 host-level (it orchestrates compiled steps; it is not inside a step):

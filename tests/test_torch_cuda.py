@@ -10,7 +10,10 @@ window, B3, B4 over a ring), seamless-m4t-large-v2 (non-causal B2 with Lq
 and the moe family: B2 and B4 at grok-1's GQA group of 6, ``moe_ffn``
 against ``moe_ref``, the reduced grok-1-314b through B2 and B4 and the
 reduced deepseek-v3-671b (MLA: no B2 or B4 launch), prefill against
-decode. They skip with a reason where there is no GPU. This file imports
+decode; and training: each of B1-B4 raises on an operand that requires
+grad (it has no backward), the prefill attention and the SSD take their
+plain versions under grad and the kernels under no_grad, and every
+family's reduced loss and gradients on the card equal the CPU's. They skip with a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1191,3 +1194,128 @@ def test_mla_model_prefill_equals_decode_on_the_card(cuda, monkeypatch):
     for t in range(toks.shape[1]):
         got, cache = tfm.decode_step(cfg, params, toks[:, t].to(cuda), cache)
     assert _rel(got, want) <= 1e-4
+
+
+# ----------------------------------------------------------------- training
+
+def _kernel_calls(cuda):
+    """(name, the wrapper called on small f32 operands on the card, with
+    ``req`` requiring grad) for B1-B4."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape, req=False):
+        return torch.randn(shape, generator=gen,
+                           device=cuda).requires_grad_(req)
+
+    return [
+        ("block_gemm", lambda req: block_gemm(randn(2, 8, 8, req=req),
+                                              randn(2, 8, 8))),
+        ("flash_attention", lambda req: flash_attention(
+            randn(1, 2, 16, 32, req=req), randn(1, 2, 16, 32),
+            randn(1, 2, 16, 32))),
+        ("ssd_scan", lambda req: ssd_scan(
+            randn(1, 16, 2, 8, req=req), torch.rand((1, 16, 2), device=cuda),
+            -torch.rand((2,), device=cuda), randn(1, 16, 1, 8),
+            randn(1, 16, 1, 8), q_chunk=8)),
+        ("decode_attention", lambda req: decode_attention(
+            randn(1, 2, 32, req=req), randn(1, 2, 16, 32),
+            randn(1, 2, 16, 32))),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4),
+                         ids=["B1", "B2", "B3", "B4"])
+def test_kernels_refuse_an_operand_that_requires_grad(cuda, which):
+    """No kernel has a backward: under grad, with an operand that requires
+    it, each wrapper raises instead of returning an output without a
+    gradient; under no_grad (or with no operand requiring grad) it
+    launches."""
+    name, call = _kernel_calls(cuda)[which]
+    with pytest.raises(RuntimeError, match=f"{name}: an operand requires"):
+        call(True)
+    with torch.no_grad():
+        assert not call(True).requires_grad
+    assert not call(False).requires_grad
+
+
+def test_model_routes_attention_and_ssd_to_plain_under_grad(cuda):
+    """Under grad the prefill attention and the SSD take their plain
+    versions (no B2 or B3 launch) and carry gradients; under no_grad the
+    same calls launch B2 and B3."""
+    from repro_torch.models.attention import prefill_attention
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 2, 64, 32), generator=gen, device=cuda)
+               .requires_grad_() for _ in range(3))
+    x = torch.randn((1, 64, 2, 8), generator=gen, device=cuda,
+                    requires_grad=True)
+    dt = torch.rand((1, 64, 2), device=cuda)
+    a = -torch.rand((2,), device=cuda)
+    bm, cm = (torch.randn((1, 64, 1, 8), generator=gen, device=cuda)
+              for _ in range(2))
+    flash_attention.launches = ssd_scan.launches = 0
+    o = prefill_attention(q, k, v)
+    y = ssd(x, dt, a, bm, cm, q_chunk=16)
+    assert flash_attention.launches == ssd_scan.launches == 0
+    (o.sum() + y.sum()).backward()
+    assert q.grad is not None and x.grad is not None
+    with torch.no_grad():
+        o2 = prefill_attention(q, k, v)
+        y2 = ssd(x, dt, a, bm, cm, q_chunk=16)
+    assert flash_attention.launches == 1 and ssd_scan.launches == 1
+    assert _rel(o2, o.detach()) <= TOL[torch.float32]
+    assert _rel(y2, y.detach()) <= 2e-4
+
+
+TRAIN_ARCHS = ["starcoder2-3b", "yi-6b", "llava-next-34b", "grok-1-314b",
+               "deepseek-v3-671b", "mamba2-1.3b", "zamba2-1.2b",
+               "seamless-m4t-large-v2"]
+
+
+def train_batch(cfg, seed=3, seq=64, batch=2):
+    """A seeded ``SyntheticLM`` batch for ``cfg``'s family as CPU tensors,
+    every fifth label of the first row masked."""
+    from repro_torch.train.data import SyntheticLM
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
+                     embed_dim=cfg.d_model if cfg.embed_inputs else None,
+                     encdec=cfg.family == "encdec")
+    b = ds.batch_at(0)
+    b["labels"][0, ::5] = -1
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def train_cfg(arch):
+    """The reduced config of the gradient gates: f32 compute and
+    parameters; zamba2's window cut to 16, so S = 64 reaches it."""
+    kw = {"sliding_window": 16} if arch == "zamba2-1.2b" else {}
+    return reduced(get_config(arch), compute_dtype="float32",
+                   param_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_reduced_loss_and_grads_on_the_card_equal_the_cpu(cuda, monkeypatch,
+                                                          arch):
+    """``lm_loss`` and every gradient leaf of the reduced config, f32, on
+    the card against the CPU from the same weights and batch, with the
+    multi-chunk attention (``REPRO_ATTN_CHUNK=16``): loss to 1e-5
+    relative, each leaf to 1e-4 of its max|g| (tests/test_torch_train.py's
+    tolerances against the JAX package); no kernel launches."""
+    from repro_torch.train.train_step import loss_and_grads
+    monkeypatch.setenv("REPRO_ATTN_CHUNK", "16")
+    cfg = train_cfg(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = train_batch(cfg)
+    want_loss, want = loss_and_grads(cfg, params, batch)
+    for kernel in (block_gemm, flash_attention, ssd_scan, decode_attention):
+        kernel.launches = 0
+    loss, got = loss_and_grads(cfg, _to(params, cuda), _to(batch, cuda))
+    assert all(kernel.launches == 0 for kernel in (
+        block_gemm, flash_attention, ssd_scan, decode_attention))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    stack = [(got, want)]
+    while stack:
+        g, w = stack.pop()
+        if isinstance(w, dict):
+            stack += [(g[k], w[k]) for k in w]
+            continue
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30)

@@ -1,8 +1,9 @@
 """The port stands alone: every ``repro_torch`` module, and
 ``chip_smoke.py``, import with JAX blocked, the JAX package ``repro``
-refused and ``cloudpickle`` blocked (the GPU machine has none; only a
-cross-process run of the ``multiproc`` transport needs it), in a
-subprocess, so this test process keeps its own imports."""
+refused, and ``cloudpickle`` and ``ml_dtypes`` blocked (the GPU machine
+has neither; only a cross-process run of the ``multiproc`` transport
+needs cloudpickle, and checkpoints move bfloat16 through torch's own
+views), in a subprocess, so this test process keeps its own imports."""
 
 import os
 import subprocess
@@ -18,6 +19,7 @@ import sys
 sys.modules["jax"] = None          # "import jax" raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["cloudpickle"] = None
+sys.modules["ml_dtypes"] = None
 
 
 class RefuseRepro:
@@ -40,7 +42,8 @@ for name in names:
 import chip_smoke  # noqa: E402,F401
 
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro", "cloudpickle")
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "cloudpickle",
+                                       "ml_dtypes")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print("IMPORTED", " ".join(names))
@@ -91,5 +94,9 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.sched", "repro_torch.sched.fair",
                  "repro_torch.sched.namespace", "repro_torch.sched.proxy",
                  "repro_torch.sched.service", "repro_torch.sched.state",
-                 "repro_torch.launch.scheduler"):
+                 "repro_torch.launch.scheduler",
+                 "repro_torch.launch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint", "repro_torch.train.data",
+                 "repro_torch.train.tree"):
         assert name in imported, name
