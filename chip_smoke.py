@@ -116,12 +116,28 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    casts; a ``no_grad`` prefill of the trained model (30 B2 launches); the
    plain attention's forward and backward at the layer's shapes against
    SDPA; and ``python -m repro_torch.launch.train --reduced --elastic``
-   with a fake host killed, on the card;
+   with a fake host killed, on the card; then the pipeline
+   (``phase_pipeline``, starcoder2-3b-pipe2): the same model's dense stack
+   at full width and depth in 2 stages x 4 microbatches on a logical
+   ("pipe",) mesh of the card, through ``pipeline_apply`` under no_grad (5
+   wavefronts, 8 stage calls, 120 B2 launches, bit for bit the sequential
+   stack microbatch by microbatch, each B2 call of a second run held to
+   ``mha_ref`` on its own operands), and ``make_pipeline_train_step`` on
+   the same parameters and batches as the sequential step (first loss
+   within 1e-3 of its, 1 warm-up and 4 timed steps, since this trajectory
+   first falls below its start at the fifth step; no kernel launched, the
+   loss falling, one profiled step) beside it; the reduced pipelined
+   gradients card vs CPU; the reduced grok-1-314b's and
+   deepseek-v3-671b's ``moe_ffn`` under a logical (data 2, model 2) mesh
+   in 2 dispatch rows, card vs CPU (kept masks equal); and the dry run's
+   argument bytes of the train cell on one card against the step's
+   measured peak;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
 9. print the kernels ported, the card, a JSON line of per-kernel numbers
-   (``train_launches``: each kernel's launches in the train steps, 0)
+   (``train_launches`` and ``pipeline_train_launches``: each kernel's
+   launches in the sequential and the pipelined train steps, 0)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -167,6 +183,11 @@ from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
 from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
     kernel_info as ssd_kernel_info, plan as ssd_plan)
 from repro_torch.core import FaultPlan, payload_stats  # noqa: E402
+from repro_torch.dist.ctx import launch_mesh  # noqa: E402
+from repro_torch.dist.pipeline import (pipeline_apply,  # noqa: E402
+                                       schedule_depth, split_microbatches)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_pipeline_mesh  # noqa: E402
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
@@ -185,7 +206,8 @@ from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.data import SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import adamw_init  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
-    init_train_state, loss_and_grads, make_train_step)
+    init_train_state, loss_and_grads, make_pipeline_loss,
+    make_pipeline_train_step, make_train_step, value_and_grads)
 from repro_torch.train.tree import (leaf_paths, leaves as tree_leaves,  # noqa: E402,E501
                                     tree_map)
 
@@ -546,7 +568,9 @@ def phase_attention_vs_plain(dev) -> None:
     128]; with a sliding window (zamba2's shared block, windows 1, 64 and
     4 096 over 8 192 keys, ragged L), non-causal with Lq != Lk (seamless's
     cross-attention, and Lq > Lk), at llava's GQA 7 and at grok-1's GQA 6
-    (its prefill call in the model's layout, ragged, full); whole tensor and
+    (its prefill call in the model's layout, ragged, full) and at
+    starcoder2-3b's GQA 12 (its pipelined microbatch's call in the model's
+    layout, [1, 24|2, 2048, 128]); whole tensor and
     per (batch, q head). None needs a copy for TMA. Then the chain task's
     batch independence, bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -596,11 +620,14 @@ def phase_attention_vs_plain(dev) -> None:
     lh, lg, ld = llava.n_heads, llava.n_kv_heads, llava.head_dim
     grok = get_config("grok-1-314b")
     gh, gg, gd = grok.n_heads, grok.n_kv_heads, grok.head_dim
+    sc2 = get_config("starcoder2-3b")
+    ch, cg, cd = sc2.n_heads, sc2.n_kv_heads, sc2.head_dim
     # (name, shape, model layout, causal, window): zamba2's shared block
     # (window 4 096 over 8 192 keys, head dim 64, group 1) with windows of
     # 1, one tile and the model's, ragged L, GQA 7 with Lq < Lk; seamless's
     # encoder, decoder and cross-attention (non-causal Lq < Lk), Lq > Lk;
-    # llava's GQA 7 prefill; grok-1's GQA 6 prefill, ragged and full
+    # llava's GQA 7 prefill; grok-1's GQA 6 prefill, ragged and full;
+    # starcoder2-3b's GQA 12 microbatch of the pipelined forward
     more = [(f"zamba2 window {win} [1,2|2,8192,{zd}]",
              (1, 2, 2, 8192, 8192, zd), False, True, win)
             for win in (1, 64, w)]
@@ -623,7 +650,9 @@ def phase_attention_vs_plain(dev) -> None:
              ("GQA 6 ragged [1,12|2,1000,128]", (1, 12, 2, 1000, 1000, 128),
               False, True, 0),
              ("GQA 6 full Lq < Lk [1,12|2,700|1500,128]",
-              (1, 12, 2, 700, 1500, 128), True, False, 0)]
+              (1, 12, 2, 700, 1500, 128), True, False, 0),
+             (f"starcoder2 model layout [1,{ch}|{cg},2048,{cd}]",
+              (1, ch, cg, 2048, 2048, cd), True, True, 0)]
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, model, causal, win in more:
             q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
@@ -2769,6 +2798,304 @@ def phase_train(dev, batch=4, seq=2048, warmup=2, steps=8, lr=3e-4,
             "attention": attention, "launcher": launcher}
 
 
+# ------------------------------------------------------------------ pipeline
+
+# The pipelined train step's first loss against the sequential step's on
+# the same parameters and batch: the reference's own bound
+# (tests/multi_device_cases.py case_pipeline_train_step). In bf16 compute
+# the microbatches' products have another M than the full batch's, so the
+# two differ in the last bits of each product, not bit for bit.
+PIPE_LOSS_TOL = 1e-3
+# MoE under a (data 2, model 2) mesh, card against CPU in f32: the kept
+# masks exactly, the outputs to 1e-4 of max|y| (DENSE_TOL's f32 sums in
+# other orders).
+MOE_MESH_TOL = 1e-4
+
+
+def pipeline_forward_gate(cfg, params, tokens, dev, stages: int,
+                          n_micro: int) -> dict:
+    """(a) The dense stack through ``pipeline_apply`` under no_grad on a
+    logical ("pipe",) mesh, bf16 compute: wavefronts, stage calls and B2
+    launches of the run; bit for bit the sequential ``_scan_segment``
+    microbatch by microbatch; a second pipelined run bit for bit the
+    first, with each of its B2 calls held to ``mha_ref`` on that call's
+    operands (TOL, whole tensor and per head), and its output's difference
+    from the stack on the plain attention (``chunked_attention``)
+    reported; ms of the pipelined forward, of that sequential one and of
+    one full-batch ``_scan_segment`` (CUDA events)."""
+    mesh = Mesh((stages,), ("pipe",), dev)
+    layers = tfm.unstack(params["dense"])
+    per = cfg.n_layers // stages
+    parts = [layers[s * per:(s + 1) * per] for s in range(stages)]
+
+    def stage(stage_layers, x):
+        return tfm._scan_segment(cfg, "dense", stage_layers, x)[0]
+
+    with torch.no_grad():
+        x = params["embed"][tokens].to(tfm.dtype_of(cfg.compute_dtype))
+        xs = split_microbatches(x, n_micro)
+        reset_launches()
+        pipeline_apply.wavefronts = pipeline_apply.stage_calls = 0
+        ys = pipeline_apply(stage, parts, xs, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = {"wavefronts": pipeline_apply.wavefronts,
+                  "stage_calls": pipeline_apply.stage_calls,
+                  "b2": flash_attention.launches,
+                  "copies": flash_attention.copies}
+        want = torch.stack([stage(layers, xs[m]) for m in range(n_micro)])
+        bits = torch.equal(ys, want)
+        finite = bool(torch.isfinite(ys.float()).all())
+        del want
+        # each B2 call of the path against its plain version, on the
+        # operands the stack gave it (views in the model's layout)
+        kernel_attention, errs = tfm.prefill_attention, []
+
+        def held(q, k, v, *, causal=True, window=0):
+            o = kernel_attention(q, k, v, causal=causal, window=window)
+            ref = mha_ref(q, k, v, causal=causal, window=window)
+            errs.append((rel_err(o, ref), head_err(o, ref)))
+            return o
+
+        tfm.prefill_attention = held
+        try:
+            again = torch.equal(pipeline_apply(stage, parts, xs, mesh=mesh),
+                                ys)
+        finally:
+            tfm.prefill_attention = kernel_attention
+        with plain_attention():
+            stack_err = rel_err(ys, pipeline_apply(stage, parts, xs,
+                                                   mesh=mesh))
+        b2_err = max((e for e, _ in errs), default=math.inf)
+        b2_head = max((h for _, h in errs), default=math.inf)
+        pipe_ms = cuda_ms(lambda: pipeline_apply(stage, parts, xs,
+                                                 mesh=mesh), 3)
+        seq_ms = cuda_ms(lambda: [stage(layers, xs[m])
+                                  for m in range(n_micro)], 3)
+        full_ms = cuda_ms(lambda: stage(layers, x), 3)
+    depth = schedule_depth(stages, n_micro)
+    log(f"[pipeline] {cfg.name} forward, {stages} stages x {n_micro} "
+        f"microbatches of {tuple(xs.shape[1:3])} tokens, bf16, no_grad: "
+        f"{counts['wavefronts']} wavefronts (schedule depth {depth}), "
+        f"{counts['stage_calls']} stage calls, {counts['b2']} B2 launches, "
+        f"{counts['copies']} operands copied; bit for bit the sequential "
+        f"stack microbatch by microbatch: {bits}; a second run bit for bit "
+        f"the first: {again}, its {len(errs)} B2 calls against mha_ref on "
+        f"their operands: max err {b2_err:.3e}, per head {b2_head:.3e} "
+        f"(tol {TOL[torch.bfloat16]:.0e}); "
+        f"output vs the stack on the plain attention {stack_err:.3e} "
+        f"(reported); pipelined {pipe_ms:.1f} "
+        f"ms, sequential by microbatch {seq_ms:.1f} ms, one full-batch "
+        f"forward {full_ms:.1f} ms [{card()}]")
+    check(counts["wavefronts"] == depth == stages + n_micro - 1
+          and counts["stage_calls"] == stages * n_micro
+          and counts["b2"] == cfg.n_layers * n_micro
+          and counts["copies"] == 0,
+          f"pipelined forward counts {counts}, depth {depth}")
+    check(bits and finite, "pipelined forward is not bit for bit the "
+          "sequential stack microbatch by microbatch")
+    check(again and len(errs) == cfg.n_layers * n_micro
+          and b2_err <= TOL[torch.bfloat16]
+          and b2_head <= TOL[torch.bfloat16],
+          f"pipelined forward: rerun equal {again}, {len(errs)} B2 calls "
+          f"against mha_ref: err {b2_err}, per head {b2_head}")
+    return {**counts, "ms": pipe_ms, "seq_ms": seq_ms, "full_ms": full_ms,
+            "b2_err": b2_err, "stack_err": stack_err}
+
+
+def pipeline_grad_gate(dev, stages: int, n_micro: int) -> dict:
+    """(c) The pipelined step's loss and gradients of the reduced
+    starcoder2-3b (4 layers, f32) on the card against the CPU, under
+    ``REPRO_ATTN_CHUNK=16``, with no kernel launched on the card."""
+    cfg = reduced(get_config("starcoder2-3b"), n_layers=4,
+                  compute_dtype="float32", param_dtype="float32")
+    params = tfm.init_params(cfg, seed=0, device="cpu")
+    batch = train_batch(cfg, 0, 64, 2 * n_micro, "cpu")
+    with env(REPRO_ATTN_CHUNK="16"):
+        want_loss, want = value_and_grads(make_pipeline_loss(
+            cfg, make_pipeline_mesh(stages, stages, "cpu"),
+            n_micro=n_micro), params, batch)
+        reset_launches()
+        loss, got = value_and_grads(make_pipeline_loss(
+            cfg, make_pipeline_mesh(stages, stages, dev), n_micro=n_micro),
+            tree_map(lambda t: t.to(dev), params),
+            {k: v.to(dev) for k, v in batch.items()})
+    launched = sum(launches_now().values())
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    grad_err, leaf = worst_leaf(got, want)
+    log(f"[pipeline] {cfg.name}-d4 reduced, {stages} stages x {n_micro} "
+        f"microbatches, f32, card vs CPU: loss {float(loss):.6f} (rel "
+        f"{loss_err:.2e}, tol {TRAIN_LOSS_TOL:.0e}), worst gradient leaf "
+        f"{leaf} {grad_err:.2e} (tol {TRAIN_GRAD_TOL:.0e}), kernel launches "
+        f"{launched}")
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+          and launched == 0, f"pipelined grads card vs CPU: loss {loss_err},"
+          f" grads {grad_err} at {leaf}, launches {launched}")
+    return {"loss_err": loss_err, "grad_err": grad_err}
+
+
+def moe_mesh_gate(dev, batch=4, length=64, seed=65) -> dict:
+    """(d) ``moe_ffn`` of the reduced grok-1-314b and deepseek-v3-671b in
+    f32 under a logical (data 2, model 2) mesh with batch axes "data" (2
+    dispatch rows), on the card against the CPU, at the config's capacity
+    factor and at 0.5: each row's experts, positions and kept masks
+    equal, outputs within MOE_MESH_TOL."""
+    rows = {}
+    for arch in ("grok-1-314b", "deepseek-v3-671b"):
+        cfg = reduced(get_config(arch), compute_dtype="float32")
+        params = tfm.init_params(cfg, seed=0, device="cpu")
+        layer = {k: v[0].float() for k, v in params["moe"]["moe"].items()}
+        layer["router_bias"] = torch.randn(
+            layer["router_bias"].shape,
+            generator=torch.Generator().manual_seed(seed)) * 0.1
+        x = torch.randn((batch, length, cfg.d_model),
+                        generator=torch.Generator().manual_seed(seed + 1))
+        for cf in ("", "0.5"):
+            out = []
+            for where in ("cpu", dev):
+                mesh = Mesh((2, 2), ("data", "model"), where)
+                lw = {k: v.to(where) for k, v in layer.items()}
+                with env(REPRO_MOE_CF=cf), launch_mesh(
+                        mesh, global_batch=batch):
+                    n_rows = moe.dispatch_rows(x)
+                    _, routes = moe.dispatch(x.to(where), lw, cfg.moe)
+                    y = moe.moe_ffn(x.to(where), lw, cfg.moe, cfg.ffn,
+                                    torch.float32)
+                out.append((n_rows, routes, y.cpu()))
+            (r_cpu, want_routes, want), (r_dev, routes, got) = out
+            same = all(torch.equal(a.expert.cpu(), b.expert)
+                       and torch.equal(a.pos.cpu(), b.pos)
+                       and torch.equal(a.keep.cpu(), b.keep)
+                       for a, b in zip(routes, want_routes))
+            err = float((got - want).abs().max() / want.abs().max())
+            kept = float(torch.cat([r.keep.float().flatten()
+                                    for r in routes]).mean())
+            log(f"[pipeline] {arch} reduced moe_ffn under a logical (data "
+                f"2, model 2) mesh, f32, cf {cf or 'config'}: {r_dev} "
+                f"dispatch rows of {x.shape[0] * length // r_dev} tokens, "
+                f"capacity {routes[0].capacity}; card vs CPU: experts, "
+                f"positions and kept masks equal: {same}, outputs "
+                f"{err:.3e} (tol {MOE_MESH_TOL:.0e}); kept {kept:.4f}")
+            check(r_cpu == r_dev == 2 and len(routes) == 2 and same
+                  and err <= MOE_MESH_TOL,
+                  f"moe under a mesh {arch} cf {cf}: rows {r_dev}, masks "
+                  f"equal {same}, err {err}")
+            rows[f"{arch} cf {cf or 'config'}"] = {"err": err, "kept": kept}
+    return rows
+
+
+def phase_pipeline(dev, train: dict, stages=2, n_micro=4, batch=4, seq=2048,
+                   warmup=1, steps=4, lr=3e-4) -> dict:
+    """starcoder2-3b-pipe2: the dense stack of starcoder2-3b at full width
+    and depth split into ``stages`` stages over ``n_micro`` microbatches
+    (the GPipe rule, 2·stages) on a logical mesh of the one card. (a) the
+    pipelined forward under no_grad (``pipeline_forward_gate``); (b)
+    ``make_pipeline_train_step`` (f32 params, AdamW, remat full) on the
+    ``batch`` x ``seq`` tokens of ``phase_train``'s step 0 onwards, from
+    the same seeded parameters: each step's loss against ``phase_train``'s
+    (the sequential step on the same parameters and batches; the first on
+    the very same parameters), ``warmup`` then ``steps`` timed steps, no
+    kernel launched, loss and |g| finite and the last loss below the first
+    (this trajectory first falls below its start at step 4: 11.313,
+    11.304, 11.313, 11.897, 11.228 in both steps), ms a step, tok/s, peak
+    memory and one profiled step's idle share beside the sequential
+    step's; (c) reduced gradients
+    card vs CPU; (d) MoE under a mesh; (e) the dry run of
+    starcoder2-3b's train_4k on the production mesh and of (b)'s cell on
+    one card: argument bytes (a lower bound) within (b)'s peak."""
+    cfg = get_config("starcoder2-3b")
+
+    def batch_at(s):
+        return train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True,
+                           mask=False)
+
+    reset_peak()
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    batches = [batch_at(s) for s in range(warmup + steps + 1)]
+    fwd = pipeline_forward_gate(cfg, params, batches[0]["tokens"], dev,
+                                stages, n_micro)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same parameters and batches as phase_train's step
+    reset_peak()
+    opt = adamw_init(params)
+    mesh = make_pipeline_mesh(stages, stages, dev)
+    step_fn = make_pipeline_train_step(cfg, mesh, lr=lr, n_micro=n_micro)
+    reset_launches()
+    metrics = []
+    for s in range(warmup):
+        params, opt, m = step_fn(params, opt, batches[s])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for s in range(warmup, warmup + steps):
+        params, opt, m = step_fn(params, opt, batches[s])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / steps
+    launches = launches_now()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    seq_loss = train["losses"][0]
+    loss_err = abs(losses[0] - seq_loss) / abs(seq_loss)
+    step_errs = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    tokens = batch * seq
+    prof = split_profile(f"{cfg.name}-pipe{stages} train step",
+                         lambda: step_fn(params, opt, batches[-1]))
+    seq_idle = train["profile"].get("idle", float("nan"))
+    log(f"[pipeline] losses {' '.join(f'{x:.4f}' for x in losses)}; |g| "
+        f"{' '.join(f'{x:.3f}' for x in norms)}")
+    log(f"[pipeline] {cfg.name}-pipe{stages} train, {stages} stages x "
+        f"{n_micro} microbatches, {batch} x {seq} tokens a step: "
+        f"{1e3 * step_s:.1f} ms a step over {steps} steps, "
+        f"{tokens / step_s:.0f} tok/s, peak {peak / 1e9:.2f} GB, idle "
+        f"{prof.get('idle', float('nan')):.3f}; the sequential step "
+        f"(phase_train, this process): {train['ms']:.1f} ms, "
+        f"{train['tok_s']:.0f} tok/s, peak {train['peak_gb']:.2f} GB, idle "
+        f"{seq_idle:.3f}; first loss {losses[0]:.6f} vs sequential "
+        f"{seq_loss:.6f} (rel {loss_err:.2e}, tol {PIPE_LOSS_TOL:.0e}), "
+        f"over {len(step_errs)} steps at most {max(step_errs):.2e}; kernel "
+        f"launches in the train steps {launches} [{card()}]")
+    check(loss_err <= PIPE_LOSS_TOL and max(step_errs) <= PIPE_LOSS_TOL,
+          f"pipelined losses {losses} vs sequential {train['losses']}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"pipelined train: loss or |g| not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"pipelined train: loss did not fall: "
+          f"{losses}")
+    check(not any(launches.values()),
+          f"pipelined train: kernels launched in a train step: {launches}")
+    del params, opt, metrics, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grads = pipeline_grad_gate(dev, stages, n_micro)
+    moe_rows = moe_mesh_gate(dev)
+
+    # (e) the dry run, on the meta device
+    t1 = time.perf_counter()
+    pod = dryrun.run_cell(cfg.name, "train_4k", "pod")
+    one = dryrun.run_cell(cfg.name, "train_4k", "1x1", seq=seq,
+                          global_batch=batch)
+    arg_bytes = one["per_device"]["argument_bytes"]
+    log(f"[pipeline] dryrun {cfg.name} train_4k on the logical (16, 16) "
+        f"mesh: {pod['per_device']['flops'] / 1e12:.2f} TFLOP and "
+        f"{pod['per_device']['argument_bytes'] / 1e9:.3f} GB of arguments "
+        f"a device; (b)'s cell on one card ({batch} x {seq}): "
+        f"{one['per_device']['flops_total'] / 1e12:.1f} TFLOP a step, "
+        f"argument bytes {arg_bytes / 1e9:.2f} GB (a lower bound) against "
+        f"(b)'s measured peak {peak / 1e9:.2f} GB; fits 80 GB: "
+        f"{one['fits_80gb']}; {time.perf_counter() - t1:.1f} s")
+    check(pod["status"] == one["status"] == "ok" and arg_bytes <= peak,
+          f"dryrun: argument bytes {arg_bytes} above the peak {peak}")
+    return {"forward": fwd, "launches": launches, "ms": 1e3 * step_s,
+            "tok_s": tokens / step_s, "peak_gb": peak / 1e9,
+            "losses": losses, "loss_err": loss_err, "profile": prof,
+            "grads": grads, "moe": moe_rows,
+            "dryrun": {"pod_flops": pod["per_device"]["flops"],
+                       "one_arg_bytes": arg_bytes}}
+
+
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
                     b_gemm=1024) -> dict:
     """Times at the main path's largest body calls (the Cholesky gemm
@@ -3005,6 +3332,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(dev)
     torch.cuda.empty_cache()
+    pipe = phase_pipeline(dev, train)
+    gc.collect()
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
@@ -3049,7 +3379,9 @@ def main() -> int:
                 "llava-next-34b-d16": vlm["b2_launches"],
                 "yi-6b": dense["b2_launches"],
                 "grok-1-314b-d8": grok["b2_launches"],
-                "deepseek-v3-671b-d5": deepseek["b2_launches"]}},
+                "deepseek-v3-671b-d5": deepseek["b2_launches"]},
+            "pipeline_launches": {
+                "starcoder2-3b-pipe2 forward": pipe["forward"]["b2"]}},
         "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd},
                      "launches_per_prefill": {
                          "zamba2-1.2b": hybrid["b3_launches"]}},
@@ -3069,6 +3401,7 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": f"src/repro/kernels/{where}", "launches": launches,
         "train_launches": train["launches"][name],
+        "pipeline_train_launches": pipe["launches"][name],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -2,12 +2,12 @@
 decode loop.
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 \
-        --tokens 16 [--reduced] [--device cpu]
+        --tokens 16 [--reduced] [--device cpu] [--host-devices N]
 
-The JAX package's decode loop (``repro.launch.serve``) without its mesh:
-one warm-up step, then ``--tokens`` timed steps from a fresh cache of
-``--max-seq`` positions (bf16, donated to each step); prints tok/s and the
-first sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. Every
+The JAX package's decode loop (``repro.launch.serve``): one warm-up step,
+then ``--tokens`` timed steps from a fresh cache of ``--max-seq``
+positions (bf16, donated to each step); prints tok/s and the first
+sequence's tokens. Runs on ``cuda`` unless ``--device cpu``. Every
 family runs: dense (yi-6b, qwen3-14b, starcoder2-3b, yi-34b), vlm
 (llava-next-34b, fed token embeddings as the JAX launcher feeds it), moe
 (grok-1-314b; deepseek-v3-671b with MLA's latent cache; their bf16
@@ -15,6 +15,13 @@ weights, 0.43 and 1.34 TB, fit one card only ``--reduced``), ssm
 (mamba2-1.3b), hybrid (zamba2-1.2b) and encdec (seamless-m4t-large-v2,
 whose cross-attention reads a cache of zeros [L, B, Hkv, max_seq, hd], as
 the JAX launcher makes it: there is no encoder pass).
+
+``--host-devices N`` serves under a logical mesh of N devices
+(``launch/mesh.py``): (N / model, model) over ("data", "model") with model
+= min(4, N), the production (16, 16) mesh from N = 256 on. As the
+reference's launcher, it sets the batch axes (``batch_axis``) and builds
+the cache with ``kv_head_pad`` replicated KV heads; an MoE arch then
+routes each step's tokens in ``data_rows()`` dispatch rows.
 """
 
 import argparse
@@ -28,6 +35,8 @@ def main(argv=None) -> None:
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="serve under a logical mesh of N devices")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -36,6 +45,9 @@ def main(argv=None) -> None:
 
     from repro_torch.configs.base import reduced as reduce_cfg
     from repro_torch.configs.registry import get_config
+    from repro_torch.dist.ctx import launch_mesh
+    from repro_torch.dist.sharding import kv_head_pad
+    from repro_torch.launch.mesh import make_dev_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.decode import make_serve_step
 
@@ -48,8 +60,14 @@ def main(argv=None) -> None:
         cfg = reduce_cfg(cfg)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"device: {where}, arch={cfg.name}")
-    with torch.inference_mode():
+    mesh = (make_dev_mesh(args.host_devices, device=device)
+            if args.host_devices else None)
+    pad = kv_head_pad(cfg, mesh.shape["model"]) if mesh else 1
+    print(f"device: {where}, arch={cfg.name}" + (
+        f", mesh: {mesh.shape} (logical), kv_head_pad {pad}" if mesh
+        else ""))
+    with torch.inference_mode(), launch_mesh(mesh,
+                                             global_batch=args.batch):
         params = tfm.init_params(cfg, seed=args.seed, device=device)
         enc_out = None
         if cfg.family == "encdec":
@@ -58,7 +76,7 @@ def main(argv=None) -> None:
                  cfg.head_dim), dtype=torch.bfloat16, device=device)
                 for _ in range(2))
         cache = tfm.init_cache(cfg, args.batch, args.max_seq, enc_out=enc_out,
-                               device=device)
+                               device=device, kv_head_pad=pad)
         step = make_serve_step(cfg)
         tok = torch.ones((args.batch,), dtype=torch.int64, device=device)
         tok, _, cache = step(params, tok, cache)          # warm-up

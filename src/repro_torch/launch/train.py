@@ -2,7 +2,8 @@
 checkpointing and the elastic control loop.
 
     python -m repro_torch.launch.train --arch starcoder2-3b --steps 100 \
-        [--reduced] [--microbatch 4] [--ckpt-dir ckpt] [--device cpu]
+        [--reduced] [--microbatch 4] [--ckpt-dir ckpt] [--device cpu] \
+        [--pipeline STAGES] [--host-devices N] [--multi-pod]
 
 The JAX package's launcher (``repro.launch.train``) on one device: its
 flags, its data (``SyntheticLM``, learnable when ``--reduced``, or
@@ -18,9 +19,21 @@ device; ``--kill-host H@S`` stops host H's heartbeats at step S. On the
 controller's plan the launcher prints ``host failure: survivors …``,
 quiesces the saver, restores the latest checkpoint onto the same device
 and finishes the steps. ``--transport`` first runs a preflight of active
-messages between the hosts over ``core/comm``. ``--pipeline`` waits for
-the port's pipeline (ROADMAP A9), ``--multi-pod`` and ``--host-devices``
-for its meshes (A13).
+messages between the hosts over ``core/comm``.
+
+Meshes are logical (``launch/mesh.py``): named axes over the one device,
+picked as the reference's ``_run_epoch`` picks them. ``--pipeline STAGES``
+trains stage-parallel (``make_pipeline_train_step``, dense family only) on
+a ("pipe", "data", "model") mesh of (STAGES, N / STAGES, 1) with
+``--microbatch`` microbatches if > 1, else 2·STAGES (the GPipe rule).
+``--host-devices N`` stands for N devices: a ("data", "model") mesh of
+(N / model, model), model = min(4, N) (the elastic controller's model axis
+under ``--elastic``; after a host failure the survivors' re-mesh shape),
+the production (16, 16) mesh from N = 256 on, and with ``--multi-pod``
+the (2, 16, 16) one from N = 512 on (``--multi-pod`` alone stands for 512).
+Under a mesh the batch axes and sequence sharding are set as the reference
+sets them, and the MoE dispatches ``data_rows()`` rows. With none of these
+flags the run has no mesh.
 """
 
 import argparse
@@ -37,14 +50,17 @@ def main(argv=None) -> None:
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES",
-                    help="stage-parallel training: not ported yet (A9)")
+                    help="stage-parallel training on a ('pipe', 'data', "
+                         "'model') mesh: the layer stack splits into STAGES "
+                         "pipeline stages (repro_torch.dist.pipeline). "
+                         "Microbatch count = --microbatch if > 1 else "
+                         "2*STAGES (GPipe rule).")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the production multi-pod mesh: not ported (A13)")
+                    help="the logical (2, 16, 16) multi-pod mesh")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-scale)")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="forced host devices of the JAX package: not "
-                         "ported (A13)")
+                    help="a logical mesh of N devices on the one device")
     ap.add_argument("--data", default=None)
     ap.add_argument("--ckpt-dir", default="ckpt")
     ap.add_argument("--ckpt-every", type=int, default=100)
@@ -69,12 +85,6 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.pipeline:
-        sys.exit("--pipeline: the pipeline is not ported yet (ROADMAP A9)")
-    if args.multi_pod or args.host_devices:
-        sys.exit("--multi-pod / --host-devices: meshes are not ported yet "
-                 "(ROADMAP A13)")
-
     import torch
 
     from repro_torch.configs.base import reduced as reduce_cfg
@@ -90,25 +100,73 @@ def main(argv=None) -> None:
         cfg = reduce_cfg(cfg)
     seq = args.seq or (128 if args.reduced else 4096)
     global_batch = args.global_batch or (8 if args.reduced else 256)
+    # logical devices of the mesh (0: no mesh)
+    n_dev = args.host_devices or (512 if args.multi_pod else 0) \
+        or args.pipeline
 
     controller = None
     kill_host = kill_at = None
     if args.elastic:
+        if args.pipeline > 1:
+            sys.exit("--elastic does not compose with --pipeline yet")
         fake_hosts = args.fake_hosts or 1
-        controller = ElasticController(n_hosts=fake_hosts, chips_per_host=1,
-                                       model_axis=1, dead_after=args.lease)
+        if n_dev % fake_hosts:
+            sys.exit(f"--fake-hosts {fake_hosts} does not divide {n_dev} "
+                     "devices")
+        chips = n_dev // fake_hosts if n_dev else 1
+        controller = ElasticController(n_hosts=fake_hosts,
+                                       chips_per_host=chips,
+                                       model_axis=max(1, min(4, chips)),
+                                       dead_after=args.lease)
         if args.kill_host:
             kh, ka = args.kill_host.split("@")
             kill_host, kill_at = int(kh), int(ka)
         if args.transport:
             _transport_preflight(args.transport, fake_hosts)
 
+    shape_override = None  # set by a re-mesh plan after a host failure
     end = None  # absolute final step, fixed across restores
     while True:
-        plan, end = _run_epoch(args, cfg, seq, global_batch, device,
+        mesh = _pick_mesh(args, cfg, n_dev, shape_override, controller,
+                          device)
+        plan, end = _run_epoch(args, cfg, seq, global_batch, device, mesh,
                                controller, kill_host, kill_at, end)
         if plan is None:
             break
+        if n_dev:
+            n_dev = len(plan.survivors) * controller.chips_per_host
+            shape_override = plan.mesh_shape
+
+
+def _pick_mesh(args, cfg, n_dev, shape_override, controller, device):
+    """The run's logical mesh, as the reference's ``_run_epoch`` picks it;
+    None without a mesh flag."""
+    from repro_torch.launch.mesh import (Mesh, make_dev_mesh,
+                                         make_pipeline_mesh,
+                                         make_production_mesh)
+    from repro_torch.models.transformer import layer_kinds
+
+    if not n_dev:
+        return None
+    if shape_override is not None:
+        return Mesh(shape_override, ("data", "model"), device)
+    if args.pipeline > 1:
+        if set(layer_kinds(cfg)) != {"dense"}:
+            sys.exit(f"--pipeline supports the dense family for now; "
+                     f"{cfg.name} is {cfg.family!r}")
+        if n_dev % args.pipeline:
+            sys.exit(f"--pipeline {args.pipeline} does not divide "
+                     f"{n_dev} devices")
+        if cfg.n_layers % args.pipeline:
+            sys.exit(f"{cfg.n_layers} layers do not split into "
+                     f"{args.pipeline} equal pipeline stages")
+        return make_pipeline_mesh(args.pipeline, n_dev, device)
+    if n_dev >= 512 and args.multi_pod:
+        return make_production_mesh(multi_pod=True, device=device)
+    if n_dev >= 256:
+        return make_production_mesh(device=device)
+    return make_dev_mesh(n_dev, controller.model_axis if controller else 0,
+                         device)
 
 
 def _preflight_main(ctx):
@@ -138,11 +196,21 @@ def _transport_preflight(transport: str, n_hosts: int) -> None:
           f"({n_hosts * (n_hosts - 1)} AMs) in {dt * 1e3:.1f}ms", flush=True)
 
 
-def _run_epoch(args, cfg, seq, global_batch, device, controller, kill_host,
-               kill_at, end):
-    """One run of the step loop. Returns ``(plan, end)``: ``plan`` is None
-    on normal completion, else the ElasticPlan that ended the run (the
-    caller runs again, restoring the latest checkpoint)."""
+def _run_epoch(args, cfg, seq, global_batch, device, mesh, controller,
+               kill_host, kill_at, end):
+    """One run of the step loop (under ``mesh``, when there is one).
+    Returns ``(plan, end)``: ``plan`` is None on normal completion, else
+    the ElasticPlan that ended the run (the caller runs again, restoring
+    the latest checkpoint)."""
+    from repro_torch.dist.ctx import launch_mesh
+
+    with launch_mesh(mesh, global_batch=global_batch, seq_len=seq):
+        return _step_loop(args, cfg, seq, global_batch, device, mesh,
+                          controller, kill_host, kill_at, end)
+
+
+def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
+               kill_host, kill_at, end):
     import torch
 
     from repro_torch.models.transformer import abstract_params
@@ -151,11 +219,14 @@ def _run_epoch(args, cfg, seq, global_batch, device, controller, kill_host,
     from repro_torch.train.elastic import StragglerDetector
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import (init_train_state,
+                                              make_pipeline_train_step,
                                               make_train_step)
 
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
-    print(f"mesh: one device ({where}), arch={cfg.name} "
+    layout = ("one device" if mesh is None else
+              f"{mesh.shape} (logical) on one device")
+    print(f"mesh: {layout} ({where}), arch={cfg.name} "
           f"({cfg.n_params() / 1e9:.2f}B params), seq={seq} "
           f"batch={global_batch}", flush=True)
 
@@ -182,7 +253,17 @@ def _run_epoch(args, cfg, seq, global_batch, device, controller, kill_host,
                          embed_dim=cfg.d_model if cfg.embed_inputs else None,
                          encdec=cfg.family == "encdec",
                          learnable=args.reduced)
-    step_fn = make_train_step(cfg, lr=args.lr, microbatches=args.microbatch)
+    if args.pipeline > 1:
+        n_micro = (args.microbatch if args.microbatch > 1
+                   else 2 * args.pipeline)
+        if global_batch % n_micro:
+            sys.exit(f"batch {global_batch} does not split into {n_micro} "
+                     "microbatches")
+        step_fn = make_pipeline_train_step(cfg, mesh, lr=args.lr,
+                                           n_micro=n_micro)
+    else:
+        step_fn = make_train_step(cfg, lr=args.lr,
+                                  microbatches=args.microbatch)
     saver = ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3)
     monitor = StragglerDetector()
     if end is None:
@@ -216,7 +297,10 @@ def _run_epoch(args, cfg, seq, global_batch, device, controller, kill_host,
                       f"{plan.restore_step}", flush=True)
                 saver.wait()  # quiesce before the restore
                 return plan, end
-    saver.save(end - 1, {"params": params, "opt": opt_state})
+    if not (end - 1 and (end - 1) % args.ckpt_every == 0):
+        # (the loop saved a last step on the cadence: a second writer of
+        # the same step would race the first on its directory)
+        saver.save(end - 1, {"params": params, "opt": opt_state})
     saver.wait()  # quiesce (completion rule) before exit
     print("done", flush=True)
     return None, end

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels._build import needs_grad
 from ..kernels.decode_attention import ops as decode_ops
+from ..kernels.decode_attention.ref import decode_ref
 from ..kernels.flash_attention import ops as flash_ops
 from ..launch.flags import attn_chunk
 
@@ -127,7 +128,11 @@ def decode_attention_host(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ) -> torch.Tensor:
     """Single-token decode against a cache: B4 on CUDA tensors,
     ``decode_ref`` on CPU tensors (``decode_ops.decode``, the kernel's
-    wrapper, picks by device). kv_len >= 1."""
+    wrapper, picks by device). kv_len >= 1. On the meta device (the dry
+    run's trace) the plain version: there are shapes and work to count,
+    no values."""
+    if q.device.type == "meta":
+        return decode_ref(q, k, v, kv_len)
     return decode_ops.decode(q, k, v, kv_len)
 
 

@@ -1,9 +1,13 @@
 """Mixture-of-Experts layer: token-choice top-k with capacity (PyTorch).
 
-The port of ``repro.models.moe`` on one device, where the JAX package's
-``data_rows()`` is 1: every token of the call is one dispatch row. The
-steps that decide which tokens an expert keeps follow the reference step
-for step:
+The port of ``repro.models.moe``. Dispatch is decomposed into data-parallel
+rows, as the reference's: the tokens reshape to [R, T, D] with R =
+``dist.ctx.data_rows()`` (the product of the batch axes' sizes under a
+mesh, 1 without one, and 1 when R does not divide the batch), and every
+row is routed on its own — its own capacity, top-k, positions, [E, C, D]
+expert buffers and combine — as the reference ``vmap``s over its rows.
+The port loops over the rows. The steps that decide which tokens an
+expert keeps follow the reference step for step, per row:
 
 - router logits in f32 (from weights already cast to the compute dtype);
   ``"softmax"`` selects and weights by the softmax, ``"sigmoid"``
@@ -12,9 +16,9 @@ for step:
 - the top k, ties broken toward the lower expert index as ``lax.top_k``
   breaks them (a stable descending sort; ``torch.topk`` leaves the order
   of ties unspecified), renormalised by their sum + 1e-9;
-- capacity ``int(T·k/E·cf) + 1``; a slot's position in its expert is the
-  cumulative count over the token-major [T·k, E] one-hot; kept when
-  ``pos < cap``;
+- capacity ``int(T·k/E·cf) + 1`` from the row's T; a slot's position in
+  its expert is the cumulative count over the token-major [T·k, E]
+  one-hot; kept when ``pos < cap``;
 - slot by slot scatter into [E, C, D] buffers in the compute dtype (a
   dropped slot adds zeros at (E-1, C-1)), a batched expert FFN, slot by
   slot combine in f32, then the shared experts.
@@ -22,18 +26,20 @@ for step:
 The expert products are plain batched matrix products (``torch.bmm``), as
 the JAX package computes them outside any Pallas kernel. ``moe_ref`` is a
 plain version written apart from the dispatch: it walks the experts one by
-one and runs one FFN per expert on the tokens it keeps.
+one and runs one FFN per expert on the tokens it keeps (one row).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..dist.ctx import annotate, batch_axes, data_rows
+from ..dist.sharding import P
 from ..launch.flags import moe_capacity_factor
 
 
@@ -131,38 +137,76 @@ def _add_shared(y: torch.Tensor, xt: torch.Tensor, p: dict,
         y.dtype)
 
 
+def dispatch_rows(x: torch.Tensor) -> int:
+    """The dispatch rows of ``moe_ffn`` for x [B, S, D]: ``data_rows()``,
+    or 1 when it does not divide B."""
+    rows = data_rows()
+    return 1 if x.shape[0] % rows else rows
+
+
+def dispatch(x: torch.Tensor, p: dict, cfg_moe: MoEConfig
+             ) -> Tuple[torch.Tensor, List[Routing]]:
+    """(the tokens of x [B, S, D] as [R, T, D], each row's ``Routing``)."""
+    b, s, d = x.shape
+    rows = dispatch_rows(x)
+    xt = annotate(x.reshape(rows, (b * s) // rows, d),
+                  P(batch_axes(), None, None))
+    return xt, [route(xt[r], p, cfg_moe) for r in range(rows)]
+
+
+def _rows(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Per-row tensors stacked row first (a view of the one row's tensor
+    when there is one)."""
+    return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D]."""
     b, s, d = x.shape
     e, k = cfg_moe.n_experts, cfg_moe.experts_per_token
-    xt = x.reshape(b * s, d)
-    r = route(xt, p, cfg_moe)
-    cap = r.capacity
+    xt, routes = dispatch(x, p, cfg_moe)
+    rows, t = xt.shape[:2]
+    cap = routes[0].capacity
 
-    # scatter, slot by slot: a kept slot owns its (expert, pos) alone; a
-    # dropped one adds zeros at (E-1, C-1). On CUDA ``index_put_`` with
-    # accumulate adds in no fixed order, but only that dump slot receives
-    # more than one value, and all but one of them are zeros, so the sum is
-    # exact whatever the order.
-    xin = torch.zeros((e, cap, d), dtype=compute_dtype, device=x.device)
-    xc = xt.to(compute_dtype)
-    for j in range(k):
-        kj = r.keep[:, j]
-        xin.index_put_((torch.where(kj, r.expert[:, j], e - 1),
-                        torch.where(kj, r.pos[:, j], cap - 1)),
-                       torch.where(kj[:, None], xc, 0), accumulate=True)
+    # scatter, row by row and slot by slot: a kept slot owns its (expert,
+    # pos) alone; a dropped one adds zeros at (E-1, C-1). On CUDA
+    # ``index_put_`` with accumulate adds in no fixed order, but only that
+    # dump slot receives more than one value, and all but one of them are
+    # zeros, so the sum is exact whatever the order.
+    bufs = []
+    for x_r, r in zip(xt, routes):
+        xin = torch.zeros((e, cap, d), dtype=compute_dtype, device=x.device)
+        xc = x_r.to(compute_dtype)
+        for j in range(k):
+            kj = r.keep[:, j]
+            xin.index_put_((torch.where(kj, r.expert[:, j], e - 1),
+                            torch.where(kj, r.pos[:, j], cap - 1)),
+                           torch.where(kj[:, None], xc, 0), accumulate=True)
+        bufs.append(xin)
+    xin = _rows(bufs)                                          # [R, E, C, D]
+    xin = annotate(xin, P(batch_axes(), "model", None, None))
 
-    yout = _expert_ffn(xin, p, ffn)                              # [E, C, D]
+    # every row's buffers through the experts at once: [E, R·C, D] (a view
+    # of the one row's [E, C, D] when R = 1)
+    yout = _expert_ffn(xin.transpose(0, 1).reshape(e, rows * cap, d), p,
+                       ffn).reshape(e, rows, cap, d).transpose(0, 1)
+    yout = annotate(yout, P(batch_axes(), "model", None, None))  # [R,E,C,D]
 
-    # combine, slot by slot, in f32
-    acc = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        kj = r.keep[:, j]
-        g = yout[torch.where(kj, r.expert[:, j], 0),
-                 torch.where(kj, r.pos[:, j], 0)]                # [T, D]
-        acc += torch.where(kj[:, None], g, 0).float() * r.weight[:, j, None]
-    y = _add_shared(acc.to(x.dtype), xt, p, cfg_moe, ffn, compute_dtype)
+    # combine, row by row and slot by slot, in f32
+    accs = []
+    for yout_r, r in zip(yout, routes):
+        acc = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+        for j in range(k):
+            kj = r.keep[:, j]
+            g = yout_r[torch.where(kj, r.expert[:, j], 0),
+                       torch.where(kj, r.pos[:, j], 0)]          # [T, D]
+            acc += torch.where(kj[:, None], g, 0).float() \
+                * r.weight[:, j, None]
+        accs.append(acc)
+    acc = _rows(accs)                                          # [R, T, D]
+    y = _add_shared(acc.reshape(b * s, d).to(x.dtype), x.reshape(b * s, d),
+                    p, cfg_moe, ffn, compute_dtype)
     return y.reshape(b, s, d)
 
 
@@ -207,5 +251,5 @@ def moe_ref(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
     return y.reshape(b, s, d), keep
 
 
-__all__ = ["Routing", "capacity", "moe_ffn", "moe_params_shapes", "moe_ref",
-           "route"]
+__all__ = ["Routing", "capacity", "dispatch", "dispatch_rows", "moe_ffn",
+           "moe_params_shapes", "moe_ref", "route"]

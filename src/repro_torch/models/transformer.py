@@ -8,8 +8,9 @@ encdec (a non-causal encoder and a causal decoder with cross-attention).
 The port of ``repro.models.transformer``. Parameters are a dict of tensors
 with the JAX package's tree and stacked ``[n_layers, ...]`` leaves (the
 hybrid's ``shared`` block unstacked); layers run as a Python loop over
-that stack. There is one device, so the JAX package's sharding
-annotations have no counterpart.
+that stack. The JAX package's sharding annotations sit at its sites as
+``dist.ctx.annotate`` calls, the identity: on the port's one device a
+logical mesh's layout constraint has nothing to move.
 
 Training goes through the same forward: ``lm_loss`` is the reference's
 next-token loss, and under grad ``_scan_segment`` checkpoints each block
@@ -38,6 +39,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..dist.ctx import act_spec, annotate
+from ..dist.sharding import P
 from ..kernels._build import needs_grad
 from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
@@ -414,7 +417,7 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
     ``enc_tokens`` or ``enc_embeds``."""
     kinds = layer_kinds(cfg)
     x = params["embed"][tokens] if embeds is None else embeds
-    x = x.to(dtype_of(cfg.compute_dtype))
+    x = annotate(x.to(dtype_of(cfg.compute_dtype)), act_spec())
     caches: Dict[str, Any] = {}
     enc_out = None
     if cfg.family == "encdec":
@@ -433,7 +436,9 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
                                      collect_cache=collect_cache)
             if collect_cache:
                 caches[seg] = cache
-    return _head(cfg, params, x), (caches if collect_cache else None)
+    logits = annotate(_head(cfg, params, x), P(("pod", "data"), None,
+                                               "model"))
+    return logits, (caches if collect_cache else None)
 
 
 def _stack(caches: List[Any]) -> Any:
@@ -461,7 +466,10 @@ def _scan_segment(cfg, kind, seg_params, x, *, enc_out=None,
     block = _remat(cfg, _block_full, per_layer[0] if per_layer else {}, x)
     layer_caches = []
     for i in (range(len(per_layer)) if layers is None else layers):
-        x, cache = block(cfg, kind, per_layer[i], x, enc_out=enc_out)
+        # the reference's sequence-parallel layout between layers
+        x, cache = block(cfg, kind, per_layer[i], annotate(x, act_spec()),
+                         enc_out=enc_out)
+        x = annotate(x, act_spec())
         if collect_cache:
             layer_caches.append(cache)
     return x, (_stack(layer_caches) if collect_cache else None)
@@ -570,7 +578,13 @@ def lm_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
                         embeds=batch.get("embeds"),
                         enc_tokens=batch.get("enc_tokens"),
                         enc_embeds=batch.get("enc_embeds"))
-    labels = batch["labels"]
+    return next_token_loss(logits, batch["labels"])
+
+
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """The masked mean negative log-likelihood of ``labels`` under
+    ``logits`` (log-softmax in f32, labels < 0 masked out)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -667,7 +681,8 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
         x, layers["cross_self"] = _decode_scan_gqa(
             cfg, params["cross"], x, layers["cross_self"], pos,
             enc_out=layers["enc_out"])
-    return _head(cfg, params, x), DecodeCache(pos=pos + 1, layers=layers)
+    logits = annotate(_head(cfg, params, x), P(("pod", "data"), "model"))
+    return logits, DecodeCache(pos=pos + 1, layers=layers)
 
 
 def _kv_len(x: torch.Tensor, pos: int, s_max: int) -> torch.Tensor:

@@ -148,6 +148,35 @@ def make_optimizer(name: str):
     raise ValueError(name)
 
 
+def opt_state_specs(params_specs, opt_name: str, abstract_params):
+    """Sharding specs for the optimizer state, derived from the param specs
+    (``dist.sharding.param_specs``) and the parameters (meta tensors or
+    real ones): AdamW's m and v as the params, its step replicated;
+    Adafactor's row factors drop the last dim's entry, its column factors
+    the second last (vectors: vr as the param, vc ``P(None)``)."""
+    from ..dist.sharding import P, map_tree
+
+    if opt_name == "adamw":
+        return AdamWState(step=P(), m=params_specs, v=params_specs)
+
+    def entries(spec, p):
+        return list(spec) + [None] * (p.dim() - len(spec))
+
+    def vr_spec(spec, p):
+        e = entries(spec, p)
+        return P(*e[:-1]) if p.dim() >= 2 else P(*e)
+
+    def vc_spec(spec, p):
+        if p.dim() < 2:
+            return P(None)
+        e = entries(spec, p)
+        return P(*(e[:-2] + e[-1:]))
+
+    return AdafactorState(step=P(),
+                          vr=map_tree(vr_spec, params_specs, abstract_params),
+                          vc=map_tree(vc_spec, params_specs, abstract_params))
+
+
 __all__ = ["AdafactorState", "AdamWState", "adafactor_init",
            "adafactor_update", "adamw_init", "adamw_update",
-           "make_optimizer"]
+           "make_optimizer", "opt_state_specs"]

@@ -13,7 +13,10 @@ reduced deepseek-v3-671b (MLA: no B2 or B4 launch), prefill against
 decode; and training: each of B1-B4 raises on an operand that requires
 grad (it has no backward), the prefill attention and the SSD take their
 plain versions under grad and the kernels under no_grad, and every
-family's reduced loss and gradients on the card equal the CPU's. They skip with a reason where there is no GPU. This file imports
+family's reduced loss and gradients on the card equal the CPU's; the
+pipeline: B2 launches and bit equality of the pipelined forward, and the
+pipelined loss and gradients on the card against the CPU. They skip with
+a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1319,3 +1322,69 @@ def test_reduced_loss_and_grads_on_the_card_equal_the_cpu(cuda, monkeypatch,
             continue
         scale = float(w.abs().max())
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30)
+
+
+# ------------------------------------------------------------- pipeline
+
+def test_pipelined_forward_launches_b2_per_stage_task(cuda):
+    """The reduced starcoder2-3b (4 layers) through ``pipeline_apply`` on a
+    logical 2-stage mesh, 4 microbatches, bf16 compute under no_grad: one
+    B2 launch per layer per microbatch, and bit for bit the sequential
+    ``_scan_segment`` applied microbatch by microbatch (the same ops on
+    the same shapes)."""
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = reduced(get_config("starcoder2-3b"), n_layers=4)
+    params = init_params(cfg, seed=0, device=cuda)
+    layers = tfm.unstack(params["dense"])
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xs = torch.randn((4, 1, 128, cfg.d_model), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+
+    def stage(stage_layers, x):
+        return tfm._scan_segment(cfg, "dense", stage_layers, x)[0]
+
+    with torch.no_grad():
+        flash_attention.launches = 0
+        pipeline_apply.stage_calls = 0
+        ys = pipeline_apply(stage, [layers[:2], layers[2:]], xs,
+                            mesh=Mesh((2,), ("pipe",), cuda))
+        torch.cuda.synchronize()
+        assert pipeline_apply.stage_calls == 8
+        assert flash_attention.launches == 4 * 4
+        want = torch.stack([stage(layers, xs[m]) for m in range(4)])
+    assert torch.equal(ys, want)
+
+
+def test_pipelined_loss_and_grads_on_the_card_equal_the_cpu(cuda):
+    """The pipelined train step's loss and gradients (reduced starcoder2-3b,
+    4 layers, 2 stages, 4 microbatches, f32) on the card against the CPU,
+    to 1e-4 of each leaf's max|g|, with no kernel launched (under grad the
+    attention takes its plain version)."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.train_step import (make_pipeline_loss,
+                                              value_and_grads)
+    from repro_torch.train.tree import leaf_paths, tree_map
+
+    cfg = reduced(get_config("starcoder2-3b"), n_layers=4,
+                  compute_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, 64, 8, learnable=True)
+             .batch_at(0).items()}
+    want_loss, want = value_and_grads(
+        make_pipeline_loss(cfg, make_pipeline_mesh(2, 2, "cpu"), n_micro=4),
+        params, batch)
+    flash_attention.launches = 0
+    loss, got = value_and_grads(
+        make_pipeline_loss(cfg, make_pipeline_mesh(2, 2, cuda), n_micro=4),
+        tree_map(lambda t: t.to(cuda), params),
+        {k: v.to(cuda) for k, v in batch.items()})
+    assert flash_attention.launches == 0
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for (name, g), (_, w) in zip(leaf_paths(got), leaf_paths(want)):
+        err = float((g.cpu() - w).abs().max() / w.abs().max().clamp(
+            min=1e-30))
+        assert err <= 1e-4, (name, err)

@@ -1,10 +1,13 @@
-"""The port stands alone: every ``repro_torch`` module, and
-``chip_smoke.py``, import with JAX blocked, the JAX package ``repro``
-refused, and ``cloudpickle`` and ``ml_dtypes`` blocked (the GPU machine
-has neither; only a cross-process run of the ``multiproc`` transport
-needs cloudpickle, and checkpoints move bfloat16 through torch's own
-views), in a subprocess, so this test process keeps its own imports."""
+"""The port stands alone: every ``repro_torch`` module, ``chip_smoke.py``
+and the port's examples (``examples/torch_*.py``) import with JAX
+blocked, the JAX package ``repro`` refused, and ``cloudpickle`` and
+``ml_dtypes`` blocked (the GPU machine has neither; only a
+cross-process run of the ``multiproc`` transport needs cloudpickle, and
+checkpoints move bfloat16 through torch's own views), in a subprocess, so
+this test process keeps its own imports; and ``torch_quickstart.py`` runs
+end to end on the CPU."""
 
+import glob
 import os
 import subprocess
 import sys
@@ -40,6 +43,17 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: E402,F401
+import glob  # noqa: E402
+import importlib.util  # noqa: E402
+import os  # noqa: E402
+
+examples = []
+for path in sorted(glob.glob("examples/torch_*.py")):
+    name = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    examples.append(name)
+print("EXAMPLES", " ".join(examples))
 
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "cloudpickle",
@@ -98,5 +112,27 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.launch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.train_step",
                  "repro_torch.train.checkpoint", "repro_torch.train.data",
-                 "repro_torch.train.tree"):
+                 "repro_torch.train.tree", "repro_torch.dist",
+                 "repro_torch.dist.ctx", "repro_torch.dist.sharding",
+                 "repro_torch.dist.pipeline", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert name in imported, name
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("EXAMPLES")][-1]
+    assert line.split()[1:] == ["torch_distributed_cholesky",
+                                "torch_quickstart", "torch_serve_lm",
+                                "torch_train_lm"]
+
+
+def test_torch_quickstart_runs_on_the_cpu():
+    """``examples/torch_quickstart.py --device cpu`` end to end: the chain
+    on the host runtime, and one Cholesky on both backends."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch_quickstart.py"),
+         "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "final value 12" in proc.stdout
+    assert "[one graph, two backends]" in proc.stdout
+    assert len(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) == 4

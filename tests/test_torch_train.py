@@ -356,8 +356,16 @@ def test_abstract_params_match_reference(arch):
 
 
 def test_pipeline_train_step_waits_for_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_pipeline_train_step(_cfgs("yi-6b")[1])
+    """A9 is ported: the pipelined step builds for the dense family (its
+    values are held in tests/test_torch_pipeline.py) and refuses the
+    others, as the reference's does."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+
+    mesh = make_pipeline_mesh(2, 2, device="cpu")
+    assert callable(make_pipeline_train_step(_cfgs("yi-6b")[1], mesh,
+                                             n_micro=4))
+    with pytest.raises(ValueError, match="dense family"):
+        make_pipeline_train_step(_cfgs("mamba2-1.3b")[1], mesh, n_micro=4)
 
 
 # ------------------------------- ports of tests/test_train_integration.py
@@ -447,11 +455,18 @@ def test_elastic_launcher_survives_fake_host_kill(tmp_path):
 
 
 def test_launcher_refuses_what_is_not_ported(tmp_path):
-    for flags, what in ((["--pipeline", "2"], "A9"),
-                        (["--host-devices", "4"], "A13")):
+    """The pipeline and the meshes are ported; what the launcher still
+    refuses, as the reference's does: a pipeline of a non-dense family, of
+    unequal stages, or under the elastic loop."""
+    for arch, flags, what in (
+            ("mamba2-1.3b", ["--pipeline", "2"], "dense family"),
+            ("yi-6b", ["--pipeline", "3"], "equal pipeline stages"),
+            ("yi-6b", ["--pipeline", "2", "--elastic"],
+             "does not compose")):
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "yi-6b", "--reduced", "--device", "cpu", *flags],
+             arch, "--reduced", "--device", "cpu", "--steps", "1",
+             "--ckpt-dir", str(tmp_path / "ck"), *flags],
             capture_output=True, text=True, timeout=300, cwd=REPO,
             env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
         assert proc.returncode != 0 and what in proc.stderr, proc.stderr
