@@ -58,7 +58,17 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    through ``auto_executor`` with ``task_attention`` bodies, against the
    same program on ``mha_ref`` bodies; B2 launches = executor attn calls;
    one profiled run; the unrolled, dense-scan and union-cover lowerings
-   bit for bit;
+   bit for bit; then the same three programs with one process per shard
+   (``phase_ranks``, ``repro_torch.dist.ranks``; the processes share the
+   card and exchange through gloo over pinned host buffers):
+   cholesky-16k-r4 (4 ranks, the union-cover plan once and the unrolled
+   lowering after a warm-up, each rank's L blocks against the one-device
+   run of the same lowering and the residual), gemm2d-8k-r4 (4 ranks, C
+   bit for bit) and attn-chain-4k-r2 (2 ranks, every block bit for bit),
+   each rank's B1/B2 launches = its body calls of that type, the bytes it
+   sends each peer = the lowering's tables, their sum = ``comm_stats``;
+   wall time between barriers on the slowest rank beside the one-device
+   time, and per rank its exchange and body ms;
 6. mamba2-1.3b serving at full width (48 layers, d_model 2048, f32 weights
    from a seeded generator, bf16 compute): ``make_prefill_step`` on 4
    prompts of 2048 tokens (48 B3 launches) against the same step with the
@@ -137,7 +147,8 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    take (its bound);
 9. print the kernels ported, the card, a JSON line of per-kernel numbers
    (``train_launches`` and ``pipeline_train_launches``: each kernel's
-   launches in the sequential and the pipelined train steps, 0)
+   launches in the sequential and the pipelined train steps, 0;
+   ``ranks_launches``: each rank's launches in the ranked cells)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -191,15 +202,19 @@ from repro_torch.launch.mesh import Mesh, make_pipeline_mesh  # noqa: E402
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
-                                         make_spd_blocks)
+                                         cholesky_rank, make_spd_blocks)
 from repro_torch.linalg.host_exec import run_host_ptg  # noqa: E402
 from repro_torch.linalg.gemm import (assemble, gemm_2d_program,  # noqa: E402
-                                     gemm_executor)
+                                     gemm_executor, gemm_rank, make_blocks)
 from repro_torch.models import mamba2, moe  # noqa: E402
 from repro_torch.models.layers import dense_init  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.ptg import Graph  # noqa: E402
+from repro_torch.attention_chain import (chain_blocks,  # noqa: E402
+                                         chain_bodies, chain_graph,
+                                         chain_rank)
+from repro_torch.dist.ranks import (owned_blocks, run_jobs,  # noqa: E402
+                                    spawn_ranks)
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -972,7 +987,8 @@ def phase_cholesky(dev, nb=32, pr=2, pc=2, b=512) -> dict:
         f"max|L_scan - L_unrolled| = {diff:.3e} (limit {CHOL_PLAIN_TOL:.0e})")
     check(diff <= CHOL_PLAIN_TOL, f"Cholesky scan vs unrolled {diff}")
     return {"launches": launches, "max_batch": run.max_batch["gemm"],
-            "L": L}
+            "L": L, "L_unrolled": L_unrolled, "ms": wall,
+            "unrolled_ms": unrolled_ms}
 
 
 # The host runtime's factor against the compiled executor's, per L block as
@@ -1334,15 +1350,8 @@ def phase_scheduler(dev, nb=16, b=512, width=16, depth=12, n_shards=4,
 def phase_gemm(dev, nb=8, pr=2, pc=2, b=1024) -> dict:
     n = nb * b
     prog = gemm_2d_program(nb, pr, pc, b, staged=True)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    A = torch.randn((n, n), generator=gen, device=dev)
-    B = torch.randn((n, n), generator=gen, device=dev)
-    blocks = {}
-    for i in range(nb):
-        for j in range(nb):
-            blocks[("A", i, j)] = A[i * b:(i + 1) * b, j * b:(j + 1) * b]
-            blocks[("B", i, j)] = B[i * b:(i + 1) * b, j * b:(j + 1) * b]
-            blocks[("C", i, j)] = torch.zeros((b, b), device=dev)
+    blocks = make_blocks(None, nb, b, seed=1, device=dev)
+    A, B = assemble(blocks, "A", nb, b), assemble(blocks, "B", nb, b)
     packed = prog.pack(blocks, device=dev)
     del blocks
     run = gemm_executor(prog, matmul=task_matmul, device=dev)
@@ -1357,8 +1366,9 @@ def phase_gemm(dev, nb=8, pr=2, pc=2, b=1024) -> dict:
     end.record()
     end.synchronize()
     launches = block_gemm.launches
+    wall = start.elapsed_time(end)
     log(f"[gemm] N={n} staged, {prog.schedule.n_wavefronts} wavefronts, "
-        f"mode {run.mode}: {start.elapsed_time(end):.1f} ms; block_gemm "
+        f"mode {run.mode}: {wall:.1f} ms; block_gemm "
         f"launches {launches}, executor gemm batch calls "
         f"{run.calls['gemm']}, largest batch {run.max_batch['gemm']}")
     check(launches > 0 and launches == run.calls["gemm"],
@@ -1369,40 +1379,17 @@ def phase_gemm(dev, nb=8, pr=2, pc=2, b=1024) -> dict:
     err = float((C - ref).abs().max() / ref.abs().max())
     log(f"[gemm] max|C - A@B| / max|A@B| = {err:.3e} (limit {GEMM_TOL:.0e})")
     check(err <= GEMM_TOL, f"GEMM error {err}")
-    return {"launches": launches, "max_batch": run.max_batch["gemm"]}
-
-
-def attn_graph(depth, seq, dim, n_shards):
-    """The attention chain of ``tests/multi_device_cases.py``
-    (``case_pallas_bodies`` (b)): task ``l`` self-attends the previous
-    layer's block."""
-    g = Graph("attnchain", n_shards=n_shards,
-              owner=lambda blk: blk[1] % n_shards, block_shape=(seq, dim))
-    g.task_type("src",                    # publish the input as a task
-                space=lambda: ((0,),),    # output (communicated blocks
-                writes=lambda l: ("x", 0),  # are single-assignment)
-                reads=lambda l: [("in", 0)])
-    g.task_type("attn",
-                space=lambda: ((l,) for l in range(1, depth + 1)),
-                writes=lambda l: ("x", l),
-                reads=lambda l: [("x", l - 1)] * 3)
-    return g
+    return {"launches": launches, "max_batch": run.max_batch["gemm"],
+            "C": C, "ms": wall}
 
 
 def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
     t0 = time.perf_counter()
-    prog = attn_graph(depth, seq, dim, n_sh).to_program()
-    gen = torch.Generator(device=dev).manual_seed(7)
-    blocks = {("in", 0): torch.randn((seq, dim), generator=gen, device=dev)}
-    for l in range(depth + 1):
-        blocks[("x", l)] = torch.zeros((seq, dim), device=dev)
-    packed = prog.pack(blocks, device=dev)
-    run = prog.auto_executor({"src": lambda x: x, "attn": task_attention},
-                             device=dev)
-    plain = prog.auto_executor(
-        {"src": lambda x: x,
-         "attn": lambda q, k, v: mha_ref(q[:, None], k[:, None],
-                                         v[:, None])[:, 0]}, device=dev)
+    prog = chain_graph(depth, seq, dim, n_sh).to_program()
+    packed = prog.pack(chain_blocks(depth, seq, dim, seed=7, device=dev),
+                       device=dev)
+    run = prog.auto_executor(chain_bodies(), device=dev)
+    plain = prog.auto_executor(chain_bodies(kernel=False), device=dev)
     log(f"[chain] seq {seq} dim {dim} depth {depth} over {n_sh} shards: "
         f"{prog.schedule.n_wavefronts} wavefronts, mode {run.mode}; host "
         f"build {time.perf_counter() - t0:.2f} s")
@@ -1417,7 +1404,8 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
     end.record()
     end.synchronize()
     launches = flash_attention.launches
-    log(f"[chain] task_attention bodies: {start.elapsed_time(end):.2f} ms; "
+    wall = start.elapsed_time(end)
+    log(f"[chain] task_attention bodies: {wall:.2f} ms; "
         f"flash_attention launches {launches}, executor attn calls "
         f"{run.calls['attn']}, largest batch {run.max_batch['attn']} "
         f"(the store's shards ride in one batch)")
@@ -1445,7 +1433,7 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
     check(err <= CHAIN_TOL, f"chain vs mha_ref bodies: {err}")
     check(flash_attention.copies == 0, "chain: operands copied")
     # every lowering of the program gives the same blocks, bit for bit
-    bodies = {"src": lambda x: x, "attn": task_attention}
+    bodies = chain_bodies()
     for name, kw in (("unrolled", dict(scan=False)),
                      ("dense scan", dict(scan=True)),
                      ("union cover", dict(scan=True, cover="union"))):
@@ -1455,7 +1443,147 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
               f"chain: the {name} lowering differs from {run.mode}")
     log(f"[chain] unrolled, dense-scan and union-cover lowerings: bit for "
         f"bit as {run.mode}")
-    return {"launches": launches, "seq": seq, "dim": dim, "busy": busy}
+    return {"launches": launches, "seq": seq, "dim": dim, "busy": busy,
+            "x": x, "ms": wall}
+
+
+# The ranked cells whose paths launch each kernel (phase_ranks).
+RANK_CELLS = {"block_gemm": ("cholesky-16k-r4", "gemm2d-8k-r4"),
+              "flash_attention": ("attn-chain-4k-r2",)}
+# Ranked against one-device, per L block as ``block_err`` measures (the
+# host runtime's measure, HOST_TOL): the same B1 on every syrk and gemm
+# (bitwise batch-independent), but each rank's batched potrf and trsm
+# library calls take a quarter of the one-device batch and may round
+# differently.
+RANK_CHOL_TOL = HOST_TOL
+
+
+def rank_blocks(prog, results, run: int, dev) -> dict:
+    """{block: tensor on ``dev``} of the owned blocks the ranks returned
+    from their ``run``-th run."""
+    return {blk: t.to(dev) for blk, t in owned_blocks(
+        prog, [res[run] for res in results]).items()}
+
+
+def rank_report(tag, prog, results, run: int, one_ms: float, wire: dict,
+                kernel: str, types) -> dict:
+    """Print one ranked run (wall time on the slowest rank beside the
+    one-device time; per rank exchange and body ms, the kernel's launches
+    against the rank's body calls of ``types``, bytes sent per peer) and
+    check its counts: launches = calls on every rank, bytes per peer =
+    the lowering's tables, their sum = ``wire`` (``comm_stats``). Returns
+    each rank's launches."""
+    runs = [res[run] for res in results]
+    bb = wire["block_bytes"]
+    wall = max(r["wall_ms"] for r in runs)
+    log(f"[ranks] {tag} {runs[0]['name']} ({runs[0]['mode']}) on "
+        f"{len(runs)} processes: {wall:.1f} ms (host clock between "
+        f"barriers, slowest rank); one device: {one_ms:.1f} ms; {card()}")
+    launches = []
+    for r in runs:
+        calls = sum(r["calls"].get(t, 0) for t in types)
+        n = r["launches"][kernel]
+        launches.append(n)
+        log(f"[ranks]   rank {r['rank']}: exchange {r['exchange_ms']:.1f} "
+            f"ms ({r['exchange_ms'] / r['wall_ms']:.1%} of its wall; "
+            f"{r['stage_ms']:.1f} ms of it copying to pinned memory), "
+            f"bodies {r['body_ms']:.1f} ms, {kernel} launches {n} = "
+            f"{'+'.join(types)} calls {calls}; bytes sent per peer "
+            f"{r['sent_bytes']} ({r['sent_msgs']} messages), staged "
+            f"{r['staged_bytes']}")
+        check(n > 0 and n == calls, f"{tag}: rank {r['rank']} {kernel} "
+              f"launches {n} != {'+'.join(types)} calls {calls}")
+        check(r["sent_bytes"] == [m * bb for m in r["wire_blocks"]],
+              f"{tag}: rank {r['rank']} sent {r['sent_bytes']}, its "
+              f"tables ship {r['wire_blocks']} blocks")
+    sent = sum(sum(r["sent_bytes"]) for r in runs)
+    own = sum(r["sent_bytes"][r["rank"]] for r in runs)
+    log(f"[ranks]   wire: {sent} bytes sent = comm_stats "
+        f"{wire['total_wire_bytes']} ({wire['real_bytes']} real, "
+        f"efficiency {wire['wire_efficiency']:.3f}); {own} of them from "
+        f"ranks to themselves (a dense exchange's own row, which "
+        f"comm_stats counts as wire; gloo copies it within the process)")
+    check(sent == wire["total_wire_bytes"],
+          f"{tag}: {sent} bytes sent != comm_stats "
+          f"{wire['total_wire_bytes']}")
+    return launches
+
+
+def phase_ranks(dev, chol: dict, gemm: dict, chain: dict, nb=32, b=512,
+                gemm_nb=8, gemm_b=1024, depth=16, seq=4096, dim=128) -> dict:
+    """The block executor with one process per shard (``dist.ranks``):
+    cholesky-16k-r4 and gemm2d-8k-r4 in one world of 4 rank processes,
+    attn-chain-4k-r2 in one of 2, all on the one card, exchanging through
+    gloo over pinned host buffers. Each is held against the one-device
+    phase's result of the same program: Cholesky's L blocks within
+    RANK_CHOL_TOL of the same lowering's (and its residual), GEMM's C and
+    the chain's blocks bit for bit. Returns each cell's per-rank kernel
+    launches (Cholesky's in its unrolled run)."""
+    t0 = time.perf_counter()
+    chol_prog = cholesky_program(nb, 2, 2, b)
+    gemm_prog = gemm_2d_program(gemm_nb, 2, 2, gemm_b, staged=True)
+    chain_prog = chain_graph(depth, seq, dim, 2).to_program()
+    chol_runs = [{"name": "union cover", "auto": True},
+                 {"name": "unrolled", "scan": False, "comm": "auto",
+                  "overlap": True, "warmup": 1}]
+    once = [{"name": "auto", "auto": True, "warmup": 1}]
+    world4 = spawn_ranks(run_jobs, 4, [
+        (cholesky_rank, (nb, 2, 2, b, chol_runs),
+         {"kernel": True, "on_device": True, "keep": ("L",)}),
+        (gemm_rank, (gemm_nb, gemm_b, once),
+         {"staged": True, "seed": 1, "kernel": True, "on_device": True,
+          "keep": ("C",)})], device=dev, timeout=600)
+    world2 = spawn_ranks(chain_rank, 2, depth, seq, dim, once, device=dev,
+                         timeout=300, keep=("x",))
+    log(f"[ranks] two worlds spawned and run: "
+        f"{time.perf_counter() - t0:.1f} s")
+    chol_res = [res[0] for res in world4]
+    gemm_res = [res[1] for res in world4]
+
+    launches = {}
+    _, a = make_spd_blocks(nb, b, seed=0, device=dev)
+    wires = (chol_prog.comm_stats(comm="auto", segmented=True,
+                                  cover="union"),
+             chol_prog.comm_stats(comm="auto"))
+    for run, (want, one_ms, wire) in enumerate(
+            ((chol["L"], chol["ms"], wires[0]),
+             (chol["L_unrolled"], chol["unrolled_ms"], wires[1]))):
+        launches["cholesky-16k-r4"] = rank_report(
+            "cholesky-16k-r4", chol_prog, chol_res, run, one_ms, wire,
+            "block_gemm", ("syrk", "gemm"))
+        L = assemble_lower(rank_blocks(chol_prog, chol_res, run, dev), nb, b)
+        err = block_err(L, want, b)
+        resid = float(torch.linalg.vector_norm(torch.matmul(L, L.mT) - a)
+                      / torch.linalg.vector_norm(a))
+        log(f"[ranks]   L against the one-device {chol_res[0][run]['name']}"
+            f" run, per block: {err:.3e} (tol {RANK_CHOL_TOL:.0e}); "
+            f"||L L^T - A||_F / ||A||_F = {resid:.3e} (limit "
+            f"{CHOL_RESID_TOL:.0e})")
+        check(err <= RANK_CHOL_TOL, f"ranked Cholesky vs one device: {err}")
+        check(resid <= CHOL_RESID_TOL, f"ranked Cholesky residual {resid}")
+        del L
+    del a
+
+    launches["gemm2d-8k-r4"] = rank_report(
+        "gemm2d-8k-r4", gemm_prog, gemm_res, 0, gemm["ms"],
+        gemm_prog.comm_stats(comm="auto"), "block_gemm", ("gemm",))
+    C = assemble(rank_blocks(gemm_prog, gemm_res, 0, dev), "C", gemm_nb,
+                 gemm_b)
+    check(torch.equal(C, gemm["C"]), "ranked GEMM differs from one device")
+    log("[ranks]   C bit for bit the one-device run's")
+    del C
+
+    launches["attn-chain-4k-r2"] = rank_report(
+        "attn-chain-4k-r2", chain_prog, world2, 0, chain["ms"],
+        chain_prog.comm_stats(comm="auto"), "flash_attention", ("attn",))
+    got = rank_blocks(chain_prog, world2, 0, dev)
+    check(set(got) == {("x", l) for l in range(depth + 1)},
+          "ranked chain: blocks missing")
+    check(all(torch.equal(got[blk], chain["x"][blk]) for blk in got),
+          "ranked chain differs from one device")
+    log("[ranks]   every block bit for bit the one-device run's")
+    log(f"[ranks] phase: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 @contextlib.contextmanager
@@ -3306,13 +3434,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     chol = phase_cholesky(dev)
     torch.cuda.empty_cache()
-    host = phase_host_runtime(dev, chol.pop("L"))
+    host = phase_host_runtime(dev, chol["L"])
     torch.cuda.empty_cache()
     sched = phase_scheduler(dev)
     torch.cuda.empty_cache()
     gemm = phase_gemm(dev)
     torch.cuda.empty_cache()
     chain = phase_attention_chain(dev)
+    torch.cuda.empty_cache()
+    ranks = phase_ranks(dev, chol, gemm, chain)
+    for phase in (chol, gemm, chain):
+        for key in ("L", "L_unrolled", "C", "x"):
+            phase.pop(key, None)
+    gc.collect()
     torch.cuda.empty_cache()
     model = phase_mamba2(dev)
     torch.cuda.empty_cache()
@@ -3402,6 +3536,8 @@ def main() -> int:
         "replaces": f"src/repro/kernels/{where}", "launches": launches,
         "train_launches": train["launches"][name],
         "pipeline_train_launches": pipe["launches"][name],
+        "ranks_launches": {cell: ranks[cell]
+                           for cell in RANK_CELLS.get(name, ())},
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

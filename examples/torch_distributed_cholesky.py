@@ -8,13 +8,17 @@ on BOTH backends from that single definition —
   (b) the compiled block executor: parallel DAG discovery -> wavefront
       schedule -> every shard stacked on the one device, classified
       sparse/dense exchanges as on-device index copies, the trailing
-      updates through the block_gemm kernel.
+      updates through the block_gemm kernel;
+  (c) with ``--ranks N`` (N = the grid's shards), the same executor with
+      one process per shard (``repro_torch.dist.ranks``): each rank runs
+      its own shard, and the exchanges are gloo collectives between the
+      processes, staged through host memory on the card.
 
 The port's counterpart of ``examples/distributed_cholesky.py``; on
 ``cuda`` unless ``--device cpu``.
 
   PYTHONPATH=src python examples/torch_distributed_cholesky.py --nb 8 \
-      --block 32 [--device cpu]
+      --block 32 [--device cpu] [--ranks 4]
 """
 
 import argparse
@@ -22,10 +26,11 @@ import time
 
 import torch
 
+from repro_torch.dist.ranks import owned_blocks, spawn_ranks
 from repro_torch.kernels.block_gemm.ops import matmul, task_matmul
 from repro_torch.linalg.cholesky import (assemble_lower, cholesky_bodies,
                                          cholesky_executor, cholesky_graph,
-                                         make_spd_blocks)
+                                         cholesky_rank, make_spd_blocks)
 
 
 def _sync(device):
@@ -39,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--block", type=int, default=32)
     ap.add_argument("--grid", type=int, nargs=2, default=(2, 2))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="also run the executor with one process per shard")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -47,6 +54,9 @@ def main(argv=None):
     pr, pc = args.grid
     nb, b = args.nb, args.block
     n = nb * b
+    if args.ranks and args.ranks != pr * pc:
+        raise SystemExit(f"distributed_cholesky: --ranks {args.ranks} != "
+                         f"{pr * pc} shards of the {pr}x{pc} grid")
 
     graph = cholesky_graph(nb, pr, pc, b)   # ONE declarative definition
     blocks, a = make_spd_blocks(nb, b)
@@ -84,6 +94,25 @@ def main(argv=None):
           f"{st['padded_bytes'] / 1e6:.2f} MB padded "
           f"(efficiency {st['wire_efficiency']:.2f} vs "
           f"{dense['wire_efficiency']:.2f} dense all_to_all)")
+
+    if args.ranks:
+        # (c) one process per shard: each packs its own shard of the same
+        # seeded matrix, and returns its L blocks
+        runs = [{"name": "auto", "auto": True, "warmup": 1}]
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(cholesky_rank, args.ranks, nb, pr, pc, b, runs,
+                            device=device, kernel=True, keep=("L",))
+        t_spawn = time.perf_counter() - t0
+        got = owned_blocks(prog, [res[0] for res in ranks])
+        print(f"[ranks]         N={n} on {args.ranks} processes "
+              f"({ranks[0][0]['mode']}): "
+              f"{max(r[0]['wall_ms'] for r in ranks):7.1f} ms  "
+              f"max|err|={err(got):.2e}  (spawn and run {t_spawn:.1f} s)")
+        for res in ranks:
+            run = res[0]
+            print(f"  rank {run['rank']}: exchange {run['exchange_ms']:.1f} "
+                  f"ms, bodies {run['body_ms']:.1f} ms, bytes sent per peer "
+                  f"{run['sent_bytes']}, staged {run['staged_bytes']}")
 
 
 if __name__ == "__main__":

@@ -20,15 +20,22 @@ plans, the segment plans and their stacked tables, ``comm_stats`` and
 ``plan_lowering``. The lowering policies keep the JAX package's names, so
 a plan reads the same in both packages.
 
-The executors differ from the JAX package's in one respect: there is one
-device, so every shard's store lies stacked on it as
-``[n_shards, n_slots, b0, b1]`` (the JAX package's layout, sharded there
-over a mesh axis) and each exchange becomes an on-device index copy:
+The executors run in one of two places. On one device (``group=None``)
+every shard's store lies stacked on it as ``[n_shards, n_slots, b0, b1]``
+(the JAX package's layout, sharded there over a mesh axis) and each
+exchange becomes an on-device index copy:
 
 - dense: ``local[d, recv[d, s, m]] = local[s, send[s, d, m]]``, the
   all_to_all;
 - sparse: for each round, ``local[dst, recv[dst]] = local[src, send[src]]``
   over the round's active (src, dst) pairs, the ppermute.
+
+Over a process group (``group=``, one rank per shard, the counterpart of
+the JAX package's ``shard_map`` over a mesh axis) each rank holds its own
+row ``[1, n_slots, b0, b1]`` and walks its own row of every table; each
+exchange goes through :class:`repro_torch.dist.ranks.HostTransport`:
+``all_to_all_single`` for a dense exchange, one ``batch_isend_irecv`` per
+sparse round (a rank outside the round makes no call).
 
 Every buffer of a wavefront is gathered before any of them lands, and the
 scan lowerings walk the same stacked, padded tables as the JAX package's
@@ -54,6 +61,7 @@ undefined, which is harmless because only padded tasks read trash.
 from __future__ import annotations
 
 import logging
+import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -169,6 +177,20 @@ class BlockProgram:
         for blk, arr in blocks.items():
             s, slot = self.slot_of[blk]
             out[s, slot] = torch.as_tensor(arr)
+        return out
+
+    def pack_shard(self, blocks: Dict[B, object], rank: int,
+                   device="cuda") -> torch.Tensor:
+        """Row ``rank`` of :meth:`pack`, ``[1, n_slots, b0, b1]``, without
+        building the other shards' rows: the store a rank's executor
+        takes (:meth:`executor` with ``group=``)."""
+        b0, b1 = self.spec.block_shape
+        out = torch.zeros((1, self.n_slots, b0, b1), dtype=self.spec.dtype,
+                          device=device)
+        for blk, arr in blocks.items():
+            s, slot = self.slot_of[blk]
+            if s == rank:
+                out[0, slot] = torch.as_tensor(arr)
         return out
 
     def unpack(self, packed: torch.Tensor) -> Dict[B, torch.Tensor]:
@@ -587,8 +609,11 @@ class BlockProgram:
         overlap: bool = False,
         density_threshold: float = 0.5,
         cover: str = "exact",
+        group=None,
     ) -> "BlockExecutor":
-        """Build the executor of this program on one device.
+        """Build the executor of this program on one device, or, with a
+        ``torch.distributed`` process group of one rank per shard, on this
+        process's rank of it (:class:`RankExecutor`).
 
         ``bodies[t](*operands) -> out`` is *batched*: each operand is a
         ``[N, b0, b1]`` tensor holding one block per task, and the body
@@ -615,6 +640,12 @@ class BlockProgram:
         All variants are numerically identical: the same bodies over the
         same operand values, in a dependency-respecting order. Index tables
         move to ``device`` once, here, as int64.
+
+        With ``group`` the executor takes the rank's own row
+        (:meth:`pack_shard`) and exchanges blocks with the other ranks, each
+        of which builds the same lowering; a group of another size than
+        ``n_shards`` raises ``ValueError``, as the JAX package's executor
+        does for a mesh axis of another size.
         """
         if comm is None:
             comm = "dense" if scan else "auto"
@@ -622,7 +653,9 @@ class BlockProgram:
             raise ValueError(f"unknown comm policy {comm!r}")
         if cover not in ("exact", "union"):
             raise ValueError(f"unknown signature cover {cover!r}")
-        ex = BlockExecutor(self, bodies, torch.device(device))
+        ex = (BlockExecutor(self, bodies, torch.device(device))
+              if group is None else
+              RankExecutor(self, bodies, torch.device(device), group))
         if scan:
             if comm == "dense" and not overlap:
                 ex._run = self._dense_scan_run(ex)
@@ -644,6 +677,7 @@ class BlockProgram:
         every exchange the dense table padded to the global M_max."""
         tabs_np, M_max = self._dense_scan_tables()
         tabs = ex.put(tabs_np)
+        ex.wire_blocks += len(self.tables) * M_max
 
         def run(local):
             for j in range(len(self.tables)):
@@ -665,17 +699,24 @@ class BlockProgram:
         for (s, e, sig, tabs_np) in self._segment_tables(
                 comm, density_threshold, overlap, cover):
             tabs = ex.put(tabs_np)
-            rounds = (ex.rounds([(perm, tabs[f"send{r}"], tabs[f"recv{r}"])
-                                 for r, perm in enumerate(sig[1])])
-                      if sig[0] == "ppermute" else [])
+            rounds = []
+            if sig[0] == "all_to_all":
+                ex.wire_blocks += (e - s) * tabs_np["send"].shape[-1]
+            elif sig[0] == "ppermute":
+                rounds = ex.rounds([(perm, tabs[f"send{r}"],
+                                     tabs[f"recv{r}"])
+                                    for r, perm in enumerate(sig[1])])
+                for r, perm in enumerate(sig[1]):
+                    for src, dst in perm:
+                        ex.wire_blocks[src, dst] += (
+                            (e - s) * tabs_np[f"send{r}"].shape[-1])
             segs.append((e - s, sig, tabs, rounds))
 
         def issue(local, sig, tabs, rounds, j):
             if sig[0] == "all_to_all":
                 return ex.issue_dense(local, tabs["send"][:, j],
                                       tabs["recv"][:, j])
-            return [(dst, recv[:, j], local[src, send[:, j]])
-                    for src, dst, send, recv in rounds]
+            return ex.issue_rounds(local, rounds, j)
 
         def head(tabs, kind):
             return {t: (tabs[f"h:{t}:{kind}ops"], tabs[f"h:{t}:{kind}out"])
@@ -720,10 +761,14 @@ class BlockProgram:
         for w in range(W):
             if choices[w] == "all_to_all":
                 exchanges.append(("dense", ex.put(self.exchange[w])))
+                ex.wire_blocks += self.exchange[w][0].shape[-1]
             elif choices[w] == "ppermute":
                 exchanges.append(("sparse", ex.rounds(
-                    [(rnd.perm, ex.index(rnd.send), ex.index(rnd.recv))
+                    [(rnd.perm, ex.put(rnd.send), ex.put(rnd.recv))
                      for rnd in self.sparse_exchange[w]])))
+                for rnd in self.sparse_exchange[w]:
+                    for src, dst in rnd.perm:
+                        ex.wire_blocks[src, dst] += rnd.width
             else:
                 exchanges.append(("none", None))
 
@@ -732,8 +777,7 @@ class BlockProgram:
             if kind == "dense":
                 return ex.issue_dense(local, plan[0], plan[1])
             if kind == "sparse":
-                return [(dst, recv, local[src, send])
-                        for src, dst, send, recv in plan]
+                return ex.issue_rounds(local, plan)
             return []
 
         def run(local):
@@ -855,6 +899,7 @@ class BlockProgram:
         comm: str = "auto",
         overlap: bool = True,
         segment_cap: Optional[int] = None,
+        group=None,
     ) -> "BlockExecutor":
         """The default lowering policy, shared by every consumer (the linalg
         apps, Task-Bench) — see :meth:`plan_lowering`: shallow schedules
@@ -864,19 +909,22 @@ class BlockProgram:
         fragment but the cover's wire still beats the dense scan's); only
         genuinely dense or hopelessly fragmented schedules take the pure
         dense scan. When that last fallback discards the caller's
-        ``comm``/``overlap`` preference it is logged loudly."""
+        ``comm``/``overlap`` preference it is logged loudly. ``group``
+        runs the chosen lowering on this process's rank (:meth:`executor`).
+        """
         plan = self.plan_lowering(
             unroll_cap=unroll_cap, comm=comm, overlap=overlap,
             segment_cap=segment_cap, density_threshold=density_threshold)
         if plan["mode"] == "unrolled":
             return self.executor(bodies, device=device, scan=False,
                                  comm=comm, overlap=overlap,
-                                 density_threshold=density_threshold)
+                                 density_threshold=density_threshold,
+                                 group=group)
         if plan["mode"] in ("segmented_scan", "union_cover"):
             return self.executor(bodies, device=device, scan=True, comm=comm,
                                  overlap=overlap,
                                  density_threshold=density_threshold,
-                                 cover=plan["cover"])
+                                 cover=plan["cover"], group=group)
         if plan["discards"]:
             logger.warning(
                 "auto_executor: depth %d > unroll_cap %d and %s; falling "
@@ -885,7 +933,8 @@ class BlockProgram:
                 "the segmented scan, or pass comm='dense' to silence this)",
                 plan["n_wavefronts"], unroll_cap, plan["reason"],
                 comm, overlap)
-        return self.executor(bodies, device=device, scan=True, comm="dense")
+        return self.executor(bodies, device=device, scan=True, comm="dense",
+                             group=group)
 
 
 class BlockExecutor:
@@ -896,7 +945,11 @@ class BlockExecutor:
     (``BlockProgram.pack``) and returns a new store; the input is left
     as it is. ``calls[t]`` counts the batched body calls of type ``t`` and
     ``max_batch[t]`` the largest batch one of them took, over every call
-    of this executor.
+    of this executor. ``wire_blocks[src, dst]`` is what the lowering's
+    tables ship from shard src to shard dst in one call, padding included
+    (each dense exchange ``M`` blocks to every shard, the shard itself too,
+    as ``comm_stats`` counts it; each sparse round its width to its
+    destination).
     """
 
     def __init__(self, prog: BlockProgram,
@@ -909,7 +962,9 @@ class BlockExecutor:
         self.calls: Dict[str, int] = defaultdict(int)
         self.max_batch: Dict[str, int] = defaultdict(int)
         n = prog.spec.n_shards
+        self.wire_blocks = np.zeros((n, n), np.int64)
         self._rows = torch.arange(n, device=device).view(n, 1)
+        self._shards = slice(None)           # the table rows this store holds
         self._run: Optional[Callable[[torch.Tensor], None]] = None
 
     def index(self, x) -> torch.Tensor:
@@ -918,12 +973,13 @@ class BlockExecutor:
                                device=self.device)
 
     def put(self, tree):
-        """:meth:`index` over a dict / tuple / list of tables."""
+        """:meth:`index` over a dict / tuple / list of shard-major tables,
+        keeping the rows of the shards this store holds."""
         if isinstance(tree, dict):
             return {k: self.put(v) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)):
             return type(tree)(self.put(v) for v in tree)
-        return self.index(tree)
+        return self.index(np.asarray(tree)[self._shards])
 
     def row_tables(self, tabs: Dict[str, torch.Tensor], j: int,
                    prefix: str = ""):
@@ -973,8 +1029,15 @@ class BlockExecutor:
         buf = local[rows, send]                  # [src, dst, M, b0, b1]
         return [(rows, recv, buf.transpose(0, 1))]
 
-    @staticmethod
-    def land(local, pending) -> None:
+    def issue_rounds(self, local, rounds, j: Optional[int] = None):
+        """Gather one sparse exchange over :meth:`rounds` (step ``j`` of
+        stacked ``[P, L, width]`` tables, or unstacked ones). Returns the
+        pending landings."""
+        return [(dst, recv if j is None else recv[:, j],
+                 local[src, send if j is None else send[:, j]])
+                for src, dst, send, recv in rounds]
+
+    def land(self, local, pending) -> None:
         """Land gathered buffers: ``local[rows, slots] = buf``."""
         for rows, slots, buf in pending:
             local[rows, slots] = buf.to(local.dtype)
@@ -984,12 +1047,112 @@ class BlockExecutor:
         spec = self.prog.spec
         local = torch.as_tensor(blocks).to(self.device, spec.dtype,
                                            copy=True)
-        want = (spec.n_shards, self.prog.n_slots, *spec.block_shape)
+        want = (self._rows.shape[0], self.prog.n_slots, *spec.block_shape)
         if tuple(local.shape) != want:
             raise ValueError(f"store has shape {tuple(local.shape)}, the "
                              f"program packs {want}")
         self._run(local)
         return local
+
+
+class RankExecutor(BlockExecutor):
+    """A :class:`BlockProgram` lowered onto one rank of a process group
+    whose ranks are its shards: the counterpart of the JAX package's
+    executor under ``shard_map``, one process per shard.
+
+    The store is the rank's row ``[1, n_slots, b0, b1]``
+    (``BlockProgram.pack_shard``) and every table is the rank's row of the
+    shard-major one, so :meth:`compute` and :meth:`land` are the
+    one-device ones with one row. Only the exchange differs: it goes
+    through ``transport`` (:class:`repro_torch.dist.ranks.HostTransport`),
+    which counts what it sends to each peer and the time it takes.
+    ``body_ms`` is the time of the rank's compute (CUDA events on the card,
+    the host clock on the CPU) since :meth:`reset`.
+    """
+
+    def __init__(self, prog: BlockProgram,
+                 bodies: Dict[str, Callable[..., torch.Tensor]],
+                 device: torch.device, group):
+        from repro_torch.dist.ranks import HostTransport
+
+        n = prog.spec.n_shards
+        transport = HostTransport(group, device, prog.spec.block_shape,
+                                  prog.spec.dtype)
+        if transport.world != n:
+            raise ValueError(f"process group of {transport.world} ranks != "
+                             f"{n} shards")
+        super().__init__(prog, bodies, device)
+        self.transport = transport
+        self.rank = transport.rank
+        self._rows = torch.zeros((1, 1), dtype=torch.int64, device=device)
+        self._shards = slice(self.rank, self.rank + 1)
+        self._spans: list = []
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the call, body-time and transport counters."""
+        self.calls.clear()
+        self.max_batch.clear()
+        self.transport.reset()
+        self._spans.clear()
+        self._body_s = 0.0
+
+    @property
+    def body_ms(self) -> float:
+        if self._spans:
+            torch.cuda.synchronize(self.device)
+            self._body_s += sum(a.elapsed_time(b)
+                                for a, b in self._spans) / 1e3
+            self._spans.clear()
+        return 1e3 * self._body_s
+
+    def compute(self, local: torch.Tensor, tbl) -> None:
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            super().compute(local, tbl)
+            self._body_s += time.perf_counter() - t0
+            return
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
+        super().compute(local, tbl)
+        span[1].record()
+        self._spans.append(span)
+
+    def rounds(self, rounds):
+        """The rounds this rank takes part in, as ``[(to, frm, send row,
+        recv row)]``: ``to`` the peer it sends to in the round (or None),
+        ``frm`` the peer it receives from (or None)."""
+        out = []
+        for perm, send, recv in rounds:
+            to = [d for s, d in perm if s == self.rank]
+            frm = [s for s, d in perm if d == self.rank]
+            if to or frm:
+                out.append((to[0] if to else None, frm[0] if frm else None,
+                            send[0], recv[0]))
+        return out
+
+    def issue_dense(self, local, send, recv):
+        """Send row p of ``local[0, send[0]]`` (``[dst, M]`` slots) to rank
+        p; the arrivals land at ``recv[0]`` (``[src, M]``)."""
+        return [self.transport.all_to_all(local[0, send[0]], recv[0])]
+
+    def issue_rounds(self, local, rounds, j: Optional[int] = None):
+        out = []
+        for to, frm, send, recv in rounds:
+            if j is not None:
+                send, recv = send[j], recv[j]
+            out.append(self.transport.permute(
+                local[0, send] if to is not None else None, to, frm, recv))
+        return out
+
+    def land(self, local, pending) -> None:
+        """Wait for each exchange in flight and land what it received."""
+        for p in pending:
+            got = p.wait()
+            if got is not None:
+                slots, buf = got
+                local[0, slots] = buf.to(local.dtype)
 
 
 def build_block_program(spec: BlockPTGSpec, *,

@@ -27,4 +27,9 @@ ordinary model code) to a mesh — a logical one on the port's one device
   ``comm_plan`` pairs. On one device the pipeline runs the schedule's live
   tasks in wavefront order and hands each output on through the
   wavefront's permutation.
+- :mod:`repro_torch.dist.ranks` — the block executor on real ranks: one
+  spawned process per shard in a ``torch.distributed`` group
+  (``spawn_ranks``), each running its own shard
+  (``BlockProgram.executor(..., group=)``), the exchanges gloo
+  collectives staged through host memory (``HostTransport``).
 """

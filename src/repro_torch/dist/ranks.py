@@ -1,0 +1,379 @@
+"""One process per shard: start a world of rank processes, move blocks
+between them, and run a block program on each rank.
+
+The JAX package's block executor is SPMD over a mesh of one device per
+shard (``repro.core.schedule``: ``shard_map``, ``all_to_all``,
+``ppermute``). Here each shard is a process, and the exchanges are
+``torch.distributed`` collectives between them:
+
+- :func:`spawn_ranks` starts ``world`` processes (``spawn``, never
+  ``fork``: the parent has usually initialised CUDA), joins them into a
+  process group that meets through a file, runs one function on each and
+  returns what each returned. A rank that raises, or a world that misses
+  its deadline, fails the call, and every child is stopped first.
+- :class:`HostTransport` is the transport: gloo, with blocks of stores on
+  the card staged through pinned host buffers explicitly (gloo moves host
+  memory only). It counts the messages and bytes it sends to each peer,
+  the bytes it stages, and the host time the exchanges take. Ranks that
+  share one card cannot use NCCL (it refuses two ranks on one device), so
+  on one card the exchange always crosses the host.
+- :func:`run_program` is the rank side of a run: the rank packs its own
+  shard, runs the program's executor on it (``BlockProgram.executor`` /
+  ``auto_executor`` with ``group=``) and returns its row, counters and
+  times. Each app has an entry that builds its program and blocks from a
+  seed and calls it (``linalg.cholesky.cholesky_rank``,
+  ``linalg.gemm.gemm_rank``, ``taskbench.taskbench_rank``,
+  ``attention_chain.chain_rank``).
+
+A function a rank runs must be importable by name (a spawned child imports
+it afresh): a module-level function of ``repro_torch``, called as
+``fn(rank, world, *args, device=device, **kwargs)``.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
+
+
+def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
+                device="cuda", timeout: float = 600.0,
+                **kwargs) -> List[object]:
+    """Run ``fn(rank, world, *args, device=device, **kwargs)`` in ``world``
+    spawned processes joined into one ``torch.distributed`` group; return
+    the ranks' results in rank order.
+
+    The group meets through a file in a temporary directory (no port to
+    collide with other worlds) and its collectives time out after
+    ``timeout`` seconds; the whole call, start-up included, has the same
+    deadline. Each child runs IEEE f32 matmuls (TF32 off) and, on the CPU,
+    one thread. On ``cuda`` every kernel is built here, once, before the
+    children load it; without a GPU the call raises before it spawns.
+
+    Raises ``RuntimeError`` with the child's traceback if a rank raises or
+    dies, ``TimeoutError`` if the world misses the deadline; either way
+    every child is killed before it returns."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("spawn_ranks: device is cuda but "
+                               "torch.cuda.is_available() is False")
+        from repro_torch.kernels import _build
+
+        _build.build(*sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    try:
+        ctx = mp.start_processes(
+            _child, args=(fn, world, args, kwargs, tmp, backend, str(dev),
+                          timeout),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=min(1.0, max(
+                    0.0, deadline - time.monotonic()))):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"spawn_ranks: {world} ranks of {fn.__name__} did "
+                        f"not finish within {timeout} s")
+        except ProcessException as exc:
+            raise RuntimeError(f"spawn_ranks: {fn.__name__} failed on "
+                               f"{world} ranks\n{_failures(tmp, exc)}"
+                               ) from None
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _failures(tmp: str, exc: ProcessException) -> str:
+    """Every rank's traceback, the first to fail first: a rank that raises
+    makes its peers fail too, waiting on it."""
+    files = sorted((f for f in os.listdir(tmp) if f.endswith(".err")),
+                   key=lambda f: os.path.getmtime(os.path.join(tmp, f)))
+    if not files:                                # killed: no traceback
+        return f"rank {exc.error_index}: {exc}"
+    out = []
+    for f in files:
+        with open(os.path.join(tmp, f)) as fh:
+            out.append(f"rank {f[4:-4]}:\n{fh.read()}")
+    return "\n".join(out)
+
+
+def _child(rank, fn, world, args, kwargs, tmp, backend, device, timeout):
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 means IEEE f32
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout))
+    try:
+        out = fn(rank, world, *args, device=device, **kwargs)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt.tmp"))
+        os.replace(os.path.join(tmp, f"rank{rank}.pt.tmp"),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    except Exception:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_jobs(rank: int, world: int, jobs: Sequence, *, device) -> list:
+    """Run several rank functions in one world, in order:
+    ``jobs = [(fn, args, kwargs)]``, each called as ``fn(rank, world,
+    *args, device=device, **kwargs)``; returns their results."""
+    return [fn(rank, world, *args, device=device, **kwargs)
+            for fn, args, kwargs in jobs]
+
+
+def rank_probe(rank: int, world: int, fail: Optional[int] = None,
+               hang: Optional[int] = None, *, device) -> List[str]:
+    """The top-level packages this rank process has imported. Rank
+    ``fail`` raises, rank ``hang`` sleeps for good, and with either the
+    other ranks wait in a barrier that never completes: the faults
+    :func:`spawn_ranks` must turn into an error within its deadline."""
+    if rank == fail:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    if rank == hang:
+        time.sleep(1e9)
+    if fail is not None or hang is not None:
+        dist.barrier()
+    return sorted({name.split(".")[0] for name in sys.modules})
+
+
+class _InFlight:
+    """One rank's part of an exchange in flight: the collective's work
+    handles, the buffer being sent (kept alive until they complete) and,
+    where the rank receives, the host buffer and the slots it lands at."""
+
+    def __init__(self, transport, works, send, recv, slots):
+        self.transport, self.works = transport, works
+        self.send, self.recv, self.slots = send, recv, slots
+
+    def wait(self):
+        """Wait for the exchange; returns ``(slots, received blocks on the
+        device)``, or None where the rank received nothing."""
+        t0 = time.perf_counter()
+        for work in self.works:
+            work.wait()
+        self.send = None
+        got = (None if self.slots is None
+               else (self.slots, self.transport.stage_in(self.recv)))
+        self.transport.ms += 1e3 * (time.perf_counter() - t0)
+        return got
+
+
+class HostTransport:
+    """A block executor's exchanges between the ranks of a gloo process
+    group, through host memory.
+
+    gloo moves host tensors only, so on the card every buffer is staged
+    explicitly: the rank waits for its stream, copies the gathered blocks
+    into pinned host memory, sends them, and copies what it receives back
+    to the card (``staged_bytes`` counts both directions). On the CPU the
+    gathered blocks are sent as they are.
+
+    - a dense exchange is one ``all_to_all_single`` over a ``[world, M, b0,
+      b1]`` buffer: row p goes to rank p, the rank's own row included (gloo
+      copies it within the process; ``comm_stats`` counts it as wire);
+    - a sparse round is one ``batch_isend_irecv`` of at most one send and
+      one receive (a round is a partial permutation).
+
+    Both are issued with ``async_op`` and complete in :meth:`_InFlight.wait`
+    (the executor's ``land``), so under ``overlap`` the next wavefront's
+    halo-independent compute runs while the blocks travel.
+    ``sent_bytes[p]`` and ``sent_msgs[p]`` count what this rank sent to
+    rank p; ``ms`` is the host time spent issuing and waiting, after the
+    stream has drained (so no compute is counted in it), and ``stage_ms``
+    the part of it spent copying gathered blocks to pinned memory.
+    """
+
+    def __init__(self, group, device, block_shape, dtype):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("HostTransport: device is cuda but "
+                               "torch.cuda.is_available() is False")
+        self.staged = self.device.type == "cuda"
+        self.block_shape = tuple(block_shape)
+        self.dtype = dtype
+        self.reset()
+
+    def reset(self) -> None:
+        self.sent_bytes = [0] * self.world
+        self.sent_msgs = [0] * self.world
+        self.staged_bytes = 0
+        self.ms = 0.0
+        self.stage_ms = 0.0
+
+    def stage_out(self, buf: torch.Tensor) -> torch.Tensor:
+        """The host buffer gloo sends: a pinned copy of ``buf`` on the
+        card (the copy waits for the stream), ``buf`` itself on the CPU."""
+        if not self.staged:
+            return buf.contiguous()
+        t0 = time.perf_counter()
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf)
+        self.staged_bytes += host.nbytes
+        self.stage_ms += 1e3 * (time.perf_counter() - t0)
+        return host
+
+    def stage_in(self, host: torch.Tensor) -> torch.Tensor:
+        """What gloo received, on the store's device."""
+        if not self.staged:
+            return host
+        self.staged_bytes += host.nbytes
+        return host.to(self.device, non_blocking=True)
+
+    def _empty(self, *lead) -> torch.Tensor:
+        return torch.empty((*lead, *self.block_shape), dtype=self.dtype,
+                           pin_memory=self.staged)
+
+    def _drain(self) -> float:
+        if self.staged:
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter()
+
+    def _peer(self, rank: int) -> int:
+        return dist.get_global_rank(self.group, rank)
+
+    def all_to_all(self, buf: torch.Tensor, slots: torch.Tensor) -> _InFlight:
+        """Issue one dense exchange: ``buf [world, M, b0, b1]``, row p for
+        rank p; the rows received from each source land at ``slots
+        [world, M]``."""
+        t0 = self._drain()
+        send = self.stage_out(buf)
+        recv = self._empty(*send.shape[:2])
+        work = dist.all_to_all_single(recv, send, group=self.group,
+                                      async_op=True)
+        for p in range(self.world):
+            self.sent_bytes[p] += send[p].nbytes
+            self.sent_msgs[p] += 1
+        self.ms += 1e3 * (time.perf_counter() - t0)
+        return _InFlight(self, [work], send, recv, slots)
+
+    def permute(self, buf: Optional[torch.Tensor], to: Optional[int],
+                frm: Optional[int], slots: torch.Tensor) -> _InFlight:
+        """Issue this rank's part of one sparse round: send ``buf`` to rank
+        ``to`` and/or receive ``len(slots)`` blocks from rank ``frm``,
+        landing at ``slots``."""
+        t0 = self._drain() if to is not None else time.perf_counter()
+        ops, send, recv = [], None, None
+        if to is not None:
+            send = self.stage_out(buf)
+            ops.append(dist.P2POp(dist.isend, send, self._peer(to),
+                                  self.group))
+            self.sent_bytes[to] += send.nbytes
+            self.sent_msgs[to] += 1
+        if frm is not None:
+            recv = self._empty(slots.shape[0])
+            ops.append(dist.P2POp(dist.irecv, recv, self._peer(frm),
+                                  self.group))
+        works = dist.batch_isend_irecv(ops)
+        self.ms += 1e3 * (time.perf_counter() - t0)
+        return _InFlight(self, works, send, recv,
+                         slots if frm is not None else None)
+
+
+def owned_blocks(prog, runs: Sequence[dict]) -> Dict[object, torch.Tensor]:
+    """``{block id: tensor}`` of the owned blocks that the ranks returned
+    from one run each (:func:`run_program`'s ``slots`` and ``row``; halo
+    and trash slots are left out)."""
+    slot_blk = {(s, slot): blk for blk, (s, slot) in prog.slot_of.items()}
+    return {slot_blk[(run["rank"], slot)]: block for run in runs
+            for slot, block in zip(run["slots"], run["row"])
+            if (run["rank"], slot) in slot_blk}
+
+
+def _launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return {"block_gemm": block_gemm.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def run_program(prog, bodies, blocks, runs: Sequence[dict], *, device,
+                keep: Optional[Sequence[str]] = None, group=None
+                ) -> List[dict]:
+    """The rank side of a ranked run: pack this rank's shard of ``blocks``
+    (``prog.pack_shard``) and run ``prog`` on it once for each entry of
+    ``runs``.
+
+    A run is the executor's keyword arguments (``scan``, ``comm``,
+    ``overlap``, ``cover``, ... ; ``auto=True`` takes ``auto_executor``
+    and its policy arguments instead) plus ``name`` and ``warmup`` (calls
+    before the measured one). The measured call starts after a barrier and
+    ends after the stream has drained and a second barrier, so its
+    ``wall_ms`` on the slowest rank is the world's. Each run returns its
+    ``mode``, ``wall_ms``, ``body_ms``, ``exchange_ms`` (and its
+    ``stage_ms``, the copies to pinned memory), ``sent_bytes`` and
+    ``sent_msgs`` per peer, ``staged_bytes``, ``wire_blocks`` (this rank's
+    row of the lowering's tables), body ``calls`` by type, the kernels'
+    ``launches`` in the measured call, and ``row``: the rank's store at
+    ``slots`` (every slot, or with ``keep`` the rank's own blocks whose id
+    starts with one of those kinds), on the CPU."""
+    group = dist.group.WORLD if group is None else group
+    rank = dist.get_rank(group)
+    dev = torch.device(device)
+    row = prog.pack_shard(blocks, rank, dev)
+    slots = (list(range(prog.n_slots)) if keep is None else
+             sorted(slot for blk, (s, slot) in prog.slot_of.items()
+                    if s == rank and blk[0] in keep))
+
+    def drain():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = []
+    for run in runs:
+        kw = dict(run)
+        name, warmup = kw.pop("name", ""), kw.pop("warmup", 0)
+        make = prog.auto_executor if kw.pop("auto", False) else prog.executor
+        ex = make(bodies, device=dev, group=group, **kw)
+        for _ in range(warmup):
+            ex(row)
+        drain()
+        ex.reset()
+        before = _launch_counts()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        got = ex(row)
+        drain()
+        dist.barrier(group)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        after = _launch_counts()
+        out.append({
+            "name": name, "mode": ex.mode, "rank": rank, "wall_ms": wall_ms,
+            "body_ms": ex.body_ms, "exchange_ms": ex.transport.ms,
+            "stage_ms": ex.transport.stage_ms,
+            "sent_bytes": list(ex.transport.sent_bytes),
+            "sent_msgs": list(ex.transport.sent_msgs),
+            "staged_bytes": ex.transport.staged_bytes,
+            "wire_blocks": ex.wire_blocks[rank].tolist(),
+            "calls": dict(ex.calls), "max_batch": dict(ex.max_batch),
+            "launches": {k: after[k] - before[k] for k in after},
+            "slots": slots, "row": got[0, slots].cpu()})
+        del got, ex
+    return out

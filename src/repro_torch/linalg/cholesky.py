@@ -30,6 +30,8 @@ import torch
 
 from repro_torch.core.schedule import (BlockExecutor, BlockProgram,
                                        BlockPTGSpec, build_block_program)
+from repro_torch.dist.ranks import run_program
+from repro_torch.kernels.block_gemm.ops import task_matmul
 from repro_torch.ptg import Graph, IndexSpace
 
 
@@ -114,7 +116,7 @@ def cholesky_program(nb: int, pr: int, pc: int, b: int,
 
 
 def cholesky_executor(prog: BlockProgram, *, matmul=None, trsm=None,
-                      device="cuda", unroll_cap: int = 64,
+                      device="cuda", unroll_cap: int = 64, group=None,
                       **policy) -> BlockExecutor:
     """Sparsity-aware Cholesky executor on ``device``, with the overlap
     order of the paper's Fig 9: wavefront w's panel broadcast is gathered
@@ -129,9 +131,27 @@ def cholesky_executor(prog: BlockProgram, *, matmul=None, trsm=None,
     scan only as the loudly-reported last resort. ``matmul``/``trsm`` are
     pluggable bodies — pass ``repro_torch.kernels.block_gemm.ops
     .task_matmul`` to run the trailing updates through the CUDA kernel, one
-    launch per wavefront and type (the plain default stays the oracle)."""
+    launch per wavefront and type (the plain default stays the oracle).
+    ``group`` runs it on this process's rank of a process group of one
+    rank per shard, on the rank's own row (``prog.pack_shard``)."""
     return prog.auto_executor(cholesky_bodies(matmul, trsm), device=device,
-                              unroll_cap=unroll_cap, **policy)
+                              unroll_cap=unroll_cap, group=group, **policy)
+
+
+def cholesky_rank(rank: int, world: int, nb: int, pr: int, pc: int, b: int,
+                  runs, *, device, seed: int = 0, kernel: bool = False,
+                  on_device: bool = False, keep=None) -> list:
+    """One rank's part of a Cholesky over a process group of ``pr·pc``
+    ranks (``dist.ranks.spawn_ranks`` names it): build the program, make
+    the SPD matrix from ``seed`` (numpy's, or with ``on_device`` PyTorch's
+    on ``device``, as :func:`make_spd_blocks`), and run ``runs`` on the
+    rank's shard with B1 on syrk/gemm where ``kernel`` (see
+    ``dist.ranks.run_program``, which gives what it returns)."""
+    prog = cholesky_program(nb, pr, pc, b)
+    blocks, _ = make_spd_blocks(nb, b, seed,
+                                device=device if on_device else None)
+    bodies = cholesky_bodies(task_matmul if kernel else None)
+    return run_program(prog, bodies, blocks, runs, device=device, keep=keep)
 
 
 def cholesky_bodies(matmul=None, trsm=None) -> Dict[str, object]:

@@ -23,13 +23,15 @@ compute and needs O(nb/p) message buffers instead of O(nb²/p²).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.schedule import (BlockExecutor, BlockProgram,
                                        BlockPTGSpec, build_block_program)
+from repro_torch.dist.ranks import run_program
+from repro_torch.kernels.block_gemm.ops import task_matmul
 from repro_torch.ptg import Graph, IndexSpace
 
 
@@ -212,16 +214,39 @@ def gemm_3d_program(nb: int, q: int, b: int, *, dtype=torch.float32
 
 
 def gemm_executor(prog: BlockProgram, *, matmul=None, device="cuda",
-                  unroll_cap: int = 64, **policy) -> BlockExecutor:
+                  unroll_cap: int = 64, group=None,
+                  **policy) -> BlockExecutor:
     """Sparsity-aware GEMM executor on ``device``. The eager 2D mapping's
     wavefront-0 broadcast is dense (all_to_all); the staged variant's per-k
     panel sends are sparse (ppermute rounds) and land after the k-1 rank
     updates that do not need them. ``policy`` kwargs (``comm``/``overlap``/
     ``segment_cap``/``density_threshold``) pass through to
     ``BlockProgram.auto_executor``; past ``unroll_cap`` deep staged
-    schedules keep their sparse per-k sends via the segmented scan."""
+    schedules keep their sparse per-k sends via the segmented scan.
+    ``group`` runs it on this process's rank of a process group of one
+    rank per shard, on the rank's own row (``prog.pack_shard``)."""
     return prog.auto_executor(gemm_bodies(matmul), device=device,
-                              unroll_cap=unroll_cap, **policy)
+                              unroll_cap=unroll_cap, group=group, **policy)
+
+
+def gemm_rank(rank: int, world: int, nb: int, b: int, runs, *, device,
+              pr: int = 2, pc: int = 2, staged: bool = False,
+              q: Optional[int] = None, seed: int = 0, kernel: bool = False,
+              on_device: bool = False, keep=None) -> list:
+    """One rank's part of a GEMM over a process group of one rank per
+    shard (``dist.ranks.spawn_ranks`` names it): the 2D program on a
+    ``pr x pc`` grid (``staged`` or not), or with ``q`` the 3D one on a
+    ``q x q x q`` grid; blocks from ``seed`` (:func:`make_blocks`, on
+    ``device`` with ``on_device``); ``runs`` on the rank's shard with B1
+    on the gemm updates where ``kernel`` (see ``dist.ranks.run_program``,
+    which gives what it returns)."""
+    prog = (gemm_3d_program(nb, q, b) if q else
+            gemm_2d_program(nb, pr, pc, b, staged=staged))
+    blocks = make_blocks(None, nb, b, seed=seed,
+                         with_partials=tuple(range(q or 0)),
+                         device=device if on_device else None)
+    bodies = gemm_bodies(task_matmul if kernel else None)
+    return run_program(prog, bodies, blocks, runs, device=device, keep=keep)
 
 
 # ------------------------------------------------------------ bodies/oracle
@@ -242,10 +267,30 @@ def gemm_bodies(matmul=None) -> Dict[str, object]:
 
 
 def make_blocks(key, nb: int, b: int, *, with_partials: Tuple[int, ...] = (),
-                seed: int = 0) -> Dict[Tuple, np.ndarray]:
+                seed: int = 0, device=None) -> Dict[Tuple, object]:
     """Random A/B blocks, zero C blocks (and zero 3D partials if requested),
     from numpy's generator as in the JAX package (``key`` is unused there
-    too, kept for the same signature)."""
+    too, kept for the same signature).
+
+    With ``device`` the blocks are made by PyTorch on that device: A and
+    then B drawn whole from a ``torch.Generator`` seeded with ``seed``
+    (the blocks are views of them), so nothing passes through the host.
+    The two forms draw different numbers."""
+    if device is not None:
+        n = nb * b
+        gen = torch.Generator(device=device).manual_seed(seed)
+        a = torch.randn((n, n), generator=gen, device=device)
+        b_ = torch.randn((n, n), generator=gen, device=device)
+        out: Dict[Tuple, object] = {}
+        for i in range(nb):
+            for j in range(nb):
+                tile = (slice(i * b, (i + 1) * b), slice(j * b, (j + 1) * b))
+                out[("A", i, j)] = a[tile]
+                out[("B", i, j)] = b_[tile]
+                out[("C", i, j)] = torch.zeros((b, b), device=device)
+                for l in with_partials:
+                    out[("P", i, j, l)] = torch.zeros((b, b), device=device)
+        return out
     rng = np.random.default_rng(seed)
     blocks: Dict[Tuple, np.ndarray] = {}
     for i in range(nb):

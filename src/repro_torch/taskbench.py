@@ -18,7 +18,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.schedule import BlockPTGSpec
+from repro_torch.core.schedule import BlockPTGSpec, build_block_program
+from repro_torch.dist.ranks import run_program
 from repro_torch.ptg import Graph, IndexSpace
 
 PATTERNS = ("stencil", "fft", "tree", "random")
@@ -105,6 +106,20 @@ def taskbench_bodies(max_fan: int = 8) -> Dict[str, object]:
         return out
 
     return {f"f{k}": body for k in range(max_fan + 1)}
+
+
+def taskbench_rank(rank: int, world: int, pattern: str, width: int,
+                   depth: int, n_shards: int, b: int, runs, *, device,
+                   fan: int = 3, seed: int = 0, keep=None) -> list:
+    """One rank's part of a Task-Bench program over a process group of
+    ``n_shards`` ranks (``dist.ranks.spawn_ranks`` names it): the program
+    and blocks of ``pattern`` from ``seed``, ``runs`` on the rank's shard
+    (see ``dist.ranks.run_program``, which gives what it returns)."""
+    spec, _ = taskbench_spec(pattern, width, depth, n_shards, b, fan=fan,
+                             seed=seed)
+    return run_program(build_block_program(spec), taskbench_bodies(),
+                       taskbench_blocks(width, depth, b, seed), runs,
+                       device=device, keep=keep)
 
 
 def taskbench_blocks(width: int, depth: int, b: int = 8,

@@ -15,8 +15,9 @@ grad (it has no backward), the prefill attention and the SSD take their
 plain versions under grad and the kernels under no_grad, and every
 family's reduced loss and gradients on the card equal the CPU's; the
 pipeline: B2 launches and bit equality of the pipelined forward, and the
-pipelined loss and gradients on the card against the CPU. They skip with
-a reason where there is no GPU. This file imports
+pipelined loss and gradients on the card against the CPU; and the block
+executor on two rank processes that share the card, with B1. They skip
+with a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1388,3 +1389,27 @@ def test_pipelined_loss_and_grads_on_the_card_equal_the_cpu(cuda):
         err = float((g.cpu() - w).abs().max() / w.abs().max().clamp(
             min=1e-30))
         assert err <= 1e-4, (name, err)
+
+
+def test_ranked_gemm_runs_b1_on_every_rank(cuda):
+    """Two rank processes share the card (gloo over pinned host buffers):
+    a GEMM on a 1 x 2 grid with B1, each rank's launches equal to its gemm
+    calls, its C blocks bit for bit the one-device executor's."""
+    from repro_torch.dist.ranks import spawn_ranks
+    from repro_torch.linalg.gemm import (gemm_2d_program, gemm_executor,
+                                         gemm_rank, make_blocks)
+
+    nb, b = 4, 64
+    per_rank = spawn_ranks(gemm_rank, 2, nb, b, [{"auto": True}],
+                           device="cuda", timeout=300, pr=1, pc=2,
+                           kernel=True, on_device=True, keep=("C",))
+    prog = gemm_2d_program(nb, 1, 2, b)
+    blocks = make_blocks(None, nb, b, device=cuda)
+    one = gemm_executor(prog, matmul=task_matmul, device=cuda)(
+        prog.pack(blocks, device=cuda))
+    for (run,) in per_rank:
+        assert run["launches"]["block_gemm"] == run["calls"]["gemm"] > 0
+        assert run["staged_bytes"] > 0
+        assert len(run["slots"]) == nb * nb // 2
+        for slot, blk in zip(run["slots"], run["row"]):
+            assert torch.equal(blk, one[run["rank"], slot].cpu())

@@ -4,8 +4,10 @@ blocked, the JAX package ``repro`` refused, and ``cloudpickle`` and
 ``ml_dtypes`` blocked (the GPU machine has neither; only a
 cross-process run of the ``multiproc`` transport needs cloudpickle, and
 checkpoints move bfloat16 through torch's own views), in a subprocess, so
-this test process keeps its own imports; and ``torch_quickstart.py`` runs
-end to end on the CPU."""
+this test process keeps its own imports; a spawned rank process
+(``repro_torch.dist.ranks``) that has run a ranked program imports none
+of JAX or ``repro`` either; and ``torch_quickstart.py`` runs end to end
+on the CPU."""
 
 import glob
 import os
@@ -115,7 +117,8 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.train.tree", "repro_torch.dist",
                  "repro_torch.dist.ctx", "repro_torch.dist.sharding",
                  "repro_torch.dist.pipeline", "repro_torch.launch.mesh",
-                 "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.dist.ranks", "repro_torch.attention_chain"):
         assert name in imported, name
     line = [ln for ln in proc.stdout.splitlines()
             if ln.startswith("EXAMPLES")][-1]
@@ -136,3 +139,20 @@ def test_torch_quickstart_runs_on_the_cpu():
     assert "final value 12" in proc.stdout
     assert "[one graph, two backends]" in proc.stdout
     assert len(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) == 4
+
+
+def test_spawned_rank_imports_no_jax_or_repro():
+    """Two rank processes run the attention chain on the CPU (each its own
+    shard, gloo between them), then report what they imported."""
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.attention_chain import chain_rank
+    from repro_torch.dist.ranks import rank_probe, run_jobs, spawn_ranks
+
+    runs = [{"name": "auto", "auto": True}]
+    per_rank = spawn_ranks(run_jobs, 2, [(chain_rank, (3, 8, 4, runs), {}),
+                                         (rank_probe, (), {})],
+                           device="cpu", timeout=300)
+    for chain, modules in per_rank:
+        assert chain[0]["calls"]["attn"] == 3
+        assert "torch" in modules
+        assert not {"jax", "jaxlib", "repro"} & set(modules), modules
