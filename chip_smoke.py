@@ -141,14 +141,32 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    deepseek-v3-671b's ``moe_ffn`` under a logical (data 2, model 2) mesh
    in 2 dispatch rows, card vs CPU (kept masks equal); and the dry run's
    argument bytes of the train cell on one card against the step's
-   measured peak;
+   measured peak; then the same mesh's pipe and data axes as rank
+   processes that share the card (``phase_pipeline_ranks``,
+   ``make_pipeline_mesh(..., group=)``, gloo over pinned host
+   buffers): starcoder2-3b-pipe2-r2, full width and depth on 2 stage
+   ranks that each draw the whole model from seed 0 and keep their
+   stage: the forward under no_grad bit for bit the logical one, 60 B2
+   launches per rank each held to ``mha_ref`` on its operands; 1 warm-up
+   and 3 timed steps, step 0's loss bit for bit the logical step's, the
+   rest and |g| within 1e-5, no kernel launched, 50 331 648 activation
+   bytes a step each way; ms a step on the slowest rank, each rank's
+   peak, hand-off and busy ms; starcoder2-3b-d8-pipe2-dp2-r4, 8 of 30
+   layers in f32 compute on a (2, 2, 1) world, global batch 8 x 2 048:
+   losses and |g| within 1e-5 of the one-process logical step on the same
+   cut, each stage's f32 gradient bytes all-reduced with its data peer;
+   and on a 2-layer cut a checkpoint from the ranks, its small leaves
+   byte for byte the one-process save's, each rank's own rows read back
+   bit for bit, and a resume bit for bit;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
 9. print the kernels ported, the card, a JSON line of per-kernel numbers
    (``train_launches`` and ``pipeline_train_launches``: each kernel's
    launches in the sequential and the pipelined train steps, 0;
-   ``ranks_launches``: each rank's launches in the ranked cells)
+   ``ranks_launches``: each rank's launches in the ranked cells and the
+   ranked pipelined forward; ``pipeline_ranks_train_launches``: each
+   rank's in the ranked train steps, 0)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -159,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import filecmp
 import gc
 import json
 import math
@@ -222,7 +241,8 @@ from repro_torch.train.data import SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import adamw_init  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     init_train_state, loss_and_grads, make_pipeline_loss,
-    make_pipeline_train_step, make_train_step, value_and_grads)
+    make_pipeline_train_step, make_train_step, pipeline_rows, pipeline_shard,
+    value_and_grads)
 from repro_torch.train.tree import (leaf_paths, leaves as tree_leaves,  # noqa: E402,E501
                                     tree_map)
 
@@ -1449,7 +1469,8 @@ def phase_attention_chain(dev, depth=16, seq=4096, dim=128, n_sh=2) -> dict:
 
 # The ranked cells whose paths launch each kernel (phase_ranks).
 RANK_CELLS = {"block_gemm": ("cholesky-16k-r4", "gemm2d-8k-r4"),
-              "flash_attention": ("attn-chain-4k-r2",)}
+              "flash_attention": ("attn-chain-4k-r2",
+                                  "starcoder2-3b-pipe2-r2 forward")}
 # Ranked against one-device, per L block as ``block_err`` measures (the
 # host runtime's measure, HOST_TOL): the same B1 on every syrk and gemm
 # (bitwise batch-independent), but each rank's batched potrf and trsm
@@ -3027,7 +3048,7 @@ def pipeline_forward_gate(cfg, params, tokens, dev, stages: int,
           f"pipelined forward: rerun equal {again}, {len(errs)} B2 calls "
           f"against mha_ref: err {b2_err}, per head {b2_head}")
     return {**counts, "ms": pipe_ms, "seq_ms": seq_ms, "full_ms": full_ms,
-            "b2_err": b2_err, "stack_err": stack_err}
+            "b2_err": b2_err, "stack_err": stack_err, "ys": ys.cpu()}
 
 
 def pipeline_grad_gate(dev, stages: int, n_micro: int) -> dict:
@@ -3218,10 +3239,418 @@ def phase_pipeline(dev, train: dict, stages=2, n_micro=4, batch=4, seq=2048,
           f"dryrun: argument bytes {arg_bytes} above the peak {peak}")
     return {"forward": fwd, "launches": launches, "ms": 1e3 * step_s,
             "tok_s": tokens / step_s, "peak_gb": peak / 1e9,
-            "losses": losses, "loss_err": loss_err, "profile": prof,
+            "losses": losses, "norms": norms, "loss_err": loss_err,
+            "profile": prof,
             "grads": grads, "moe": moe_rows,
             "dryrun": {"pod_flops": pod["per_device"]["flops"],
                        "one_arg_bytes": arg_bytes}}
+
+
+# ------------------------------------------------------ pipeline on ranks
+
+# Ranked step against the logical one: step 0's loss bit for bit (the same
+# stage bodies on the same operands, each stage's in its own process);
+# later losses and every |g| to 1e-5 relative: the gradient sums arrive in
+# another order (each stage's microbatches, then the data group's f32
+# all-reduce; |g|² summed per stage, then over the pipe), a few f32 ulps
+# that AdamW carries into the next steps' losses.
+RANK_STEP_TOL = 1e-5
+
+
+def rank_window(mesh, dev):
+    """Start a timed window on every rank: counters zeroed, the stream
+    drained, a barrier. Returns the host clock."""
+    mesh.transport.reset()
+    reset_launches()
+    torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    return time.perf_counter()
+
+
+def rank_window_end(mesh, dev, t0: float) -> dict:
+    """End a window opened by ``rank_window``: the stream drained and a
+    barrier, then this rank's wall, hand-off, all-reduce and busy ms, the
+    bytes it sent per peer by kind and the kernels it launched."""
+    torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    net = mesh.transport
+    return {"wall_ms": 1e3 * (time.perf_counter() - t0),
+            "handoff_ms": net.ms["p2p"], "reduce_ms": net.ms["reduce"],
+            "busy_ms": net.busy_ms(),
+            "bytes": {k: list(v) for k, v in net.bytes.items()},
+            "launches": launches_now()}
+
+
+def ranked_forward(cfg, params, tokens, mesh, n_micro: int, dev) -> dict:
+    """(a) on this rank: the pipelined forward under no_grad, bf16, twice:
+    the first run's wavefronts, stage calls, B2 launches and copies, the
+    second's B2 calls each against ``mha_ref`` on its own operands (whole
+    tensor and per head) and its output against the first; a third run
+    timed between barriers. Returns the last stage's outputs on the host."""
+    compute = tfm.dtype_of(cfg.compute_dtype)
+    s = mesh.coords["pipe"]
+    layers = tfm.unstack(params["dense"])
+
+    def stage(stage_layers, x):
+        return tfm._scan_segment(cfg, "dense", stage_layers, x)[0]
+
+    def run():
+        x = (params["embed"][tokens].to(compute) if s == 0 else
+             torch.empty((*tokens.shape, cfg.d_model), dtype=compute,
+                         device="meta"))
+        return pipeline_apply(stage, layers, split_microbatches(x, n_micro),
+                              mesh=mesh)
+
+    with torch.no_grad():
+        reset_launches()
+        pipeline_apply.wavefronts = pipeline_apply.stage_calls = 0
+        ys = run()
+        torch.cuda.synchronize(dev)
+        counts = {"wavefronts": pipeline_apply.wavefronts,
+                  "stage_calls": pipeline_apply.stage_calls,
+                  "b2": flash_attention.launches,
+                  "copies": flash_attention.copies}
+        kernel_attention, errs = tfm.prefill_attention, []
+
+        def held(q, k, v, *, causal=True, window=0):
+            o = kernel_attention(q, k, v, causal=causal, window=window)
+            ref = mha_ref(q, k, v, causal=causal, window=window)
+            errs.append((rel_err(o, ref), head_err(o, ref)))
+            return o
+
+        tfm.prefill_attention = held
+        try:
+            again = torch.equal(run(), ys)
+        finally:
+            tfm.prefill_attention = kernel_attention
+        t0 = rank_window(mesh, dev)
+        run()
+        ms = rank_window_end(mesh, dev, t0)["wall_ms"]
+    return {**counts, "again": again, "ms": ms,
+            "b2_err": max((e for e, _ in errs), default=math.inf),
+            "b2_head": max((h for _, h in errs), default=math.inf),
+            "b2_calls": len(errs),
+            "ys": ys.cpu() if s == mesh.shape["pipe"] - 1 else None}
+
+
+def ranked_steps(cfg, mesh, params, batches, warmup: int, lr: float,
+                 n_micro: int, dev) -> dict:
+    """(b) on this rank: ``warmup`` steps of the ranked pipelined train
+    step, then the rest of ``batches`` timed between barriers: every
+    step's loss and |g|, the window's counters, this rank's peak memory
+    and the card's memory in use at the window's end."""
+    opt = adamw_init(params)
+    step_fn = make_pipeline_train_step(cfg, mesh, lr=lr, n_micro=n_micro)
+    losses, norms = [], []
+    for i, batch in enumerate(batches):
+        if i == warmup:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = rank_window(mesh, dev)
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out = rank_window_end(mesh, dev, t0)
+    free, total = torch.cuda.mem_get_info(dev)
+    return {**out, "losses": losses, "norms": norms,
+            "steps": len(batches) - warmup,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "card_used_gb": (total - free) / 1e9,
+            "leaf_bytes": sum(t.nbytes for t in tree_leaves(params))}
+
+
+def pipe_r2_rank(rank, world, n_micro, batch, seq, warmup, steps, lr, *,
+                 device):
+    """starcoder2-3b-pipe2-r2 on this rank: the whole model drawn from
+    seed 0 (the logical phase's draws) and this stage's leaves kept;
+    (a) ``ranked_forward`` on ``phase_pipeline``'s first batch, (b)
+    ``ranked_steps`` on its batches."""
+    dev = torch.device(device)
+    cfg = get_config("starcoder2-3b")
+    mesh = make_pipeline_mesh(world, world, dev,
+                              group=torch.distributed.group.WORLD)
+    params = pipeline_shard(cfg, tfm.init_params(cfg, seed=0, device=dev),
+                            mesh)
+    torch.cuda.empty_cache()
+    batches = [train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True,
+                           mask=False) for s in range(warmup + steps)]
+    fwd = ranked_forward(cfg, params, batches[0]["tokens"], mesh, n_micro,
+                         dev)
+    out = ranked_steps(cfg, mesh, params, batches, warmup, lr, n_micro, dev)
+    return {"coords": mesh.coords, "forward": fwd, **out}
+
+
+def pipe_r4_rank(rank, world, layers, n_micro, batch, seq, warmup, steps,
+                 lr, ckpt_layers, ckpt_dir, *, device):
+    """On this rank of a (2, 2, 1) world: starcoder2-3b-d8-pipe2-dp2-r4,
+    ``ranked_steps`` of the ``layers``-layer cut on the global batches;
+    then the ``ckpt_layers``-layer cut: one step, a checkpoint from the
+    ranks into ``ckpt_dir`` (each rank's own rows read back bit for bit),
+    a second step (the unkilled run's end), then a fresh state restored
+    from the checkpoint's own rows and the second step again, against
+    that end bit for bit."""
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=layers,
+                              compute_dtype="float32")
+    mesh = make_pipeline_mesh(2, world, dev,
+                              group=torch.distributed.group.WORLD)
+    params = pipeline_shard(cfg, tfm.init_params(cfg, seed=0, device=dev),
+                            mesh)
+    torch.cuda.empty_cache()
+    batches = [train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True)
+               for s in range(warmup + steps)]
+    out = ranked_steps(cfg, mesh, params, batches, warmup, lr, n_micro, dev)
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=ckpt_layers)
+    params = pipeline_shard(cfg, tfm.init_params(cfg, seed=0, device=dev),
+                            mesh)
+    opt = adamw_init(params)
+    step_fn = make_pipeline_train_step(cfg, mesh, lr=lr, n_micro=n_micro)
+    batches = [train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True)
+               for s in range(2)]
+    params, opt, _ = step_fn(params, opt, batches[0])
+    state = {"params": params, "opt": opt}
+    rows = pipeline_rows(cfg, state, mesh)
+    like = tfm.abstract_params(cfg)
+    like = {"params": like, "opt": adamw_init(like)}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ckpt.save_from_ranks(ckpt_dir, 0, state if mesh.coords["data"] == 0
+                         else None, like=like, rows=rows)
+    save_s = time.perf_counter() - t0
+    back = ckpt.restore(ckpt_dir, 0, state, rows=rows)
+    own_rows = same_bits(back, state)
+    params, opt, _ = step_fn(params, opt, batches[1])
+    back = step_fn(back["params"], back["opt"], batches[1])[:2]
+    resumed = same_bits(back, (params, opt))
+    return {**out, "coords": mesh.coords, "save_s": save_s,
+            "own_rows": own_rows, "resumed": resumed}
+
+
+def rank_cell_report(tag: str, runs, logical: dict, bytes_kind: str,
+                     want_bytes) -> None:
+    """Print a ranked cell's per-rank numbers and hold its counts: every
+    rank's timed steps launch no kernel, every loss and |g| against the
+    logical step's (RANK_STEP_TOL; step 0's loss bit for bit when
+    ``logical["bits"]``), and the bytes each rank sent its peers of kind
+    ``bytes_kind`` in a step equal to ``want_bytes(run)`` (a list)."""
+    wall = max(r["wall_ms"] for r in runs) / runs[0]["steps"]
+    log(f"[pipeline ranks] {tag}: {wall:.1f} ms a step (host clock between "
+        f"barriers, slowest rank, {runs[0]['steps']} steps), "
+        f"{logical['tokens'] / wall * 1e3:.0f} tok/s; the logical step in "
+        f"this run {logical['ms']:.1f} ms; card in use at the end "
+        f"{max(r['card_used_gb'] for r in runs):.2f} GB of 80, the ranks' "
+        f"peaks {sum(r['peak_gb'] for r in runs):.2f} GB [{card()}]")
+    log(f"[pipeline ranks]   losses {runs[0]['losses']} vs logical "
+        f"{logical['losses'][:len(runs[0]['losses'])]}; |g| "
+        f"{runs[0]['norms']} vs {logical['norms'][:len(runs[0]['norms'])]}")
+    for r in runs:
+        n = r["steps"]
+        per = {k: [b // n for b in v] for k, v in r["bytes"].items()}
+        log(f"[pipeline ranks]   rank {r['coords']}: peak {r['peak_gb']:.2f}"
+            f" GB; hand-offs {r['handoff_ms'] / n:.1f} ms a step "
+            f"({r['handoff_ms'] / r['wall_ms']:.1%} of its wall), "
+            f"all-reduces {r['reduce_ms'] / n:.1f} ms "
+            f"({r['reduce_ms'] / r['wall_ms']:.1%}), busy "
+            f"{r['busy_ms'] / n:.1f} ms a step (CUDA events between "
+            f"exchanges); bytes a step to each peer {per}; kernel launches "
+            f"{r['launches']}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(
+            r["losses"] + r["norms"], logical["losses"][:len(r["losses"])]
+            + logical["norms"][:len(r["norms"])])]
+        check(not any(r["launches"].values()),
+              f"{tag}: kernels launched in a ranked step: {r['launches']}")
+        check(max(errs) <= RANK_STEP_TOL, f"{tag}: rank {r['coords']} "
+              f"losses {r['losses']} |g| {r['norms']} vs logical "
+              f"{logical['losses']} {logical['norms']}")
+        check(not logical["bits"] or r["losses"][0] == logical["losses"][0],
+              f"{tag}: step 0's loss {r['losses'][0]!r} is not the logical "
+              f"step's {logical['losses'][0]!r} bit for bit")
+        check(all(b == n * w for b, w in zip(r["bytes"][bytes_kind],
+                                             want_bytes(r))),
+              f"{tag}: rank {r['coords']} sent {r['bytes'][bytes_kind]} "
+              f"{bytes_kind} bytes in {n} steps, want {want_bytes(r)} each")
+
+
+def logical_d8(cfg, dev, batch, seq, n_micro, warmup, steps, lr) -> dict:
+    """The one-process logical pipelined step of ``cfg`` on a (2, 2, 1)
+    mesh of the card, on the ranked cell's batches with microbatches of
+    the same rows: losses, |g| and ms a step after ``warmup``."""
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    step_fn = make_pipeline_train_step(cfg, make_pipeline_mesh(2, 4, dev),
+                                       lr=lr, n_micro=2 * n_micro)
+    losses, norms = [], []
+    for s in range(warmup + steps):
+        if s == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        b = train_batch(cfg, s, seq, batch, dev, seed=0, learnable=True)
+        params, opt, m = step_fn(params, opt, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "ms": ms,
+            "tokens": batch * seq, "bits": False}
+
+
+def same_small_leaves(ranked: str, step: int, cfg,
+                      limit: int = 1 << 20) -> tuple:
+    """Whether the ranked checkpoint's manifest names every leaf of the
+    whole state, and its manifest entries and files of the leaves of at
+    most ``limit`` elements (the stacked norms and biases, whose rows both
+    stage ranks wrote, their moments, the step) are byte for byte what the
+    one-process ``save`` writes for them; and how many leaves that
+    compared. The whole directory is held byte for byte on the CPU
+    (``tests/test_torch_pipeline_ranks.py``): its layout is host numpy."""
+    like = tfm.abstract_params(cfg)
+    like = dict(leaf_paths({"params": like, "opt": adamw_init(like)}))
+    small = {}
+    for leaf, t in like.items():
+        if t.numel() <= limit:
+            *path, last = leaf.split("/")
+            node = small
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = t
+    name = f"step_{step:08d}"
+    with open(os.path.join(ranked, name, "manifest.json")) as f:
+        got = json.load(f)["leaves"]
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, step, ckpt.restore(ranked, step, small, device="cpu"))
+        with open(os.path.join(d, name, "manifest.json")) as f:
+            want = json.load(f)["leaves"]
+        same = sorted(got) == sorted(like) and all(
+            got[k] == w and filecmp.cmp(
+                os.path.join(d, name, "arrays", w["file"]),
+                os.path.join(ranked, name, "arrays", w["file"]),
+                shallow=False) for k, w in want.items())
+    return same, len(want)
+
+
+def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
+                         warmup=1, steps=3, lr=3e-4, layers=8, d8_steps=2,
+                         ckpt_layers=2) -> dict:
+    """The pipelined mesh's pipe and data axes as rank processes that
+    share the card (``make_pipeline_train_step`` on a
+    ``make_pipeline_mesh(..., group=)``; hand-offs and all-reduces through
+    gloo over pinned host buffers).
+    starcoder2-3b-pipe2-r2: full width and depth on 2 stage ranks, each
+    drawing the whole model from seed 0 and keeping its stage; (a) the
+    pipelined forward under no_grad on ``phase_pipeline``'s first batch:
+    the last stage's outputs bit for bit that phase's logical forward,
+    ``n_micro`` wavefronts and stage calls and 15 x ``n_micro`` B2 launches
+    per rank, each B2 call held to ``mha_ref`` on its operands (TOL bf16,
+    whole and per head); (b) ``warmup`` then ``steps`` timed steps on that
+    phase's batches: losses and |g| against its logical ones
+    (RANK_STEP_TOL, step 0's loss bit for bit), no kernel launched, each
+    stage's activations and their gradients n_micro x 1 x seq x d_model
+    bf16 a step each way. starcoder2-3b-d8-pipe2-dp2-r4: ``layers`` of 30
+    layers at full width on a (2, 2, 1) world, global batch 2·batch x seq,
+    ``warmup`` then ``d8_steps`` timed steps against the one-process
+    logical step on the same cut (RANK_STEP_TOL),
+    each stage's f32 leaf bytes all-reduced with its data peer a step (f32
+    compute: in bf16 the head's weight gradient is one bf16 product over
+    the batch in one process and two over half batches on the data ranks,
+    rounded apart, 2^-8 relative, which RANK_STEP_TOL would not hold);
+    and on a ``ckpt_layers``-layer cut, a checkpoint from the ranks, its
+    small leaves byte for byte the one-process save's
+    (``same_small_leaves``), each rank's rows read back bit for bit, and a
+    resume bit for bit the unkilled run."""
+    t_phase = time.perf_counter()
+    fwd_want = pipe["forward"].pop("ys")
+    free, total = torch.cuda.mem_get_info()
+    log(f"[pipeline ranks] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved); the card "
+        f"has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    r2 = spawn_ranks(pipe_r2_rank, 2, n_micro, batch, seq, warmup, steps,
+                     lr, device=dev, timeout=600)
+    cfg = get_config("starcoder2-3b")
+    per = cfg.n_layers // 2
+    for r in r2:
+        f = r["forward"]
+        log(f"[pipeline ranks] starcoder2-3b-pipe2-r2 forward, rank "
+            f"{r['coords']}: {f['wavefronts']} wavefronts, "
+            f"{f['stage_calls']} stage calls, {f['b2']} B2 launches, "
+            f"{f['copies']} operands copied; a second run bit for bit the "
+            f"first: {f['again']}, its {f['b2_calls']} B2 calls against "
+            f"mha_ref on their operands: max err {f['b2_err']:.3e}, per "
+            f"head {f['b2_head']:.3e} (tol {TOL[torch.bfloat16]:.0e}); "
+            f"{f['ms']:.1f} ms between barriers (logical forward "
+            f"{pipe['forward']['ms']:.1f} ms)")
+        check(f["wavefronts"] == f["stage_calls"] == n_micro
+              and f["b2"] == f["b2_calls"] == per * n_micro
+              and f["copies"] == 0,
+              f"ranked forward counts {f}")
+        check(f["again"] and f["b2_err"] <= TOL[torch.bfloat16]
+              and f["b2_head"] <= TOL[torch.bfloat16],
+              f"ranked forward: rerun equal {f['again']}, B2 against "
+              f"mha_ref {f['b2_err']}, per head {f['b2_head']}")
+    ys = r2[-1]["forward"]["ys"]
+    bits = torch.equal(ys, fwd_want)
+    log(f"[pipeline ranks]   the last stage's outputs {tuple(ys.shape)} bit "
+        f"for bit the logical pipelined forward: {bits}")
+    check(bits, "ranked forward differs from the logical pipelined forward")
+    handoff = n_micro * (batch // n_micro) * seq * cfg.d_model * 2
+    logical = {"losses": pipe["losses"], "norms": pipe["norms"],
+               "ms": pipe["ms"], "tokens": batch * seq, "bits": True}
+    rank_cell_report(
+        "starcoder2-3b-pipe2-r2", r2, logical, "p2p",
+        lambda r: [0, handoff] if r["coords"]["pipe"] == 0 else [handoff, 0])
+    log(f"[pipeline ranks]   activation bytes a step each way {handoff} "
+        f"(scalars apart)")
+    forward_b2 = [r["forward"]["b2"] for r in r2]
+    step_launches = [r["launches"] for r in r2]
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[pipeline ranks] starcoder2-3b-pipe2-r2: "
+        f"{time.perf_counter() - t_phase:.1f} s, spawning included")
+    t1 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, n_layers=layers, compute_dtype="float32")
+    logical8 = logical_d8(cfg8, dev, 2 * batch, seq, n_micro, warmup,
+                          d8_steps, lr)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        r4 = spawn_ranks(pipe_r4_rank, 4, layers, n_micro, 2 * batch, seq,
+                         warmup, d8_steps, lr, ckpt_layers, d, device=dev,
+                         timeout=900)
+        t3 = time.perf_counter()
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(d) for f in fs)
+        same, n_same = same_small_leaves(d, 0, dataclasses.replace(
+            cfg8, n_layers=ckpt_layers))
+    by = {tuple(r["coords"].values()): r for r in r4}
+    rank_cell_report(
+        f"starcoder2-3b-d{layers}-pipe2-dp2-r4", r4, logical8, "reduce",
+        lambda r: [r["leaf_bytes"] if p == (r["coords"]["pipe"],
+                                            1 - r["coords"]["data"], 0)
+                   else 0 for p in sorted(by)])
+    log(f"[pipeline ranks] the d{layers} logical step {t2 - t1:.1f} s, the "
+        f"4-rank world {t3 - t2:.1f} s")
+    save_s = max(r["save_s"] for r in r4)
+    own = all(r["own_rows"] for r in r4)
+    resumed = all(r["resumed"] for r in r4)
+    log(f"[pipeline ranks] starcoder2-3b-d{ckpt_layers} on the (2, 2, 1) "
+        f"ranks: checkpoint from the ranks {nbytes / 1e9:.3f} GB in "
+        f"{save_s:.2f} s; its manifest and the files of its {n_same} "
+        f"leaves of <= 2^20 elements byte for byte the one-process save's: "
+        f"{same}; each rank's own rows read back bit for bit: {own}; a "
+        f"resume bit for bit the unkilled run: {resumed}")
+    check(same and own and resumed,
+          f"ranked checkpoint: small leaves {same}, own rows {own}, resume "
+          f"{resumed}")
+    log(f"[pipeline ranks] phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"forward_b2": forward_b2, "step_launches": step_launches,
+            "r4_launches": [r["launches"] for r in r4]}
 
 
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
@@ -3469,6 +3898,10 @@ def main() -> int:
     pipe = phase_pipeline(dev, train)
     gc.collect()
     torch.cuda.empty_cache()
+    pipe_ranks = phase_pipeline_ranks(dev, pipe)
+    ranks["starcoder2-3b-pipe2-r2 forward"] = pipe_ranks["forward_b2"]
+    gc.collect()
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
@@ -3536,6 +3969,11 @@ def main() -> int:
         "replaces": f"src/repro/kernels/{where}", "launches": launches,
         "train_launches": train["launches"][name],
         "pipeline_train_launches": pipe["launches"][name],
+        "pipeline_ranks_train_launches": {
+            "starcoder2-3b-pipe2-r2": [
+                r[name] for r in pipe_ranks["step_launches"]],
+            "starcoder2-3b-d8-pipe2-dp2-r4": [
+                r[name] for r in pipe_ranks["r4_launches"]]},
         "ranks_launches": {cell: ranks[cell]
                            for cell in RANK_CELLS.get(name, ())},
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -2,7 +2,9 @@
 deterministic data + async checkpointing + restart, on any --arch from the
 registry; ``--pipeline STAGES`` trains the dense family stage-parallel
 (``repro_torch.dist.pipeline``) on a logical ("pipe", "data", "model")
-mesh of the one device.
+mesh of the one device, and with ``--ranks N`` on N rank processes (a
+(STAGES, N / STAGES, 1) mesh: one process per stage and data replica,
+each holding and checkpointing its own stage's leaves).
 
 The port's counterpart of ``examples/train_lm.py``. Defaults train a
 reduced config on a *learnable* synthetic task (arithmetic progressions
@@ -14,23 +16,28 @@ config and --data for a packed uint32 token file. On ``cuda`` unless
       --steps 60
   PYTHONPATH=src python examples/torch_train_lm.py --arch starcoder2-3b \
       --pipeline 2 --layers 4 --device cpu
+  PYTHONPATH=src python examples/torch_train_lm.py --arch starcoder2-3b \
+      --pipeline 2 --ranks 4 --layers 4 --device cpu
 """
 
 import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
+from repro_torch.dist.ranks import spawn_ranks
 from repro_torch.launch.mesh import make_pipeline_mesh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import PackedBinaryDataset, SyntheticLM
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import (init_train_state,
                                           make_pipeline_train_step,
-                                          make_train_step)
-from repro_torch.models.transformer import abstract_params
+                                          make_train_step, pipeline_rows,
+                                          pipeline_shard)
+from repro_torch.models.transformer import abstract_params, init_params
 
 
 def main(argv=None):
@@ -47,6 +54,8 @@ def main(argv=None):
     ap.add_argument("--vocab", type=int, default=None)
     ap.add_argument("--d-ff", type=int, default=None)
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES")
+    ap.add_argument("--ranks", type=int, default=0, metavar="N",
+                    help="with --pipeline: N rank processes")
     ap.add_argument("--data", default=None, help="packed uint32 token file")
     ap.add_argument("--ckpt-dir", default="ckpt/train_lm")
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -73,7 +82,25 @@ def main(argv=None):
     print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
           f"(active {cfg.n_active_params() / 1e6:.1f}M) opt={cfg.optimizer} "
           f"on {device}")
+    if args.ranks:
+        if args.pipeline < 1 or args.ranks % args.pipeline:
+            raise SystemExit("--ranks N needs --pipeline STAGES dividing N")
+        spawn_ranks(train, args.ranks, args, cfg, device=device,
+                    timeout=24 * 3600.0)
+    else:
+        train(0, 1, args, cfg, device=device, ranks=False)
 
+
+def train(rank, world, args, cfg, *, device, ranks=True):
+    """The training loop, on one device or as rank ``rank`` of ``world``
+    rank processes."""
+    device = torch.device(device)
+    lead = rank == 0
+    mesh = None
+    if args.pipeline > 1 or ranks:
+        mesh = make_pipeline_mesh(args.pipeline, world if ranks
+                                  else args.pipeline, device,
+                                  group=dist.group.WORLD if ranks else None)
     if args.data:
         ds = PackedBinaryDataset(args.data, args.seq, args.batch)
     else:
@@ -81,36 +108,47 @@ def main(argv=None):
                          embed_dim=cfg.d_model if cfg.embed_inputs else None,
                          encdec=cfg.family == "encdec", learnable=True)
 
+    init_opt, _ = make_optimizer(cfg.optimizer)
+    like = abstract_params(cfg)
+    like = {"params": like, "opt": init_opt(like)}
+    own = pipeline_shard(cfg, like, mesh) if ranks else like
+    rows = pipeline_rows(cfg, own, mesh) if ranks else None
     start = 0
     latest = ckpt.latest_step(args.ckpt_dir)
-    if latest is None:
+    if latest is None and ranks:
+        params = pipeline_shard(cfg, init_params(cfg, seed=0, device=device),
+                                mesh)
+        opt_state = init_opt(params)
+    elif latest is None:
         params, opt_state = init_train_state(cfg, seed=0, device=device)
     else:
-        print(f"resuming from checkpoint step {latest}")
-        init_opt, _ = make_optimizer(cfg.optimizer)
-        like = abstract_params(cfg)
-        state = ckpt.restore(args.ckpt_dir, latest,
-                             {"params": like, "opt": init_opt(like)},
-                             device=device)
+        if lead:
+            print(f"resuming from checkpoint step {latest}")
+        state = ckpt.restore(args.ckpt_dir, latest, own, device=device,
+                             rows=rows)
         params, opt_state = state["params"], state["opt"]
         start = latest + 1
 
-    if args.pipeline > 1:
-        mesh = make_pipeline_mesh(args.pipeline, args.pipeline, device)
+    if mesh is not None:
         step_fn = make_pipeline_train_step(cfg, mesh, lr=args.lr,
                                            n_micro=2 * args.pipeline)
-        print(f"pipeline: {args.pipeline} stages x {2 * args.pipeline} "
-              "microbatches")
+        if lead:
+            print(f"pipeline: {args.pipeline} stages x {2 * args.pipeline} "
+                  f"microbatches, mesh {mesh.shape}"
+                  + (f" on {world} rank processes" if ranks else ""))
     else:
         step_fn = make_train_step(cfg, lr=args.lr)
-    saver = ckpt.AsyncCheckpointer(args.ckpt_dir, keep=2)
+    saver = (ckpt.RankCheckpointer(args.ckpt_dir, keep=2, like=like,
+                                   rows=rows, group=mesh.group,
+                                   writes=mesh.coords["data"] == 0)
+             if ranks else ckpt.AsyncCheckpointer(args.ckpt_dir, keep=2))
 
     t0 = time.perf_counter()
     for step in range(start, start + args.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in ds.batch_at(step).items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        if step % 5 == 0 or step == start + args.steps - 1:
+        if lead and (step % 5 == 0 or step == start + args.steps - 1):
             loss = float(metrics["loss"])         # waits for the step
             gn = float(metrics["grad_norm"])
             tok_s = (step - start + 1) * args.batch * args.seq \
@@ -120,7 +158,8 @@ def main(argv=None):
         if step and step % args.ckpt_every == 0:
             saver.save(step, {"params": params, "opt": opt_state})
     saver.wait()  # quiesce in-flight writes before exit (completion rule)
-    print("done; checkpoints in", args.ckpt_dir)
+    if lead:
+        print("done; checkpoints in", args.ckpt_dir)
 
 
 if __name__ == "__main__":

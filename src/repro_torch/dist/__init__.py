@@ -26,10 +26,14 @@ ordinary model code) to a mesh — a logical one on the port's one device
   ``discover`` and each wavefront's cross-stage hand-offs are exactly the
   ``comm_plan`` pairs. On one device the pipeline runs the schedule's live
   tasks in wavefront order and hands each output on through the
-  wavefront's permutation.
+  wavefront's permutation; on a mesh of ranks (``Mesh(..., group=)``)
+  each rank runs its own stage's tasks and each hand-off is a send to the
+  pair the permutation names.
 - :mod:`repro_torch.dist.ranks` — the block executor on real ranks: one
   spawned process per shard in a ``torch.distributed`` group
   (``spawn_ranks``), each running its own shard
   (``BlockProgram.executor(..., group=)``), the exchanges gloo
-  collectives staged through host memory (``HostTransport``).
+  collectives staged through host memory (``HostTransport``); and the
+  model path's tensors between the ranks of a mesh (``TensorTransport``:
+  sends, f32 all-reduces, broadcasts).
 """

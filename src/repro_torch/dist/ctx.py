@@ -10,6 +10,12 @@ device), so a layout constraint moves nothing. The layout a spec would
 give is ``sanitize_spec``'s (the dry run's argument bytes,
 ``named_shardings``' placements). What the mesh does change is read
 through ``data_rows()`` (the MoE's dispatch rows).
+
+On a mesh of ranks (``Mesh(..., group=)``), each rank installs its own
+mesh: ``get_mesh()`` is the rank's, with its ``coords``; ``batch_axes()``
+are the global batch's axes as on a logical mesh; ``data_rows()`` is 1,
+since a rank holds only its own rows of the global batch (one dispatch
+row); ``annotate`` still returns its input.
 """
 
 from __future__ import annotations
@@ -94,9 +100,10 @@ def seq_shard() -> bool:
 
 def data_rows() -> int:
     """Number of data-parallel rows = product of the batch-axis sizes (the
-    R in the MoE [R, T, D] row decomposition); 1 with no mesh/batch axes."""
+    R in the MoE [R, T, D] row decomposition); 1 with no mesh/batch axes,
+    and on a mesh of ranks, where this rank's batch is its own row."""
     mesh, axes = _state["mesh"], _state["batch_axes"]
-    if mesh is None or axes is None:
+    if mesh is None or axes is None or mesh.group is not None:
         return 1
     names = axes if isinstance(axes, tuple) else (axes,)
     rows = 1

@@ -19,6 +19,22 @@ same values, with exactly one ``stage_fn`` call per (stage, microbatch).
 
 The backward comes from autograd: the hand-offs are plain tensor
 references, so the gradient pipeline is the forward trapezoid mirrored.
+
+On a mesh of ranks (``launch.mesh.Mesh(..., group=)``: one process per
+mesh coordinate) each rank runs only its own stage's tasks, in the same
+wavefront order, and each hand-off is a send from the stage the
+wavefront's permutation round names to its pair, staged through host
+memory by the mesh's ``TensorTransport``. The hand-off is an autograd
+``Function``: its forward sends (or receives) the activation, its
+backward sends the activation's gradient back over the same pair,
+reversed. A stage's forward sends are asynchronous and complete before
+``pipeline_apply`` returns; its backward receives block. So the gradient
+pipeline is GPipe's (all forwards, then all backwards), and no rank can
+wait on a peer that waits on it: in the forward a stage waits only on the
+one before it, in the backward only on the one after it, and a stage
+enters its backward after its last forward send has been issued. The
+last stage alone holds the outputs (the reference ``psum``s them onto
+every stage).
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ import torch
 
 from ..core.discovery import PTG, WavefrontSchedule
 from ..ptg import Graph, IndexSpace
+from ..train.tree import leaves
 
 
 def pipeline_graph(n_stages: int, n_micro: int) -> Graph:
@@ -158,12 +175,25 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     reference folds runs of equal permutation into ``lax.scan`` to keep its
     program small, and a Python loop has no program size to keep small.
 
+    On a mesh of ranks, ``stage_params`` is this rank's own stage tree
+    (under grad every rank takes the gradient with respect to its stage's
+    parameters: the previous stage waits for that backward), and only
+    stage 0 reads ``xs``'s values: a later stage may pass a
+    ``meta`` tensor of its shape and dtype, the shape and dtype of every
+    hand-off. The last stage returns the outputs; any other stage returns
+    a 0-d zero (f32) whose gradient runs this stage's backward: take the
+    gradient of it where the last stage takes the loss's.
+
     ``pipeline_apply.wavefronts`` and ``pipeline_apply.stage_calls`` count
-    the wavefronts walked and the ``stage_fn`` calls made."""
+    the wavefronts walked and the ``stage_fn`` calls made (on ranks, this
+    rank's own: the wavefronts that hold one of its tasks)."""
     axis = axis or mesh.axis_names[0]
     n_stages = mesh.shape[axis]
     n_micro = xs.shape[0]
     sched, perms = _plan(n_stages, n_micro)
+    if mesh.group is not None:
+        return _apply_on_ranks(stage_fn, stage_params, xs, mesh, axis,
+                               sched, perms)
     params = _per_stage(stage_params, n_stages)
     outs: List[Optional[torch.Tensor]] = [None] * n_micro
     inbox: Dict[int, Tuple[int, torch.Tensor]] = {}
@@ -197,6 +227,105 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
 
 pipeline_apply.wavefronts = 0
 pipeline_apply.stage_calls = 0
+
+
+class _Link:
+    """One ranked ``pipeline_apply`` call's hand-offs: this stage's
+    neighbours (global ranks), the hand-off's shape and dtype, and the
+    backward sends still to issue (the last one completes them all)."""
+
+    def __init__(self, transport, prev, nxt, shape, dtype, device,
+                 n_micro):
+        self.transport, self.prev, self.next = transport, prev, nxt
+        self.shape, self.dtype, self.device = shape, dtype, device
+        self.grads_to_send = n_micro if prev is not None else 0
+
+
+class _Send(torch.autograd.Function):
+    """Forward: send activation ``y`` of microbatch ``m`` to the next
+    stage; returns a 0-d zero that carries the backward. Backward: receive
+    ``y``'s gradient from the next stage. ``anchor`` (a 0-d leaf that
+    requires grad) makes the output require grad whenever grad is on."""
+
+    @staticmethod
+    def forward(ctx, y, anchor, link, m):
+        ctx.link, ctx.m = link, m
+        link.transport.send(y, link.next, tag=m)
+        return anchor.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        link = ctx.link
+        g = link.transport.recv(link.shape, link.dtype, link.next,
+                                tag=ctx.m)
+        return g, None, None, None
+
+
+class _Recv(torch.autograd.Function):
+    """Forward: receive the activation of microbatch ``m`` from the
+    previous stage. Backward: send its gradient back to that stage; the
+    last of the call's backward sends completes them all. The stage's
+    parameters that require grad are inputs too (their gradient here is
+    None): ``autograd.grad`` runs only the nodes on a path to the inputs
+    it is asked for, and the previous stage waits for this backward."""
+
+    @staticmethod
+    def forward(ctx, link, m, anchor, *params):
+        ctx.link, ctx.m = link, m
+        return link.transport.recv(link.shape, link.dtype, link.prev,
+                                   tag=m)
+
+    @staticmethod
+    def backward(ctx, g):
+        link = ctx.link
+        link.transport.send(g.to(link.dtype), link.prev, tag=ctx.m)
+        link.grads_to_send -= 1
+        if not link.grads_to_send:
+            link.transport.wait_sends()
+        return (None,) * len(ctx.needs_input_grad)
+
+
+def _apply_on_ranks(stage_fn, params, xs, mesh, axis, sched, perms):
+    """``pipeline_apply`` on this rank's stage of a mesh of ranks."""
+    s, n_stages, n_micro = mesh.coords[axis], mesh.shape[axis], xs.shape[0]
+    last = n_stages - 1
+    link = _Link(mesh.transport,
+                 mesh.line[axis][s - 1] if s else None,
+                 mesh.line[axis][s + 1] if s < last else None,
+                 tuple(xs.shape[1:]), xs.dtype,
+                 xs.device if s == 0 else mesh.device, n_micro)
+    anchor = torch.zeros((), device=link.device,
+                         requires_grad=torch.is_grad_enabled())
+    trained = [t for t in leaves(params) if t.requires_grad]
+    outs: List[Optional[torch.Tensor]] = [None] * n_micro
+    sent = []
+    tasks = sched.shards[s].wavefronts
+    for w, perm in enumerate(perms):
+        mine = tasks[w] if w < len(tasks) else []
+        if mine:
+            pipeline_apply.wavefronts += 1
+        for _, m in mine:
+            if s == 0:
+                x_in = xs[m]
+            else:
+                if (s - 1, s) not in perms[w - 1]:
+                    raise RuntimeError(
+                        f"wavefront {w}: stage {s} runs microbatch {m} "
+                        "with no hand-off to it in the previous round")
+                x_in = _Recv.apply(link, m, anchor, *trained)
+            y = stage_fn(params, x_in).to(xs.dtype)
+            pipeline_apply.stage_calls += 1
+            if s == last:
+                outs[m] = y
+                continue
+            if (s, s + 1) not in perm:
+                raise RuntimeError(f"wavefront {w}: hand-off from stage "
+                                   f"{s} outside the comm plan")
+            sent.append(_Send.apply(y, anchor, link, m))
+    link.transport.wait_sends()
+    if s == last:
+        return torch.stack(outs)
+    return torch.stack(sent).sum()
 
 
 def pipeline_loss_fn(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],

@@ -13,10 +13,17 @@ shard (``repro.core.schedule``: ``shard_map``, ``all_to_all``,
   its deadline, fails the call, and every child is stopped first.
 - :class:`HostTransport` is the transport: gloo, with blocks of stores on
   the card staged through pinned host buffers explicitly (gloo moves host
-  memory only). It counts the messages and bytes it sends to each peer,
-  the bytes it stages, and the host time the exchanges take. Ranks that
-  share one card cannot use NCCL (it refuses two ranks on one device), so
-  on one card the exchange always crosses the host.
+  memory only; the staging and the counts per peer are :class:`_Staged`'s,
+  which both transports share). It counts the messages and bytes it sends
+  to each peer, the bytes it stages, and the host time the exchanges
+  take. Ranks that share one card cannot use NCCL (it refuses two ranks
+  on one device), so on one card the exchange always crosses the host.
+- :class:`TensorTransport` is the model path's transport on a mesh of
+  ranks (``launch.mesh.Mesh(..., group=)``), staged through pinned host
+  memory the same way: point-to-point sends and receives of tensors of any
+  shape and dtype (the pipeline's activations and their gradients, moved
+  as bytes), f32 all-reduces over a sub-group (gradients, mask counts)
+  and broadcasts; it counts bytes and messages per peer by kind.
 - :func:`run_program` is the rank side of a run: the rank packs its own
   shard, runs the program's executor on it (``BlockProgram.executor`` /
   ``auto_executor`` with ``group=``) and returns its row, counters and
@@ -182,15 +189,77 @@ class _InFlight:
         return got
 
 
-class HostTransport:
-    """A block executor's exchanges between the ranks of a gloo process
-    group, through host memory.
+class _Staged:
+    """What both transports share: gloo moves host tensors only, so on the
+    card every buffer is staged explicitly. The rank waits for its stream
+    (:meth:`_drain`), copies the tensor into pinned host memory
+    (:meth:`stage_out`), hands it to gloo, and copies what it receives
+    back to ``device`` (:meth:`stage_in`); ``staged_bytes`` counts both
+    directions and ``stage_ms`` the host time of the copies out. On the
+    CPU tensors go as they are. ``bytes[kind][p]`` and ``msgs[kind][p]``
+    count what this rank sent to rank p, by the transport's ``KINDS``."""
 
-    gloo moves host tensors only, so on the card every buffer is staged
-    explicitly: the rank waits for its stream, copies the gathered blocks
-    into pinned host memory, sends them, and copies what it receives back
-    to the card (``staged_bytes`` counts both directions). On the CPU the
-    gathered blocks are sent as they are.
+    KINDS: tuple = ()
+
+    def __init__(self, device, world: int):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{type(self).__name__}: device is cuda but "
+                               "torch.cuda.is_available() is False")
+        self.staged = self.device.type == "cuda"
+        self.world = world
+
+    def _reset_counts(self) -> None:
+        self.bytes = {k: [0] * self.world for k in self.KINDS}
+        self.msgs = {k: [0] * self.world for k in self.KINDS}
+        self.staged_bytes = 0
+        self.stage_ms = 0.0
+
+    def _count(self, kind: str, peers, nbytes: int) -> None:
+        for p in peers:
+            self.bytes[kind][p] += nbytes
+            self.msgs[kind][p] += 1
+
+    def _drain(self) -> float:
+        """Wait for the rank's stream; returns the host clock."""
+        if self.staged:
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter()
+
+    def _empty(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A host buffer for gloo to receive into (pinned on the card)."""
+        return torch.empty(tuple(shape), dtype=dtype, pin_memory=self.staged)
+
+    def stage_out(self, t: torch.Tensor) -> torch.Tensor:
+        """The host buffer gloo sends: a pinned copy of ``t`` on the card
+        (the copy waits for the stream), ``t`` itself on the CPU when
+        contiguous."""
+        t = t.detach().contiguous()
+        if not self.staged:
+            return t
+        t0 = time.perf_counter()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        self.staged_bytes += host.nbytes
+        self.stage_ms += 1e3 * (time.perf_counter() - t0)
+        return host
+
+    def stage_in(self, host: torch.Tensor,
+                 into: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """What gloo received in ``host``, on ``device``: copied into
+        ``into`` when given (nothing to do where ``host`` is ``into``)."""
+        if into is not None and host.data_ptr() == into.data_ptr():
+            return into
+        if self.staged:
+            self.staged_bytes += host.nbytes
+        if into is None:
+            return host.to(self.device, non_blocking=True)
+        return into.copy_(host, non_blocking=self.staged)
+
+
+class HostTransport(_Staged):
+    """A block executor's exchanges between the ranks of a gloo process
+    group, through host memory (staged as :class:`_Staged` says).
 
     - a dense exchange is one ``all_to_all_single`` over a ``[world, M, b0,
       b1]`` buffer: row p goes to rank p, the rank's own row included (gloo
@@ -201,59 +270,29 @@ class HostTransport:
     Both are issued with ``async_op`` and complete in :meth:`_InFlight.wait`
     (the executor's ``land``), so under ``overlap`` the next wavefront's
     halo-independent compute runs while the blocks travel.
-    ``sent_bytes[p]`` and ``sent_msgs[p]`` count what this rank sent to
-    rank p; ``ms`` is the host time spent issuing and waiting, after the
-    stream has drained (so no compute is counted in it), and ``stage_ms``
-    the part of it spent copying gathered blocks to pinned memory.
+    ``bytes["blocks"][p]`` and ``msgs["blocks"][p]`` count what this rank
+    sent to rank p; ``ms`` is the host time spent issuing and waiting,
+    after the stream has drained (so no compute is counted in it), and
+    ``stage_ms`` the part of it spent copying gathered blocks to pinned
+    memory.
     """
+
+    KINDS = ("blocks",)
 
     def __init__(self, group, device, block_shape, dtype):
         self.group = group
         self.rank = dist.get_rank(group)
-        self.world = dist.get_world_size(group)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("HostTransport: device is cuda but "
-                               "torch.cuda.is_available() is False")
-        self.staged = self.device.type == "cuda"
+        super().__init__(device, dist.get_world_size(group))
         self.block_shape = tuple(block_shape)
         self.dtype = dtype
         self.reset()
 
     def reset(self) -> None:
-        self.sent_bytes = [0] * self.world
-        self.sent_msgs = [0] * self.world
-        self.staged_bytes = 0
+        self._reset_counts()
         self.ms = 0.0
-        self.stage_ms = 0.0
 
-    def stage_out(self, buf: torch.Tensor) -> torch.Tensor:
-        """The host buffer gloo sends: a pinned copy of ``buf`` on the
-        card (the copy waits for the stream), ``buf`` itself on the CPU."""
-        if not self.staged:
-            return buf.contiguous()
-        t0 = time.perf_counter()
-        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-        host.copy_(buf)
-        self.staged_bytes += host.nbytes
-        self.stage_ms += 1e3 * (time.perf_counter() - t0)
-        return host
-
-    def stage_in(self, host: torch.Tensor) -> torch.Tensor:
-        """What gloo received, on the store's device."""
-        if not self.staged:
-            return host
-        self.staged_bytes += host.nbytes
-        return host.to(self.device, non_blocking=True)
-
-    def _empty(self, *lead) -> torch.Tensor:
-        return torch.empty((*lead, *self.block_shape), dtype=self.dtype,
-                           pin_memory=self.staged)
-
-    def _drain(self) -> float:
-        if self.staged:
-            torch.cuda.current_stream(self.device).synchronize()
-        return time.perf_counter()
+    def _blocks(self, *lead) -> torch.Tensor:
+        return self._empty((*lead, *self.block_shape), self.dtype)
 
     def _peer(self, rank: int) -> int:
         return dist.get_global_rank(self.group, rank)
@@ -264,12 +303,11 @@ class HostTransport:
         [world, M]``."""
         t0 = self._drain()
         send = self.stage_out(buf)
-        recv = self._empty(*send.shape[:2])
+        recv = self._blocks(*send.shape[:2])
         work = dist.all_to_all_single(recv, send, group=self.group,
                                       async_op=True)
         for p in range(self.world):
-            self.sent_bytes[p] += send[p].nbytes
-            self.sent_msgs[p] += 1
+            self._count("blocks", [p], send[p].nbytes)
         self.ms += 1e3 * (time.perf_counter() - t0)
         return _InFlight(self, [work], send, recv, slots)
 
@@ -284,16 +322,150 @@ class HostTransport:
             send = self.stage_out(buf)
             ops.append(dist.P2POp(dist.isend, send, self._peer(to),
                                   self.group))
-            self.sent_bytes[to] += send.nbytes
-            self.sent_msgs[to] += 1
+            self._count("blocks", [to], send.nbytes)
         if frm is not None:
-            recv = self._empty(slots.shape[0])
+            recv = self._blocks(slots.shape[0])
             ops.append(dist.P2POp(dist.irecv, recv, self._peer(frm),
                                   self.group))
         works = dist.batch_isend_irecv(ops)
         self.ms += 1e3 * (time.perf_counter() - t0)
         return _InFlight(self, works, send, recv,
                          slots if frm is not None else None)
+
+
+class TensorTransport(_Staged):
+    """Tensors between the ranks of a gloo world, through host memory
+    (staged as :class:`_Staged` says).
+
+    - :meth:`send` (``isend``: the caller goes on computing while it
+      travels; :meth:`wait_sends` completes every send in flight) and
+      :meth:`recv` move a tensor as its bytes, so any dtype crosses (gloo's
+      typed ops may not take bf16);
+    - :meth:`all_reduce` sums an f32 tensor over a sub-group in place, and
+      refuses any other dtype: every reduction stays in f32;
+    - :meth:`broadcast` sends a tensor from one rank of a sub-group to the
+      others, in place.
+
+    Peers are global ranks. The kinds counted are ``"p2p"``, the sends;
+    ``"reduce"``, the all-reduces (the tensor's bytes to each other
+    member: what a pair exchanges; broadcasts count as ``"p2p"`` from
+    their source); ``"scalar"``, any message of one element. ``ms[kind]``
+    is the host time spent in each kind, waits for the peers included,
+    after the stream has drained. :meth:`busy_ms` is the time the rank's
+    stream spent between exchanges (CUDA events; the host clock on the
+    CPU). A group of one rank exchanges nothing."""
+
+    KINDS = ("p2p", "reduce", "scalar")
+
+    def __init__(self, device):
+        super().__init__(device, dist.get_world_size())
+        self._sends: list = []
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the counters and start the busy clock."""
+        self._reset_counts()
+        self.ms = {k: 0.0 for k in self.KINDS}
+        self._spans: list = []
+        self._mark = self._now()
+
+    def _now(self):
+        if not self.staged:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _enter(self) -> float:
+        """Close the compute span since the last exchange; drain the
+        stream. Returns the host clock."""
+        self._spans.append((self._mark, self._now()))
+        return self._drain()
+
+    def _leave(self, kind: str, t0: float) -> None:
+        self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+        self._mark = self._now()
+
+    def busy_ms(self) -> float:
+        """Milliseconds of the rank's stream between exchanges since
+        :meth:`reset`, up to now (synchronises)."""
+        spans = self._spans + [(self._mark, self._now())]
+        if not self.staged:
+            return 1e3 * sum(b - a for a, b in spans)
+        torch.cuda.synchronize(self.device)
+        return sum(a.elapsed_time(b) for a, b in spans)
+
+    @staticmethod
+    def _kind(t: torch.Tensor, kind: str) -> str:
+        return "scalar" if t.numel() == 1 else kind
+
+    @staticmethod
+    def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(-1).view(torch.uint8)
+
+    def send(self, t: torch.Tensor, to: int, tag: int = 0) -> None:
+        """Start sending ``t`` to rank ``to``; the host copy stays alive
+        until :meth:`wait_sends`."""
+        t0 = self._enter()
+        host = self.stage_out(t)
+        work = dist.isend(self._bytes_of(host), to, tag=tag)
+        self._sends.append((work, host))
+        kind = self._kind(t, "p2p")
+        self._count(kind, [to], host.nbytes)
+        self._leave(kind, t0)
+
+    def wait_sends(self) -> None:
+        """Complete every send in flight."""
+        t0 = time.perf_counter()
+        for work, _ in self._sends:
+            work.wait()
+        self._sends.clear()
+        self.ms["p2p"] += 1e3 * (time.perf_counter() - t0)
+
+    def recv(self, shape, dtype: torch.dtype, frm: int,
+             tag: int = 0) -> torch.Tensor:
+        """Receive a tensor of ``shape`` and ``dtype`` from rank ``frm``;
+        returns it on ``device``."""
+        t0 = self._enter()
+        host = self._empty(shape, dtype)
+        dist.recv(self._bytes_of(host), frm, tag=tag)
+        out = self.stage_in(host)
+        self._leave(self._kind(host, "p2p"), t0)
+        return out
+
+    def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
+        """Sum the f32 tensor ``t`` over ``group``, in place; returns it."""
+        if t.dtype != torch.float32:
+            raise TypeError(f"all_reduce takes f32 only (every reduction "
+                            f"stays in f32), got {t.dtype}")
+        members = dist.get_process_group_ranks(group)
+        if len(members) == 1:
+            return t
+        t0 = self._enter()
+        host = self.stage_out(t)
+        dist.all_reduce(host, group=group)
+        self.stage_in(host, into=t)
+        kind = self._kind(t, "reduce")
+        self._count(kind, [p for p in members if p != dist.get_rank()],
+                    host.nbytes)
+        self._leave(kind, t0)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int, group) -> torch.Tensor:
+        """``t`` of rank ``src`` on every rank of ``group``, in place;
+        returns it."""
+        members = dist.get_process_group_ranks(group)
+        if len(members) == 1:
+            return t
+        t0 = self._enter()
+        host = self.stage_out(t)
+        dist.broadcast(self._bytes_of(host), src, group=group)
+        self.stage_in(host, into=t)
+        kind = self._kind(t, "p2p")
+        if dist.get_rank() == src:
+            self._count(kind, [p for p in members if p != src], host.nbytes)
+        self._leave(kind, t0)
+        return t
 
 
 def owned_blocks(prog, runs: Sequence[dict]) -> Dict[object, torch.Tensor]:
@@ -368,8 +540,8 @@ def run_program(prog, bodies, blocks, runs: Sequence[dict], *, device,
             "name": name, "mode": ex.mode, "rank": rank, "wall_ms": wall_ms,
             "body_ms": ex.body_ms, "exchange_ms": ex.transport.ms,
             "stage_ms": ex.transport.stage_ms,
-            "sent_bytes": list(ex.transport.sent_bytes),
-            "sent_msgs": list(ex.transport.sent_msgs),
+            "sent_bytes": list(ex.transport.bytes["blocks"]),
+            "sent_msgs": list(ex.transport.msgs["blocks"]),
             "staged_bytes": ex.transport.staged_bytes,
             "wire_blocks": ex.wire_blocks[rank].tolist(),
             "calls": dict(ex.calls), "max_batch": dict(ex.max_batch),

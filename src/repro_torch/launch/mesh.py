@@ -1,14 +1,22 @@
-"""Logical meshes: named axes and their sizes over one torch device.
+"""Meshes: named axes and their sizes, logical or laid on rank processes.
 
-The port of ``repro.launch.mesh``. There is one card, so a mesh here is
+The port of ``repro.launch.mesh``. A mesh without a process group is
 logical: it names the axes a deployment would shard over and their sizes,
 and every shard of every axis lives on ``device``, the way the block
 executor stacks every shard on one device. Sharding changes layout, not
-values, so what a mesh changes on one device is the work: the MoE's
-dispatch rows (``dist.ctx.data_rows``), the decode cache's head count
+values, so what a logical mesh changes is the work: the MoE's dispatch
+rows (``dist.ctx.data_rows``), the decode cache's head count
 (``dist.sharding.kv_head_pad``) and the pipeline's stage count (the
-``"pipe"`` axis). Placing shards on ranks waits for a multi-process
-executor.
+``"pipe"`` axis).
+
+``Mesh(..., group=)`` lays the mesh on the rank processes of a
+``torch.distributed`` group, one process per mesh coordinate, as
+``jax.sharding.Mesh(np.array(devs).reshape(shape), names)`` places
+devices: rank r sits at r's row-major position over ``axis_names``. Each rank knows its ``coords``, the process group of its
+line along each axis (``groups``, ``line``) and a ``TensorTransport``
+over the whole group. The pipe and data axes run on ranks; the model axis
+(tensor parallelism) stays logical, so a mesh of ranks refuses a model
+axis > 1.
 
 Single pod: (16, 16) = 256 chips, axes ("data", "model").
 Multi-pod:  (2, 16, 16) = 512 chips, axes ("pod", "data", "model") — the
@@ -20,18 +28,31 @@ Building a mesh touches no device: ``device`` is only named.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class Mesh:
-    """``axis_names`` and their sizes over one device. ``shape`` maps each
+    """``axis_names`` and their sizes over ``device``. ``shape`` maps each
     name to its size, in axis order, as jax's ``mesh.shape`` does;
-    ``size`` is the number of logical devices."""
+    ``size`` is the number of devices (logical ones, or ranks).
+
+    With ``group`` (a ``torch.distributed`` group spanning the whole
+    world, one rank per mesh coordinate) the mesh is laid on the ranks:
+    ``coords`` are this rank's coordinates, ``line[axis]`` the global ranks
+    along its line of ``axis`` (in coordinate order) and ``groups[axis]``
+    that line's process group, made by one ``dist.new_group`` per line of
+    every axis, in the same order on every rank (gloo hangs otherwise);
+    ``transport`` carries the model path's exchanges. Raises
+    ``ValueError`` before any collective when the mesh's size is not the
+    world's, or when its ``"model"`` axis is > 1 (tensor parallelism on
+    ranks is ROADMAP A8d)."""
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
-                 device="cuda"):
+                 device="cuda", group=None):
         sizes, axis_names = tuple(int(s) for s in sizes), tuple(axis_names)
         if len(sizes) != len(axis_names) or any(s < 1 for s in sizes):
             raise ValueError(f"mesh sizes {sizes} over axes {axis_names}")
@@ -39,9 +60,53 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(axis_names, sizes))
         self.size: int = math.prod(sizes)
         self.device = torch.device(device)
+        self.group = group
+        self.coords: Optional[Dict[str, int]] = None
+        self.line: Dict[str, List[int]] = {}
+        self.groups: Dict[str, object] = {}
+        self.transport = None
+        if group is not None:
+            self._lay_on(group)
+
+    def _lay_on(self, group) -> None:
+        from ..dist.ranks import TensorTransport
+
+        world = dist.get_world_size(group)
+        if self.size != world or world != dist.get_world_size():
+            raise ValueError(
+                f"a mesh of {self.size} devices {self.shape} on ranks needs "
+                f"a group of the whole world of {self.size} processes, got "
+                f"{world} of {dist.get_world_size()}")
+        if self.shape.get("model", 1) > 1:
+            raise ValueError(
+                f"model axis {self.shape['model']} on ranks: tensor "
+                "parallelism on rank processes is ROADMAP A8d (the model "
+                "axis stays logical)")
+        sizes = tuple(self.shape.values())
+        rank = dist.get_rank(group)
+        self.coords = dict(zip(self.axis_names,
+                               map(int, np.unravel_index(rank, sizes))))
+        where = np.arange(self.size).reshape(sizes)
+        for i, name in enumerate(self.axis_names):
+            for line in np.moveaxis(where, i, -1).reshape(-1, sizes[i]):
+                ranks = [dist.get_global_rank(group, int(r)) for r in line]
+                pg = dist.new_group(ranks)
+                if rank in line:
+                    self.line[name], self.groups[name] = ranks, pg
+        self.transport = TensorTransport(self.device)
+
+    def rank_of(self, **coords: int) -> int:
+        """The global rank at ``coords`` (this rank's own on the axes left
+        out), on a mesh of ranks."""
+        at = {**self.coords, **coords}
+        pos = int(np.ravel_multi_index([at[a] for a in self.axis_names],
+                                       tuple(self.shape.values())))
+        return dist.get_global_rank(self.group, pos)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, device={self.device})"
+        where = (f"device={self.device}" if self.group is None else
+                 f"ranks, coords={self.coords}, device={self.device}")
+        return f"Mesh({self.shape}, {where})"
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
@@ -69,14 +134,15 @@ def make_dev_mesh(n_devices: int, model: int = 0, device="cuda") -> Mesh:
     return Mesh((n_devices // model, model), ("data", "model"), device)
 
 
-def make_pipeline_mesh(stages: int, n_devices: int, device="cuda") -> Mesh:
+def make_pipeline_mesh(stages: int, n_devices: int, device="cuda",
+                       group=None) -> Mesh:
     """The pipelined trainer's ("pipe", "data", "model") mesh of
-    (stages, n / stages, 1)."""
+    (stages, n / stages, 1), on ``group``'s ranks when given."""
     if stages < 1 or n_devices % stages:
         raise ValueError(f"{stages} stages do not divide {n_devices} "
                          "devices")
     return Mesh((stages, n_devices // stages, 1), ("pipe", "data", "model"),
-                device)
+                device, group=group)
 
 
 __all__ = ["Mesh", "make_dev_mesh", "make_host_mesh", "make_pipeline_mesh",

@@ -3,7 +3,7 @@ checkpointing and the elastic control loop.
 
     python -m repro_torch.launch.train --arch starcoder2-3b --steps 100 \
         [--reduced] [--microbatch 4] [--ckpt-dir ckpt] [--device cpu] \
-        [--pipeline STAGES] [--host-devices N] [--multi-pod]
+        [--pipeline STAGES] [--host-devices N] [--multi-pod] [--ranks]
 
 The JAX package's launcher (``repro.launch.train``) on one device: its
 flags, its data (``SyntheticLM``, learnable when ``--reduced``, or
@@ -34,6 +34,17 @@ the (2, 16, 16) one from N = 512 on (``--multi-pod`` alone stands for 512).
 Under a mesh the batch axes and sequence sharding are set as the reference
 sets them, and the MoE dispatches ``data_rows()`` rows. With none of these
 flags the run has no mesh.
+
+``--ranks`` runs the pipelined mesh's pipe and data axes as rank
+processes, as the reference runs them as devices: with ``--pipeline S
+--host-devices N`` (N defaults to S), ``dist.ranks.spawn_ranks`` starts N
+processes on the (S, N / S, 1) mesh (they share the card on ``cuda``, or
+the CPU), each holding, training and checkpointing only its own stage's
+leaves (``make_pipeline_train_step`` on a ``Mesh(..., group=)``,
+``checkpoint.RankCheckpointer``: the reference's layout, byte for byte).
+Rank 0 prints the step lines. ``--ranks`` without ``--pipeline`` (a model
+axis > 1 on ranks: ROADMAP A8d) or with ``--elastic`` (A8e) exits with a
+message.
 """
 
 import argparse
@@ -81,9 +92,19 @@ def main(argv=None) -> None:
                     choices=("inproc", "multiproc"),
                     help="with --elastic: comm backend of the cross-host "
                          "control-plane preflight")
+    ap.add_argument("--ranks", action="store_true",
+                    help="with --pipeline: one process per device of the "
+                         "('pipe', 'data', 'model') mesh, exchanging "
+                         "through torch.distributed (gloo)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.ranks and args.pipeline < 1:
+        sys.exit("--ranks runs the pipelined mesh's pipe and data axes on "
+                 "ranks; pass --pipeline STAGES (the model axis and "
+                 "non-pipelined meshes on ranks are ROADMAP A8d)")
+    if args.ranks and args.elastic:
+        sys.exit("--elastic does not run on ranks yet (ROADMAP A8e)")
 
     import torch
 
@@ -103,6 +124,16 @@ def main(argv=None) -> None:
     # logical devices of the mesh (0: no mesh)
     n_dev = args.host_devices or (512 if args.multi_pod else 0) \
         or args.pipeline
+
+    if args.ranks:
+        from repro_torch.dist.ranks import spawn_ranks
+
+        # the checks a rank would exit on, once, before any process starts
+        _n_micro(args, _pick_mesh(args, cfg, n_dev, None, None, device),
+                 global_batch)
+        spawn_ranks(_rank_main, n_dev, args, cfg, seq, global_batch,
+                    device=device, timeout=_RANK_TIMEOUT)
+        return
 
     controller = None
     kill_host = kill_at = None
@@ -138,7 +169,26 @@ def main(argv=None) -> None:
             shape_override = plan.mesh_shape
 
 
-def _pick_mesh(args, cfg, n_dev, shape_override, controller, device):
+# a ranked run's deadline, and its collectives' (a dead rank is caught at
+# once by ``spawn_ranks``; a hung one by this)
+_RANK_TIMEOUT = 24 * 3600.0
+
+
+def _rank_main(rank, world, args, cfg, seq, global_batch, *, device):
+    """One rank of a ``--ranks`` run: the step loop on its own place of the
+    pipelined mesh."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    mesh = _pick_mesh(args, cfg, world, None, None, device,
+                      group=dist.group.WORLD)
+    _run_epoch(args, cfg, seq, global_batch, device, mesh, None, None,
+               None, None)
+
+
+def _pick_mesh(args, cfg, n_dev, shape_override, controller, device,
+               group=None):
     """The run's logical mesh, as the reference's ``_run_epoch`` picks it;
     None without a mesh flag."""
     from repro_torch.launch.mesh import (Mesh, make_dev_mesh,
@@ -160,13 +210,25 @@ def _pick_mesh(args, cfg, n_dev, shape_override, controller, device):
         if cfg.n_layers % args.pipeline:
             sys.exit(f"{cfg.n_layers} layers do not split into "
                      f"{args.pipeline} equal pipeline stages")
-        return make_pipeline_mesh(args.pipeline, n_dev, device)
+        return make_pipeline_mesh(args.pipeline, n_dev, device, group=group)
     if n_dev >= 512 and args.multi_pod:
         return make_production_mesh(multi_pod=True, device=device)
     if n_dev >= 256:
         return make_production_mesh(device=device)
     return make_dev_mesh(n_dev, controller.model_axis if controller else 0,
                          device)
+
+
+def _n_micro(args, mesh, global_batch: int) -> int:
+    """The pipelined step's microbatch count: ``--microbatch`` if > 1,
+    else 2·STAGES (the GPipe rule); exits unless it splits each data
+    rank's rows of the batch (all of it on a logical mesh)."""
+    n_micro = args.microbatch if args.microbatch > 1 else 2 * args.pipeline
+    if global_batch % ((mesh.shape["data"] if args.ranks else 1) * n_micro):
+        sys.exit(f"batch {global_batch} does not split into {n_micro} "
+                 "microbatches" + (f" on each of {mesh.shape['data']} data "
+                                   "ranks" if args.ranks else ""))
+    return n_micro
 
 
 def _preflight_main(ctx):
@@ -213,36 +275,52 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
                kill_host, kill_at, end):
     import torch
 
-    from repro_torch.models.transformer import abstract_params
+    from repro_torch.models.transformer import abstract_params, init_params
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.data import PackedBinaryDataset, SyntheticLM
     from repro_torch.train.elastic import StragglerDetector
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import (init_train_state,
                                               make_pipeline_train_step,
-                                              make_train_step)
+                                              make_train_step,
+                                              pipeline_rows, pipeline_shard)
+
+    ranked = mesh is not None and mesh.group is not None
+    lead = not ranked or torch.distributed.get_rank() == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
 
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
     layout = ("one device" if mesh is None else
+              f"{mesh.shape} on {mesh.size} rank processes" if ranked else
               f"{mesh.shape} (logical) on one device")
-    print(f"mesh: {layout} ({where}), arch={cfg.name} "
-          f"({cfg.n_params() / 1e9:.2f}B params), seq={seq} "
-          f"batch={global_batch}", flush=True)
+    say(f"mesh: {layout} ({where}), arch={cfg.name} "
+        f"({cfg.n_params() / 1e9:.2f}B params), seq={seq} "
+        f"batch={global_batch}")
 
+    init_opt, _ = make_optimizer(cfg.optimizer)
+    like = abstract_params(cfg)
+    like = {"params": like, "opt": init_opt(like)}
+    # a rank holds, trains and checkpoints only its own stage's leaves
+    own = pipeline_shard(cfg, like, mesh) if ranked else like
+    rows = pipeline_rows(cfg, own, mesh) if ranked else None
     start = 0
     latest = ckpt.latest_step(args.ckpt_dir)
-    if latest is None:
+    if latest is None and ranked:
+        params = pipeline_shard(cfg, init_params(cfg, seed=args.seed,
+                                                 device=device), mesh)
+        opt_state = init_opt(params)
+    elif latest is None:
         params, opt_state = init_train_state(cfg, seed=args.seed,
                                              device=device)
     else:
-        print(f"elastic restore from step {latest} (resuming at step "
-              f"{latest + 1})", flush=True)
-        init_opt, _ = make_optimizer(cfg.optimizer)
-        like = abstract_params(cfg)
-        state = ckpt.restore(args.ckpt_dir, latest,
-                             {"params": like, "opt": init_opt(like)},
-                             device=device)
+        say(f"elastic restore from step {latest} (resuming at step "
+            f"{latest + 1})")
+        state = ckpt.restore(args.ckpt_dir, latest, own, device=device,
+                             rows=rows)
         params, opt_state = state["params"], state["opt"]
         start = latest + 1
 
@@ -254,17 +332,15 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
                          encdec=cfg.family == "encdec",
                          learnable=args.reduced)
     if args.pipeline > 1:
-        n_micro = (args.microbatch if args.microbatch > 1
-                   else 2 * args.pipeline)
-        if global_batch % n_micro:
-            sys.exit(f"batch {global_batch} does not split into {n_micro} "
-                     "microbatches")
-        step_fn = make_pipeline_train_step(cfg, mesh, lr=args.lr,
-                                           n_micro=n_micro)
+        step_fn = make_pipeline_train_step(
+            cfg, mesh, lr=args.lr, n_micro=_n_micro(args, mesh, global_batch))
     else:
         step_fn = make_train_step(cfg, lr=args.lr,
                                   microbatches=args.microbatch)
-    saver = ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3)
+    saver = (ckpt.RankCheckpointer(args.ckpt_dir, keep=3, like=like,
+                                   rows=rows, group=mesh.group,
+                                   writes=mesh.coords["data"] == 0)
+             if ranked else ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3))
     monitor = StragglerDetector()
     if end is None:
         end = start + args.steps
@@ -278,9 +354,9 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
         dt = time.perf_counter() - t0
         monitor.record(0, dt)
         if step % 10 == 0 or step == end - 1:
-            print(f"step {step:6d}  loss {loss:8.4f}  "
-                  f"|g| {float(metrics['grad_norm']):8.3f}  "
-                  f"{global_batch * seq / dt:10.0f} tok/s", flush=True)
+            say(f"step {step:6d}  loss {loss:8.4f}  "
+                f"|g| {float(metrics['grad_norm']):8.3f}  "
+                f"{global_batch * seq / dt:10.0f} tok/s")
         if step and step % args.ckpt_every == 0:
             saver.save(step, {"params": params, "opt": opt_state})
         if controller is not None:
@@ -302,7 +378,7 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
         # the same step would race the first on its directory)
         saver.save(end - 1, {"params": params, "opt": opt_state})
     saver.wait()  # quiesce (completion rule) before exit
-    print("done", flush=True)
+    say("done")
     return None, end
 
 

@@ -581,14 +581,17 @@ def lm_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return next_token_loss(logits, batch["labels"])
 
 
-def next_token_loss(logits: torch.Tensor, labels: torch.Tensor
-                    ) -> torch.Tensor:
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    count: torch.Tensor | None = None) -> torch.Tensor:
     """The masked mean negative log-likelihood of ``labels`` under
-    ``logits`` (log-softmax in f32, labels < 0 masked out)."""
+    ``logits`` (log-softmax in f32, labels < 0 masked out): the masked sum
+    over ``count``, the labels kept (this batch's unless given; a data
+    rank passes the global batch's)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if count is None else count
+    return -(ll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 # ================================================================ serving

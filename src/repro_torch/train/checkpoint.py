@@ -18,9 +18,18 @@ Durability: writes go to a temp dir, fsync'd, then atomically renamed;
 copies the tree to host memory: the port's optimizer updates parameters in
 place, so the next step cannot change a snapshot being written.
 ``AsyncCheckpointer.wait`` drains the writes in flight (quiesce before
-shutdown, the completion protocol's rule). One device: ``restore`` places
-every leaf on the device it is given (re-sharding onto a mesh waits for
-the port's sharding).
+shutdown, the completion protocol's rule). ``restore`` places every leaf
+on the device it is given.
+
+From rank processes that each hold some rows of the tree (the pipelined
+trainer's stages, ``train_step.pipeline_shard``), ``save_from_ranks``
+writes the same directory, byte for byte, with no tensor on the wire:
+rank 0 writes the manifest and every leaf's file, sized, as a memory
+map; after a barrier each rank writes its own rows into those files;
+after another rank 0 publishes the directory. ``restore(..., rows=)``
+reads only a rank's own rows. ``RankCheckpointer`` is
+``AsyncCheckpointer``'s interface over it (blocking: the ranks meet in
+its barriers).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .tree import leaf_paths, tree_map, unflatten
 
@@ -64,6 +74,11 @@ def _write(ckpt_dir: str, step: int, host_tree: Any) -> None:
         manifest["leaves"][name] = {"file": fname,
                                     "shape": list(leaf.shape),
                                     "dtype": dtype}
+    _publish(tmp, final, manifest)
+
+
+def _publish(tmp: str, final: str, manifest: dict) -> None:
+    """Write the manifest into ``tmp`` and rename it to ``final``."""
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -87,6 +102,84 @@ def save(ckpt_dir: str, step: int, tree: Any, *, blocking: bool = True
     return t
 
 
+def _stored(leaf: torch.Tensor) -> Tuple[np.dtype, tuple, str]:
+    """(numpy dtype, shape, manifest dtype name) of ``leaf``'s file, from
+    its dtype and shape alone (any device, ``meta`` included)."""
+    if leaf.dtype == torch.bfloat16:
+        shape = tuple(leaf.shape) or (1,)
+        return np.dtype(np.uint8), (*shape[:-1], 2 * shape[-1]), "bfloat16"
+    dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return dtype, tuple(leaf.shape), str(dtype)
+
+
+def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
+                    rows: dict, group=None) -> None:
+    """Write a checkpoint of the whole tree ``like`` (its names, shapes and
+    dtypes; any device, ``meta`` included) from the ranks of ``group``,
+    each writing the leaves of its ``tree`` (a part of ``like``'s, the
+    same names; None writes nothing) at ``rows[name]``, the row along dim
+    0 where the leaf starts in the whole one. Every rank of ``group``
+    calls it; it returns once the checkpoint is published. Ranks that
+    hold the same rows may both write them (the same bytes)."""
+    group = dist.group.WORLD if group is None else group
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    lead = dist.get_rank(group) == 0
+    host = {} if tree is None else dict(leaf_paths(_snapshot(tree)))
+    manifest = {"step": step, "leaves": {}}
+    for name, leaf in leaf_paths(like):
+        dtype, shape, dname = _stored(leaf)
+        fname = name.replace("/", "__") + ".npy"
+        if lead:
+            os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
+            np.lib.format.open_memmap(os.path.join(tmp, "arrays", fname),
+                                      mode="w+", dtype=dtype, shape=shape
+                                      ).flush()
+        manifest["leaves"][name] = {"file": fname,
+                                    "shape": list(leaf.shape),
+                                    "dtype": dname}
+    dist.barrier(group)
+    for name, leaf in host.items():
+        arr, _ = _as_numpy(leaf)
+        out = np.load(os.path.join(tmp, "arrays",
+                                   manifest["leaves"][name]["file"]),
+                      mmap_mode="r+")
+        if out.ndim:
+            out[rows[name]:rows[name] + arr.shape[0]] = arr
+        else:
+            out[...] = arr
+        out.flush()
+        del out
+    dist.barrier(group)
+    if lead:
+        _publish(tmp, final, manifest)
+    dist.barrier(group)
+
+
+class RankCheckpointer:
+    """``AsyncCheckpointer``'s interface for a tree held in parts by rank
+    processes: ``save`` is ``save_from_ranks`` (blocking), after which
+    rank 0 keeps the ``keep`` latest steps; ``wait`` has nothing to
+    drain. ``writes`` False: this rank holds a copy another rank writes
+    (it still meets the others in the barriers)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, *, like: Any,
+                 rows: dict, group=None, writes: bool = True):
+        self.ckpt_dir, self.keep = ckpt_dir, keep
+        self.like, self.rows, self.group = like, rows, group
+        self.writes = writes
+
+    def save(self, step: int, tree: Any) -> None:
+        save_from_ranks(self.ckpt_dir, step, tree if self.writes else None,
+                        like=self.like, rows=self.rows, group=self.group)
+        group = dist.group.WORLD if self.group is None else self.group
+        if dist.get_rank(group) == 0:
+            _prune(self.ckpt_dir, self.keep)
+
+    def wait(self) -> None:
+        pass
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -95,24 +188,39 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load_leaf(final: str, meta: dict) -> torch.Tensor:
-    arr = np.load(os.path.join(final, "arrays", meta["file"]))
+def _load_leaf(final: str, meta: dict, row: Optional[int] = None,
+               n: int = 0) -> torch.Tensor:
+    """The leaf's array, or its rows [row, row + n) (read from a memory
+    map)."""
+    path = os.path.join(final, "arrays", meta["file"])
+    shape = list(meta["shape"])
+    if row is None:
+        arr = np.load(path)
+    else:
+        arr = np.array(np.load(path, mmap_mode="r")[row:row + n])
+        shape[0] = n
     if meta["dtype"] == "bfloat16" and arr.dtype == np.uint8:
-        return torch.from_numpy(arr).view(torch.bfloat16).reshape(
-            meta["shape"])
+        return torch.from_numpy(arr).view(torch.bfloat16).reshape(shape)
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device=None,
+            rows: Optional[dict] = None) -> Any:
     """The checkpoint in the structure of ``like`` (a tree of tensors, on
     any device, ``meta`` included), each leaf cast to its ``like`` leaf's
-    dtype and placed on ``device`` (default: that leaf's device)."""
+    dtype and placed on ``device`` (default: that leaf's device). With
+    ``rows`` (``{leaf name: row}``, as ``save_from_ranks`` takes them),
+    ``like`` is a rank's part of the tree and each leaf of it with a
+    shape reads only its ``like`` leaf's length of rows from there."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = []
     for name, ref in leaf_paths(like):
-        t = _load_leaf(final, manifest["leaves"][name])
+        meta = manifest["leaves"][name]
+        part = rows is not None and ref.dim() > 0
+        t = _load_leaf(final, meta, rows[name] if part else None,
+                       ref.shape[0] if part else 0)
         leaves.append(t.to(device=ref.device if device is None else device,
                            dtype=ref.dtype))
     return unflatten(like, leaves)
@@ -132,11 +240,11 @@ class AsyncCheckpointer:
         self._inflight = [t for t in self._inflight if t.is_alive()]
         host_tree = _snapshot(tree)  # snapshot before async
 
-        def write_then_gc():
+        def write_then_prune():
             _write(self.ckpt_dir, step, host_tree)
-            self._gc()
+            _prune(self.ckpt_dir, self.keep)
 
-        t = threading.Thread(target=write_then_gc, daemon=True)
+        t = threading.Thread(target=write_then_prune, daemon=True)
         t.start()
         self._inflight.append(t)
 
@@ -144,16 +252,20 @@ class AsyncCheckpointer:
         for t in self._inflight:
             t.join()
         self._inflight.clear()
-        self._gc()  # writers may publish out of order; settle retention here
-
-    def _gc(self) -> None:
-        if not os.path.isdir(self.ckpt_dir):
-            return
-        steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.ckpt_dir)
-                       if d.startswith("step_") and not d.endswith(".tmp"))
-        for s in steps[: -self.keep]:
-            shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"),
-                          ignore_errors=True)
+        # writers may publish out of order; settle retention here
+        _prune(self.ckpt_dir, self.keep)
 
 
-__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]
+def _prune(ckpt_dir: str, keep: int) -> None:
+    """Delete all but the ``keep`` latest complete checkpoints."""
+    if not os.path.isdir(ckpt_dir):
+        return
+    steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for s in steps[: -keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+__all__ = ["AsyncCheckpointer", "RankCheckpointer", "latest_step",
+           "restore", "save", "save_from_ranks"]

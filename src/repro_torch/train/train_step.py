@@ -12,7 +12,14 @@ divided by k, as the reference's scan does.
 
 ``make_pipeline_train_step`` trains the dense family stage-parallel on a
 mesh's ``"pipe"`` axis (``dist/pipeline.py``): the same loss, its layer
-stack run as stages over microbatches.
+stack run as stages over microbatches. On a mesh of ranks
+(``launch.mesh.Mesh(..., group=)``) the pipe and data axes are rank
+processes (one per mesh coordinate): each rank holds, differentiates and
+updates only its own leaves (``pipeline_shard``), takes its own rows of
+the global batch, and the ranks meet in the pipeline's hand-offs and in
+f32 all-reduces (the data group's gradients and mask count, the tied
+embedding's two stages, the gradient norm) through the mesh's
+``TensorTransport``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from ..models.transformer import (_head, _scan_segment, dtype_of,
                                   init_params, layer_kinds, lm_loss,
                                   next_token_loss, unstack)
 from .optimizer import make_optimizer
-from .tree import leaves, unflatten
+from .tree import leaf_paths, leaves, tree_map, unflatten
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
@@ -87,21 +94,37 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
     return _train_step(cfg, grads_of, lr)
 
 
-def _train_step(cfg: ModelConfig, grads_of, lr: float):
+def _train_step(cfg: ModelConfig, grads_of, lr: float, norm=grad_norm):
     """``train_step(params, opt_state, batch)``: ``grads_of(params,
-    batch)``'s loss and gradients, their norm, and the config's optimizer
-    update in place."""
+    batch)``'s loss and gradients, their ``norm``, and the config's
+    optimizer update in place."""
     _, update = make_optimizer(cfg.optimizer)
 
     def train_step(params, opt_state, batch):
         with torch.profiler.record_function("train_step.grads"):
             loss, grads = grads_of(params, batch)
-            gnorm = grad_norm(grads)
+            gnorm = norm(grads)
         with torch.profiler.record_function("train_step.update"):
             params, opt_state = update(params, grads, opt_state, lr=lr)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _pipeline_split(cfg: ModelConfig, mesh, axis: str) -> int:
+    """Layers per stage; raises ``ValueError`` for a non-dense family or
+    layers that do not split into equal stages."""
+    kinds = layer_kinds(cfg)
+    if set(kinds) != {"dense"}:
+        raise ValueError(
+            f"pipeline parallelism supports the dense family for now, "
+            f"got segments {sorted(kinds)} (family {cfg.family!r})")
+    n_stages = mesh.shape[axis]
+    n_layers = kinds["dense"]
+    if n_layers % n_stages:
+        raise ValueError(
+            f"{n_layers} layers do not split into {n_stages} equal stages")
+    return n_layers // n_stages
 
 
 def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int,
@@ -115,18 +138,22 @@ def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int,
     under grad as the sequential forward is; every stacked leaf is unbound
     once (``unstack``), and the stages take consecutive runs of its
     layers. Only the dense family; a non-dense family or layers that do
-    not split into equal stages raise ``ValueError``."""
-    kinds = layer_kinds(cfg)
-    if set(kinds) != {"dense"}:
-        raise ValueError(
-            f"pipeline parallelism supports the dense family for now, "
-            f"got segments {sorted(kinds)} (family {cfg.family!r})")
+    not split into equal stages raise ``ValueError``.
+
+    On a mesh of ranks (``mesh.group`` set) ``loss`` runs this rank's
+    part: ``params`` is its own tree (``pipeline_shard``), and it takes
+    its own contiguous rows of ``batch`` along the ``"data"`` axis, split
+    into the ``n_micro`` microbatches. Stage 0 embeds and casts; the last
+    stage applies the final norm and the head and returns its rows' masked
+    log-likelihood sum over the *global* mask count (all-reduced over the
+    data group first); every other stage returns ``pipeline_apply``'s 0-d
+    anchor. The sum of the last stage's returns over the data group is the
+    loss, and the sum of every rank's gradients over its data group the
+    gradient (``pipeline_grads`` does both)."""
+    per = _pipeline_split(cfg, mesh, axis)
     n_stages = mesh.shape[axis]
-    n_layers = kinds["dense"]
-    if n_layers % n_stages:
-        raise ValueError(
-            f"{n_layers} layers do not split into {n_stages} equal stages")
-    per = n_layers // n_stages
+    if mesh.group is not None:
+        return _ranked_loss(cfg, mesh, n_micro, axis)
 
     def stage_fn(stage_layers, x):
         return _scan_segment(cfg, "dense", stage_layers, x)[0]
@@ -149,6 +176,135 @@ def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int,
     return loss_fn
 
 
+def _data_rows(mesh, batch):
+    """This rank's contiguous rows of every tensor of ``batch`` along the
+    mesh's ``"data"`` axis."""
+    n, d = mesh.shape.get("data", 1), mesh.coords.get("data", 0)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"batch {rows} does not split over data axis {n}")
+    lo, hi = d * rows // n, (d + 1) * rows // n
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def _ranked_loss(cfg: ModelConfig, mesh, n_micro: int, axis: str):
+    """``make_pipeline_loss``'s loss on this rank of a mesh of ranks."""
+    s, last = mesh.coords[axis], mesh.shape[axis] - 1
+    compute = dtype_of(cfg.compute_dtype)
+
+    def stage_fn(stage_layers, x):
+        return _scan_segment(cfg, "dense", stage_layers, x)[0]
+
+    def loss_fn(params, batch):
+        batch = _data_rows(mesh, batch)
+        labels = batch["labels"]
+        with suspend_annotations():   # the pipeline owns the layout
+            if s == 0:
+                tokens = batch.get("tokens")
+                x = (params["embed"][tokens] if batch.get("embeds") is None
+                     else batch["embeds"]).to(compute)
+            else:
+                x = torch.empty((*labels.shape, cfg.d_model), dtype=compute,
+                                device="meta")
+            ys = pipeline_apply(stage_fn, unstack(params["dense"]),
+                                split_microbatches(x, n_micro), mesh=mesh,
+                                axis=axis)
+            if s != last:
+                return ys
+            logits = _head(cfg, params, ys.reshape(x.shape))
+        count = mesh.transport.all_reduce((labels >= 0).float().sum(),
+                                          mesh.groups["data"])
+        return next_token_loss(logits, labels, count)
+
+    return loss_fn
+
+
+def _stage_keys(cfg: ModelConfig, stage: int, n_stages: int) -> set:
+    """The parameters besides the layer stack that ``stage`` holds: the
+    embedding on the first stage (and on the last when the head is tied to
+    it), the final norm and the head on the last."""
+    keys = {"embed"} if stage == 0 else set()
+    if stage == n_stages - 1:
+        keys |= {"final_norm", "embed" if cfg.tie_embeddings else "lm_head"}
+    return keys
+
+
+def pipeline_shard(cfg: ModelConfig, tree, mesh, axis: str = "pipe"):
+    """This rank's part of ``tree``, a parameter tree or a tree that holds
+    parameter-shaped dicts (the optimizer's state, ``{"params", "opt"}``):
+    in each of those dicts, its stage's consecutive run of the stacked
+    ``"dense"`` layers (cloned) and the keys ``_stage_keys`` gives it;
+    every other leaf (the optimizer's step) whole."""
+    s, n_stages = mesh.coords[axis], mesh.shape[axis]
+    per = _pipeline_split(cfg, mesh, axis)
+    keys = _stage_keys(cfg, s, n_stages)
+
+    def take(node):
+        if isinstance(node, dict) and "dense" in node:
+            return {k: (tree_map(lambda t: t[s * per:(s + 1) * per].clone(),
+                                 v) if k == "dense" else v)
+                    for k, v in node.items() if k == "dense" or k in keys}
+        if isinstance(node, dict):
+            return {k: take(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*map(take, node))
+        return node
+
+    return take(tree)
+
+
+def pipeline_rows(cfg: ModelConfig, tree, mesh, axis: str = "pipe"
+                  ) -> dict:
+    """``{leaf name: row}`` of a ``pipeline_shard`` tree: where each leaf
+    starts along dim 0 of the whole one (the stage's first layer for the
+    stacked ``"dense"`` leaves, 0 for whole leaves), as the ranked
+    checkpoint writes and reads them."""
+    first = mesh.coords[axis] * _pipeline_split(cfg, mesh, axis)
+    return {name: first if "dense" in name.split("/") else 0
+            for name, _ in leaf_paths(tree)}
+
+
+def pipeline_grads(cfg: ModelConfig, mesh, *, n_micro: int,
+                   axis: str = "pipe"):
+    """``grads_of(params, batch) -> (loss, grads)`` on a mesh of ranks
+    (``make_pipeline_loss``'s ranked loss): ``params`` is this rank's own
+    tree (``pipeline_shard``), ``batch`` the global batch. After the
+    backward each gradient is summed over the rank's data group, and a
+    tied embedding's two contributions between the first and the last
+    stage, all in f32 (in the gradient's dtype after); the loss goes from
+    the last stage's data group to every rank of its pipe line."""
+    loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, axis=axis)
+    s, last = mesh.coords[axis], mesh.shape[axis] - 1
+    net = mesh.transport
+    tied = None
+    if cfg.tie_embeddings and last:
+        # one group per data line, on every rank in the same order
+        for d in range(mesh.shape.get("data", 1)):
+            pg = torch.distributed.new_group(
+                [mesh.rank_of(**{axis: 0, "data": d}),
+                 mesh.rank_of(**{axis: last, "data": d})])
+            if d == mesh.coords.get("data", 0):
+                tied = pg
+
+    def reduce(g, pg):
+        if g.dtype == torch.float32:
+            return net.all_reduce(g, pg)
+        return net.all_reduce(g.float(), pg).to(g.dtype)
+
+    def grads_of(params, batch):
+        loss, grads = value_and_grads(loss_fn, params, batch)
+        grads = tree_map(lambda g: reduce(g, mesh.groups["data"]), grads)
+        if tied is not None:
+            grads["embed"] = reduce(grads["embed"], tied)
+        loss = loss.float()
+        if s == last:
+            net.all_reduce(loss, mesh.groups["data"])
+        net.broadcast(loss, mesh.line[axis][last], mesh.groups[axis])
+        return loss, grads
+
+    return grads_of
+
+
 def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
                              n_micro: int, axis: str = "pipe"):
     """Pipeline-parallel train step over a ("pipe", "data", "model") mesh:
@@ -156,10 +312,36 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
     the loss of ``make_pipeline_loss``. Gradients flow back through the
     pipeline by autograd; the same bodies in the same microbatch order as
     the sequential ``lm_loss``, so the loss is the sequential one up to the
-    rounding of per-microbatch products."""
-    return _train_step(cfg, functools.partial(
-        value_and_grads, make_pipeline_loss(cfg, mesh, n_micro=n_micro,
-                                            axis=axis)), lr)
+    rounding of per-microbatch products.
+
+    On a mesh of ranks (``mesh.group`` set): ``params`` and
+    ``opt_state`` are this rank's own (``pipeline_shard``), ``batch`` the
+    global batch; the loss and gradients are ``pipeline_grads``', and |g|
+    is global (each rank's sum of squares all-reduced over its pipe group,
+    a tied embedding counted once). Every rank updates its own leaves. AdamW
+    only: Adafactor factors the second moments of a 2-D stacked leaf
+    across all its layers, which span the stages, so it raises
+    ``ValueError``."""
+    if mesh.group is None:
+        return _train_step(cfg, functools.partial(
+            value_and_grads, make_pipeline_loss(cfg, mesh, n_micro=n_micro,
+                                                axis=axis)), lr)
+    if cfg.optimizer != "adamw":
+        raise ValueError(f"{cfg.optimizer} on ranks: its factored second "
+                         "moments of a 2-D stacked leaf span the stages; "
+                         "the ranked pipeline trains with adamw")
+    s, last = mesh.coords[axis], mesh.shape[axis] - 1
+    twice = cfg.tie_embeddings and last and s == last   # stage 0 counts it
+
+    def norm(grads):
+        sq = sum((torch.sum(torch.square(g.float()))
+                  for name, g in leaf_paths(grads)
+                  if not (twice and name == "embed")),
+                 torch.zeros((), device=mesh.device))
+        return torch.sqrt(mesh.transport.all_reduce(sq, mesh.groups[axis]))
+
+    return _train_step(cfg, pipeline_grads(cfg, mesh, n_micro=n_micro,
+                                           axis=axis), lr, norm)
 
 
 def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -172,4 +354,5 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 __all__ = ["grad_norm", "init_train_state", "loss_and_grads",
            "make_pipeline_loss", "make_pipeline_train_step",
-           "make_train_step", "value_and_grads"]
+           "make_train_step", "pipeline_grads", "pipeline_rows",
+           "pipeline_shard", "value_and_grads"]

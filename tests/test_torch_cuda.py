@@ -15,9 +15,10 @@ grad (it has no backward), the prefill attention and the SSD take their
 plain versions under grad and the kernels under no_grad, and every
 family's reduced loss and gradients on the card equal the CPU's; the
 pipeline: B2 launches and bit equality of the pipelined forward, and the
-pipelined loss and gradients on the card against the CPU; and the block
-executor on two rank processes that share the card, with B1. They skip
-with a reason where there is no GPU. This file imports
+pipelined loss and gradients on the card against the CPU; the block
+executor on two rank processes that share the card, with B1; and the
+pipelined train step on two stage ranks that share the card, against the
+logical step. They skip with a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1413,3 +1414,76 @@ def test_ranked_gemm_runs_b1_on_every_rank(cuda):
         assert len(run["slots"]) == nb * nb // 2
         for slot, blk in zip(run["slots"], run["row"]):
             assert torch.equal(blk, one[run["rank"], slot].cpu())
+
+
+def pipelined_step_rank(rank, world, *, device):
+    """Two steps of the reduced starcoder2-3b (4 layers, f32) on this
+    rank's stage of a (2, 1, 1) mesh of ranks: the losses, |g|, kernel
+    launches and the bytes the rank sent."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import (make_pipeline_train_step,
+                                              pipeline_shard)
+
+    cfg, batch = _pipelined_cell(device)
+    mesh = make_pipeline_mesh(2, world, device, group=dist.group.WORLD)
+    params = pipeline_shard(cfg, init_params(cfg, seed=0, device=device),
+                            mesh)
+    opt = adamw_init(params)
+    step = make_pipeline_train_step(cfg, mesh, lr=1e-3, n_micro=4)
+    launches = sum(k.launches for k in (block_gemm, flash_attention,
+                                        ssd_scan, decode_attention))
+    metrics = []
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"metrics": metrics, "bytes": mesh.transport.bytes["p2p"],
+            "staged": mesh.transport.staged_bytes,
+            "launches": sum(k.launches for k in (
+                block_gemm, flash_attention, ssd_scan, decode_attention))
+            - launches}
+
+
+def _pipelined_cell(device):
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = reduced(get_config("starcoder2-3b"), n_layers=4,
+                  compute_dtype="float32")
+    batch = SyntheticLM(cfg.vocab_size, 64, 8, learnable=True).batch_at(0)
+    batch["labels"][0, ::5] = -1
+    return cfg, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def test_pipelined_step_on_two_stage_ranks(cuda):
+    """The reduced starcoder2-3b's pipelined train step on two stage ranks
+    that share the card (gloo over pinned host buffers): two steps' loss
+    and |g| within 1e-6 and 1e-5 relative of the logical step's on the
+    card, no kernel launched, each stage's 4 hand-offs a step (8 x 64
+    tokens of d_model f32) sent to the other and staged through the
+    host."""
+    from repro_torch.dist.ranks import spawn_ranks
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_pipeline_train_step
+
+    per_rank = spawn_ranks(pipelined_step_rank, 2, device="cuda",
+                           timeout=600)
+    cfg, batch = _pipelined_cell(cuda)
+    params = init_params(cfg, seed=0, device=cuda)
+    opt = adamw_init(params)
+    step = make_pipeline_train_step(cfg, make_pipeline_mesh(2, 2, cuda),
+                                    lr=1e-3, n_micro=4)
+    want = []
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    handoffs = 2 * 8 * 64 * cfg.d_model * 4
+    for r, run in enumerate(per_rank):
+        for (loss, norm), (w_loss, w_norm) in zip(run["metrics"], want):
+            assert abs(loss - w_loss) <= 1e-6 * w_loss, (r, loss, w_loss)
+            assert abs(norm - w_norm) <= 1e-5 * w_norm, (r, norm, w_norm)
+        assert run["launches"] == 0
+        assert run["bytes"] == ([0, handoffs] if r == 0 else [handoffs, 0])
+        assert run["staged"] >= 2 * handoffs
