@@ -157,7 +157,23 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    cut, each stage's f32 gradient bytes all-reduced with its data peer;
    and on a 2-layer cut a checkpoint from the ranks, its small leaves
    byte for byte the one-process save's, each rank's own rows read back
-   bit for bit, and a resume bit for bit;
+   bit for bit, and a resume bit for bit; then the model axis as rank
+   processes that share the card (``phase_tensor_ranks``,
+   ``make_dev_mesh(n, group=)``, ``dist.tensor_parallel``): yi-6b-tp2-r2
+   (yi-6b at full width and depth on a (1, 2) mesh of 2 ranks) and
+   starcoder2-3b-tp4-r4 (on (1, 4), ``kv_head_pad`` 2: each rank holds
+   the whole KV head its query heads read), bf16 compute, each rank
+   drawing only its shard of the seed-0 weights: prefill 1 x 2 048 with
+   n_layers B2 launches per rank, 16 serve steps at batch 8 over a seeded
+   cache (32 768 and 4 096 positions) with n_layers B4 launches a step
+   per rank, every B2 and B4 call of a further prefill and step held to
+   its plain version on its own operands, the bytes each rank sends each
+   peer by kind against their formula, every rank's gathered logits
+   equal, the prefill within 2e-2 and each teacher-forced step within the
+   larger of 2e-2 and twice the one-process step's own B4-vs-plain gap of
+   the one-process run, and in f32 compute a prefill and a step within
+   1e-4; per rank ms a step, tok/s, all-reduce and gather ms and bytes,
+   busy ms and peak memory;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -166,7 +182,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    launches in the sequential and the pipelined train steps, 0;
    ``ranks_launches``: each rank's launches in the ranked cells and the
    ranked pipelined forward; ``pipeline_ranks_train_launches``: each
-   rank's in the ranked train steps, 0)
+   rank's in the ranked train steps, 0; ``tensor_ranks_launches``: each
+   rank's B2 launches a prefill and B4 launches in 16 steps of the ranked
+   tensor-parallel cells)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -217,7 +235,11 @@ from repro_torch.dist.ctx import launch_mesh  # noqa: E402
 from repro_torch.dist.pipeline import (pipeline_apply,  # noqa: E402
                                        schedule_depth, split_microbatches)
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.mesh import Mesh, make_pipeline_mesh  # noqa: E402
+from repro_torch.launch.mesh import (Mesh, make_dev_mesh,  # noqa: E402
+                                    make_pipeline_mesh)
+from repro_torch.dist.sharding import kv_head_pad  # noqa: E402
+from repro_torch.dist.tensor_parallel import (  # noqa: E402
+    init_shard_cache, init_shard_params)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
@@ -3653,6 +3675,376 @@ def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
             "r4_launches": [r["launches"] for r in r4]}
 
 
+# The ranked tensor-parallel cells against the one-process run, as
+# max|ranked - one process| / max|one process| over the logits of a call.
+# Both run the cell's bf16 compute on the same weights; the ranks sum each
+# row-parallel product's f32 partials and round once, as one process
+# rounds (``dist/tensor_parallel.py``), but their column products (N
+# halved or quartered: other cuBLAS kernels) and B4's split plan (fewer
+# heads) round elsewhere, and 32 random-weight layers carry that to the
+# logits. The prefill is held to 2e-2, the bf16 gate. A decode step over
+# yi-6b's 32 768-position cache moves as much between two correct
+# attention kernels of one process: B4 against ``decode_ref`` 4.57e-2 at
+# the first step on the H100 (``tp_one_process`` measures it per step in
+# the run). So each step is held to the larger of
+# 2e-2 and TP_NOISE times that one-process gap at the same step, and the
+# argmax equal where the one-process top-2 gap exceeds the step's gate.
+# The strict check is f32: the prefill and a decode step in f32 compute,
+# ranked against one process, at DENSE_TOL (the ranks change only the
+# order of f32 sums).
+TP_TOL = 2e-2
+TP_NOISE = 2.0
+# (cell, arch, model axis = ranks, cache positions, prompt, batch, steps)
+TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 2, 32768),
+            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 4, 4096))
+
+
+def tp_inputs(cfg, dev, prompt: int, batch: int, seed=17):
+    """The cells' seeded prompt [1, prompt] and first decode tokens
+    [batch], drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                          device=dev),
+            torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                          device=dev))
+
+
+def tp_fill(cfg, cache, upto: int, seed: int, heads=None):
+    """Seeded keys and values at positions [0, upto) of a dense cache:
+    per layer, k then v, a [B, Hkv, upto, hd] normal draw from one
+    generator on the card; ``heads`` picks a rank's (padded) cache heads
+    from the Hkv drawn. Returns the cache at position ``upto``."""
+    k_all, v_all = cache.layers["dense"]
+    gen = torch.Generator(device=k_all.device).manual_seed(seed)
+    for i in range(cfg.n_layers):
+        for t in (k_all, v_all):
+            vals = torch.randn((t.shape[1], cfg.n_kv_heads, upto,
+                                cfg.head_dim), generator=gen,
+                               device=t.device)
+            t[i, :, :, :upto] = (vals if heads is None else
+                                 vals[:, heads]).to(t.dtype)
+    return cache._replace(pos=upto)
+
+
+def tp_f32(cfg, params, toks, make_cache, tok) -> tuple:
+    """The f32 gate's calls: prefill of ``toks`` and one serve step of
+    ``tok`` from ``make_cache(f32 config)``, both in f32 compute; their
+    logits on the host."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill = make_prefill_step(f32)(params, {"tokens": toks})
+    _, step, _ = make_serve_step(f32)(params, tok, make_cache(f32))
+    return prefill.cpu(), step.cpu()
+
+
+def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
+                   steps: int, gate_batch: int) -> dict:
+    """The one-process run the ranked cell is held to: prefill of the
+    seeded prompt, then ``steps`` + 1 greedy serve steps from the seeded
+    cache at ``s_max - steps - 1``: the step inputs and every logits, on
+    the host, and the ms of the timed steps; the same steps fed the same
+    inputs with the plain attention (``decode_ref``), the bf16 noise of a
+    step; the f32 gate's calls (``tp_f32``, a ``gate_batch`` cache)."""
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    toks, first = tp_inputs(cfg, dev, prompt, batch)
+    upto = s_max - steps - 1
+    serve = make_serve_step(cfg)
+    with torch.inference_mode():
+        make_prefill_step(cfg)(params, {"tokens": toks[:, :256]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill = make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
+                        upto, seed=18)
+        tok, inputs, logits = first, [], []
+        for i in range(steps + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            inputs.append(tok)
+            tok, lg, cache = serve(params, tok, cache)
+            logits.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        del cache
+        cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
+                        upto, seed=18)
+        plain = []
+        with plain_attention():
+            for tok in inputs:
+                _, lg, cache = serve(params, tok, cache)
+                plain.append(lg.float().cpu())
+        del cache
+        torch.cuda.empty_cache()
+        f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(c, tfm.init_cache(
+            c, gate_batch, s_max, dtype=torch.float32, device=dev), upto,
+            seed=19), first[:gate_batch])
+    out = {"prefill": prefill.float().cpu(), "prefill_ms": prefill_ms,
+           "inputs": torch.stack(inputs).cpu(), "step_ms": step_ms,
+           "steps": torch.stack(logits), "noise": [
+               float((a - b).abs().max() / a.abs().max())
+               for a, b in zip(logits, plain)], "f32": f32}
+    del params, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def held_kernels(errs: list):
+    """Each B2 call of the model held to ``mha_ref`` and each B4 call to
+    ``decode_ref`` on its own operands, whole and per head or row:
+    ``errs`` gets (kernel, whole, per head/row) per call."""
+    attn, decode = tfm.prefill_attention, tfm.decode_attention_host
+
+    def held_attn(q, k, v, *, causal=True, window=0):
+        o = attn(q, k, v, causal=causal, window=window)
+        ref = mha_ref(q, k, v, causal=causal, window=window)
+        errs.append(("B2", rel_err(o, ref), head_err(o, ref)))
+        return o
+
+    def held_decode(q, k, v, kv_len=None):
+        o = decode(q, k, v, kv_len)
+        ref = decode_ref(q, k, v, kv_len)
+        errs.append(("B4", rel_err(o, ref), row_err(o, ref)))
+        return o
+
+    tfm.prefill_attention, tfm.decode_attention_host = held_attn, held_decode
+    try:
+        yield errs
+    finally:
+        tfm.prefill_attention, tfm.decode_attention_host = attn, decode
+
+
+def tp_rank(rank, world, arch, s_max, prompt, batch, steps, gate_batch,
+            inputs, *, device):
+    """A ranked tensor-parallel cell on this rank of a (1, world) mesh
+    (``make_dev_mesh(world, group=)``): its shard of the seed-0 weights
+    drawn leaf by leaf, then under ``launch_mesh``: a warm-up prefill, the
+    timed prefill of the seeded prompt (counted), the same prefill with
+    each B2 call held to ``mha_ref``; its shard of the seeded cache, the
+    first serve step with each B4 call held to ``decode_ref``, then
+    ``steps`` timed serve steps fed the one-process run's ``inputs``
+    (counted); then the f32 gate's calls (``tp_f32``). Returns every
+    logits (gathered: the whole vocabulary), the windows' counters, the
+    held errors and this rank's peak memory."""
+    dev = torch.device(device)
+    cfg = get_config(arch)
+    mesh = make_dev_mesh(world, model=world, device=dev,
+                         group=torch.distributed.group.WORLD)
+    t0 = time.perf_counter()
+    params = init_shard_params(cfg, mesh, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    toks, _ = tp_inputs(cfg, dev, prompt, batch)
+    inputs = inputs.to(dev)
+    step = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+    model, pad = mesh.shape["model"], kv_head_pad(cfg, world)
+    per = cfg.n_kv_heads * pad // model
+    heads = torch.arange(per * mesh.coords["model"],
+                         per * (mesh.coords["model"] + 1)) // pad
+    errs = []
+    with torch.inference_mode(), launch_mesh(mesh, global_batch=batch):
+        step(params, {"tokens": toks[:, :256]})           # warm-up
+        t0 = rank_window(mesh, dev)
+        prefill = step(params, {"tokens": toks})
+        pre = rank_window_end(mesh, dev, t0)
+        pre["gather_ms"] = mesh.transport.ms["gather"]
+        with held_kernels(errs):
+            again = step(params, {"tokens": toks})
+        cache = tp_fill(cfg, init_shard_cache(cfg, mesh, batch, s_max,
+                                              device=dev),
+                        s_max - steps - 1, seed=18, heads=heads)
+        with held_kernels(errs):
+            _, first, cache = serve(params, inputs[0], cache)
+        logits = [first]
+        t0 = rank_window(mesh, dev)
+        for i in range(1, steps + 1):
+            _, lg, cache = serve(params, inputs[i], cache)
+            logits.append(lg)
+        dec = rank_window_end(mesh, dev, t0)
+        dec["gather_ms"] = mesh.transport.ms["gather"]
+        shape = tuple(cache.layers["dense"][0].shape)
+        cache_gb = sum(t.nbytes for t in cache.layers["dense"]) / 1e9
+        del cache
+        torch.cuda.empty_cache()
+        f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(
+            c, init_shard_cache(c, mesh, gate_batch, s_max,
+                                dtype=torch.float32, device=dev),
+            s_max - steps - 1, seed=19, heads=heads), inputs[0][:gate_batch])
+    return {"coords": mesh.coords, "init_s": init_s, "prefill_window": pre,
+            "decode_window": dec, "errs": errs, "f32": f32,
+            "prefill": prefill.float().cpu(),
+            "prefill_again": torch.equal(again, prefill),
+            "steps": torch.stack(logits).float().cpu(),
+            "cache_heads": shape,
+            "leaf_gb": sum(t.nbytes for t in tree_leaves(params)) / 1e9,
+            "cache_gb": cache_gb,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def tp_gate(tag: str, got: torch.Tensor, want: torch.Tensor,
+            tol: float) -> float:
+    """max|got - want| / max|want| of one call's logits, gated at ``tol``,
+    and the argmax equal on every row whose one-process top-2 gap exceeds
+    ``tol`` x max|want| (teacher forced: the ranks were fed the one-process
+    run's tokens)."""
+    err = float((got - want).abs().max() / want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol * float(want.abs().max())
+    same = got.argmax(-1) == want.argmax(-1)
+    check(err <= tol, f"{tag}: ranked logits vs one process {err} (tol "
+          f"{tol})")
+    check(bool(same[sure].all()), f"{tag}: argmax differs on "
+          f"{int((~same & sure).sum())} rows whose top-2 gap exceeds the "
+          "gate")
+    return err
+
+
+def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
+              steps: int) -> dict:
+    """Hold a ranked cell's per-rank counts, bytes and logits and print
+    its numbers; returns its launches per rank."""
+    model = len(runs)
+    d = cfg.d_model
+    pre_reduce = (2 * cfg.n_layers + 1) * prompt * d * 4
+    pre_gather = cfg.vocab_size // model * 2
+    dec_reduce = steps * (2 * cfg.n_layers + 1) * batch * d * 4
+    dec_gather = steps * batch * cfg.vocab_size // model * 2
+    for r in runs:
+        pw, dw = r["prefill_window"], r["decode_window"]
+        b2 = [e for e in r["errs"] if e[0] == "B2"]
+        b4 = [e for e in r["errs"] if e[0] == "B4"]
+        peers = [p for p in range(model) if p != r["coords"]["model"]]
+        log(f"[tensor ranks] {name} rank {r['coords']}: weights "
+            f"{r['leaf_gb']:.2f} GB (drawn as shards in {r['init_s']:.2f} s)"
+            f", cache {r['cache_gb']:.2f} GB {list(r['cache_heads'])}, peak "
+            f"{r['peak_gb']:.2f} GB; prefill 1 x {prompt}: "
+            f"{pw['wall_ms']:.1f} ms, all-reduce {pw['reduce_ms']:.1f} ms "
+            f"({pw['reduce_ms'] / pw['wall_ms']:.1%}), gather "
+            f"{pw['gather_ms']:.2f} ms, busy {pw['busy_ms']:.1f} ms, "
+            f"launches {pw['launches']}; decode: "
+            f"{dw['wall_ms'] / steps:.2f} ms a step, "
+            f"{batch * steps / dw['wall_ms'] * 1e3:.1f} tok/s, all-reduce "
+            f"{dw['reduce_ms'] / steps:.2f} ms a step "
+            f"({dw['reduce_ms'] / dw['wall_ms']:.1%}), gather "
+            f"{dw['gather_ms'] / steps:.2f} ms, busy "
+            f"{dw['busy_ms'] / steps:.2f} ms a step, launches "
+            f"{dw['launches']}; bytes to each peer: prefill "
+            f"{pw['bytes']['reduce'][peers[0]]} all-reduce + "
+            f"{pw['bytes']['gather'][peers[0]]} gather, a step "
+            f"{dw['bytes']['reduce'][peers[0]] // steps} + "
+            f"{dw['bytes']['gather'][peers[0]] // steps} [{card()}]")
+        log(f"[tensor ranks]   its {len(b2)} B2 calls against mha_ref: max "
+            f"err {max(e[1] for e in b2):.3e}, per head "
+            f"{max(e[2] for e in b2):.3e}; its {len(b4)} B4 calls against "
+            f"decode_ref: {max(e[1] for e in b4):.3e}, per row "
+            f"{max(e[2] for e in b4):.3e} (tol {TOL[torch.bfloat16]:.0e}, "
+            f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
+        check(pw["launches"]["flash_attention"] == cfg.n_layers
+              and pw["launches"]["decode_attention"] == 0
+              and dw["launches"]["decode_attention"] == cfg.n_layers * steps
+              and dw["launches"]["flash_attention"] == 0
+              and not pw["launches"]["block_gemm"]
+              and not dw["launches"]["block_gemm"],
+              f"{name}: rank {r['coords']} launches {pw['launches']} "
+              f"{dw['launches']}")
+        check(len(b2) == len(b4) == cfg.n_layers
+              and max(e[1] for e in b2 + b4) <= TOL[torch.bfloat16]
+              and max(e[2] for e in b2) <= TOL[torch.bfloat16]
+              and max(e[2] for e in b4) <= DECODE_ROW_TOL[torch.bfloat16],
+              f"{name}: held kernel calls {r['errs']}")
+        check(r["prefill_again"], f"{name}: a second prefill differs")
+        for p in range(model):
+            check(pw["bytes"]["reduce"][p] == (pre_reduce if p in peers
+                                               else 0)
+                  and pw["bytes"]["gather"][p] == (pre_gather if p in peers
+                                                   else 0)
+                  and dw["bytes"]["reduce"][p] == (dec_reduce if p in peers
+                                                   else 0)
+                  and dw["bytes"]["gather"][p] == (dec_gather if p in peers
+                                                   else 0)
+                  and not any(pw["bytes"]["p2p"] + dw["bytes"]["p2p"]),
+                  f"{name}: rank {r['coords']} bytes {pw['bytes']} "
+                  f"{dw['bytes']}")
+        check(torch.equal(r["prefill"], runs[0]["prefill"])
+              and torch.equal(r["steps"], runs[0]["steps"]),
+              f"{name}: ranks disagree on the gathered logits")
+    err = tp_gate(f"{name} prefill", runs[0]["prefill"], want["prefill"],
+                  TP_TOL)
+    gates = [max(TP_TOL, TP_NOISE * n) for n in want["noise"]]
+    step_errs = [tp_gate(f"{name} step {i}", got, w, tol) for i, (got, w, tol)
+                 in enumerate(zip(runs[0]["steps"], want["steps"], gates))]
+    f32 = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(runs[0]["f32"], want["f32"])]
+    log(f"[tensor ranks] {name}: the one-process bf16 steps with B4 against "
+        f"decode_ref: {[float(f'{n:.3e}') for n in want['noise']]}; the "
+        f"step gates {[float(f'{g:.3e}') for g in gates]}; f32 compute, "
+        f"ranked vs one process: prefill {f32[0]:.3e}, a step at batch "
+        f"{want['f32'][1].shape[0]} {f32[1]:.3e} (tol {DENSE_TOL:.0e})")
+    check(max(f32) <= DENSE_TOL, f"{name}: f32 ranked vs one process {f32}")
+    check(all(torch.equal(r["f32"][0], runs[0]["f32"][0])
+              and torch.equal(r["f32"][1], runs[0]["f32"][1]) for r in runs),
+          f"{name}: ranks disagree on the gathered f32 logits")
+    wall = max(r["decode_window"]["wall_ms"] for r in runs) / steps
+    pre = max(r["prefill_window"]["wall_ms"] for r in runs)
+    log(f"[tensor ranks] {name}: prefill {pre:.1f} ms (one process "
+        f"{want['prefill_ms']:.1f} ms), decode {wall:.2f} ms a step on the "
+        f"slowest rank, {batch * 1e3 / wall:.1f} tok/s (one process "
+        f"{want['step_ms']:.2f} ms); bf16 logits vs one process: prefill "
+        f"{err:.3e} (tol {TP_TOL:.0e}), steps "
+        f"{[float(f'{e:.3e}') for e in step_errs]}; the "
+        f"ranks' peaks {sum(r['peak_gb'] for r in runs):.2f} GB [{card()}]")
+    return {"prefill": [r["prefill_window"]["launches"] for r in runs],
+            "decode": [r["decode_window"]["launches"] for r in runs]}
+
+
+def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
+                       cells=TP_CELLS) -> dict:
+    """The model axis as rank processes that share the card
+    (``make_dev_mesh(n, group=)``, ``dist.tensor_parallel``; all-reduces
+    and gathers through gloo over pinned host buffers): each cell's arch at
+    full width and depth, bf16 compute, on a (1, n) mesh of n ranks, each
+    drawing only its shard of the seed-0 weights. Per cell, first the one-
+    process run on this process (``tp_one_process``), then the ranks
+    (``tp_rank``): prefill 1 x ``prompt`` (n_layers B2 launches per rank),
+    ``steps`` serve steps at ``batch`` over the seeded cache (n_layers B4
+    launches a step per rank), every B2 and B4 call of a further prefill
+    and step held to its plain version on its own operands; the bytes per
+    peer by kind against their formula, every rank's gathered logits
+    equal, and rank 0's against the one-process run (``tp_gate``: bf16 at
+    TP_TOL, each step at the larger of TP_TOL and TP_NOISE times the
+    one-process step's own B4-vs-plain gap; the f32 prefill and a
+    ``gate_batch`` f32 step at DENSE_TOL)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, arch, ranks, s_max in cells:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        want = tp_one_process(cfg, dev, s_max, prompt, batch, steps,
+                              gate_batch)
+        t1 = time.perf_counter()
+        log(f"[tensor ranks] {name}: {cfg.name} at full width and depth "
+            f"({cfg.n_layers} layers, {cfg.n_heads} q heads over "
+            f"{cfg.n_kv_heads} KV heads, kv_head_pad "
+            f"{kv_head_pad(cfg, ranks)}) on a (1, {ranks}) mesh of {ranks} "
+            f"rank processes; the one-process run {t1 - t0:.1f} s")
+        runs = spawn_ranks(tp_rank, ranks, arch, s_max, prompt, batch, steps,
+                           gate_batch, want["inputs"], device=dev,
+                           timeout=600)
+        out[name] = tp_report(name, cfg, runs, want, prompt, batch, steps)
+        log(f"[tensor ranks] {name}: the ranks {time.perf_counter() - t1:.1f}"
+            " s, spawning included")
+        del runs, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[tensor ranks] phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
                     b_gemm=1024) -> dict:
     """Times at the main path's largest body calls (the Cholesky gemm
@@ -3710,6 +4102,7 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
     sh, sd = seam.n_heads, seam.head_dim
     grok = get_config("grok-1-314b")
     gh, gg, gd = grok.n_heads, grok.n_kv_heads, grok.head_dim
+    sc = get_config("starcoder2-3b")
     rows = {}
     for name, shape, model, dtype, causal, win in (
             ("chain task", (1, 1, 1, seq, seq, dim), False, torch.float32,
@@ -3723,6 +4116,11 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
             ("seamless cross", (4, sh, sh, 512, 2048, sd), True,
              torch.bfloat16, False, 0),
             ("grok prefill", (4, gh, gg, 2048, 2048, gd), True,
+             torch.bfloat16, True, 0),
+            ("yi-6b tp2 prefill shard", (1, hq // 2, hkv // 2, 2048, 2048,
+                                         hd), True, torch.bfloat16, True, 0),
+            ("starcoder2-3b tp4 prefill shard", (1, sc.n_heads // 4, 1, 2048,
+                                                 2048, sc.head_dim), True,
              torch.bfloat16, True, 0)):
         q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
         kw = dict(causal=causal, window=win)
@@ -3902,6 +4300,9 @@ def main() -> int:
     ranks["starcoder2-3b-pipe2-r2 forward"] = pipe_ranks["forward_b2"]
     gc.collect()
     torch.cuda.empty_cache()
+    tensor_ranks = phase_tensor_ranks(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
     attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
     ssd_time = phase_time_ssd(dev, model["shape"])
@@ -3914,7 +4315,9 @@ def main() -> int:
         ("zamba2 ring", (8, 32, 32, 4096, 64)),
         ("seamless cross", (4, 16, 16, 2048, 64)),
         ("llava decode layer", (8, 56, 8, 4096, 128)),
-        ("grok decode layer", (8, 48, 8, 4096, 128)))}
+        ("grok decode layer", (8, 48, 8, 4096, 128)),
+        ("yi-6b tp2 decode shard", (8, 16, 2, 32768, 128)),
+        ("starcoder2-3b tp4 decode shard", (8, 6, 1, 4096, 128)))}
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{run_peak() / 2 ** 30:.2f} GiB; GEMM main path launches "
         f"{gemm['launches']}")
@@ -3939,7 +4342,10 @@ def main() -> int:
             "zamba2 windowed prefill": attn_times["zamba2 windowed prefill"],
             "seamless cross": attn_times["seamless cross"],
             "yi-6b model prefill": attn_times["yi-6b model prefill"],
-            "grok prefill": attn_times["grok prefill"]},
+            "grok prefill": attn_times["grok prefill"],
+            "yi-6b tp2 prefill shard": attn_times["yi-6b tp2 prefill shard"],
+            "starcoder2-3b tp4 prefill shard":
+                attn_times["starcoder2-3b tp4 prefill shard"]},
             "launches_per_prefill": {
                 "zamba2-1.2b": hybrid["b2_launches"],
                 "seamless-m4t-large-v2": encdec["b2_launches"],
@@ -3948,7 +4354,10 @@ def main() -> int:
                 "grok-1-314b-d8": grok["b2_launches"],
                 "deepseek-v3-671b-d5": deepseek["b2_launches"]},
             "pipeline_launches": {
-                "starcoder2-3b-pipe2 forward": pipe["forward"]["b2"]}},
+                "starcoder2-3b-pipe2 forward": pipe["forward"]["b2"]},
+            "tensor_ranks_launches_per_prefill": {
+                cell: [r["flash_attention"] for r in counts["prefill"]]
+                for cell, counts in tensor_ranks.items()}},
         "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd},
                      "launches_per_prefill": {
                          "zamba2-1.2b": hybrid["b3_launches"]}},
@@ -3960,7 +4369,11 @@ def main() -> int:
                                  "llava-next-34b-d16": vlm["b4_per_step"],
                                  "grok-1-314b-d8": grok["b4_per_step"],
                                  "deepseek-v3-671b-d5":
-                                     deepseek["b4_per_step"]}}}
+                                     deepseek["b4_per_step"]},
+                             "tensor_ranks_launches": {
+                                 cell: [r["decode_attention"]
+                                        for r in counts["decode"]]
+                                 for cell, counts in tensor_ranks.items()}}}
     log("kernels: " + ", ".join(name for name, *_ in rows))
     log(card())
     log(json.dumps({"kernels": [{

@@ -1,0 +1,63 @@
+"""Run ``chip_smoke.py``'s tensor-parallel serving phase alone on the GPU:
+build the kernels, run ``phase_tensor_ranks`` (yi-6b-tp2-r2 and
+starcoder2-3b-tp4-r4 at full width and depth on rank processes that share
+the card, against the one-process run) and time B2 and B4 at the ranks'
+per-shard layouts.
+
+    python3 scripts/torch_tensor_ranks.py
+
+Needs one CUDA GPU and nvcc; about 2 minutes (the whole ``chip_smoke.py``
+about 11). Prints what the phase prints, with the card's name and power
+limit on every line of numbers.
+"""
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+# (name, B2 layout (b, hq, hkv, lq, lk, d), B4 layout (b, hq, hkv, s, d))
+SHARDS = (("yi-6b tp2", (1, 16, 2, 2048, 2048, 128), (8, 16, 2, 32768, 128)),
+          ("starcoder2-3b tp4", (1, 6, 1, 2048, 2048, 128),
+           (8, 6, 1, 4096, 128)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_tensor_ranks: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cs.log(cs.card())
+    cs.phase_build()
+    cs.log(f"[tensor ranks] build {time.perf_counter() - t0:.1f} s")
+    out = cs.phase_tensor_ranks(dev)
+    cs.log(f"[tensor ranks] launches per rank {out}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, attn, decode in SHARDS:
+        q, k, v = cs.attention_operands(gen, dev, torch.bfloat16, *attn,
+                                        model=True)
+        kernel = cs.cuda_ms(lambda: cs.flash_attention(q, k, v), 5)
+        plain = cs.cuda_ms(lambda: cs.mha_ref(q, k, v), 5)
+        library = cs.cuda_ms(lambda: cs.F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+        bnd, by = cs.bound(*cs.attention_work(q, k, True, 0), torch.bfloat16)
+        cs.log(f"[time] flash_attention {name} prefill shard {list(q.shape)} "
+               f"kv {list(k.shape)}: kernel {kernel:.3f} ms, plain "
+               f"{plain:.3f} ms, sdpa {library:.3f} ms, bound {bnd:.3f} ms "
+               f"({by}) [{cs.card()}]")
+        del q, k, v
+        cs.phase_time_decode(dev, decode, f"{name} decode shard")
+    cs.log(f"[tensor ranks] total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,7 +34,9 @@ wait on a peer that waits on it: in the forward a stage waits only on the
 one before it, in the backward only on the one after it, and a stage
 enters its backward after its last forward send has been issued. The
 last stage alone holds the outputs (the reference ``psum``s them onto
-every stage).
+every stage). A mesh of ranks with a model axis > 1 refuses
+(``refuse_model_axis``): the tensor-parallel collectives have no backward
+yet (ROADMAP A8d6).
 """
 
 from __future__ import annotations
@@ -156,6 +158,18 @@ def _per_stage(stage_params: Any, n_stages: int) -> List[Any]:
     return unbind(stage_params)
 
 
+def refuse_model_axis(mesh) -> None:
+    """Raise ``ValueError`` on a mesh of ranks whose ``"model"`` axis is
+    > 1: training with a model axis on ranks is ROADMAP A8d6 (the
+    backward of the tensor-parallel collectives)."""
+    if mesh.group is not None and mesh.shape.get("model", 1) > 1:
+        raise ValueError(
+            f"model axis {mesh.shape['model']} on ranks: the pipelined "
+            "trainer runs the pipe and data axes on ranks; training with a "
+            "model axis (the backward of the tensor-parallel collectives) "
+            "is ROADMAP A8d6")
+
+
 def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                    stage_params: Any, xs: torch.Tensor, *, mesh,
                    axis: Optional[str] = None,
@@ -192,6 +206,7 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     n_micro = xs.shape[0]
     sched, perms = _plan(n_stages, n_micro)
     if mesh.group is not None:
+        refuse_model_axis(mesh)
         return _apply_on_ranks(stage_fn, stage_params, xs, mesh, axis,
                                sched, perms)
     params = _per_stage(stage_params, n_stages)

@@ -22,7 +22,8 @@ shard (``repro.core.schedule``: ``shard_map``, ``all_to_all``,
   ranks (``launch.mesh.Mesh(..., group=)``), staged through pinned host
   memory the same way: point-to-point sends and receives of tensors of any
   shape and dtype (the pipeline's activations and their gradients, moved
-  as bytes), f32 all-reduces over a sub-group (gradients, mask counts)
+  as bytes), f32 all-reduces over a sub-group (gradients, mask counts,
+  tensor-parallel partial products), all-gathers (vocab-sharded logits)
   and broadcasts; it counts bytes and messages per peer by kind.
 - :func:`run_program` is the rank side of a run: the rank packs its own
   shard, runs the program's executor on it (``BlockProgram.executor`` /
@@ -344,18 +345,22 @@ class TensorTransport(_Staged):
     - :meth:`all_reduce` sums an f32 tensor over a sub-group in place, and
       refuses any other dtype: every reduction stays in f32;
     - :meth:`broadcast` sends a tensor from one rank of a sub-group to the
-      others, in place.
+      others, in place;
+    - :meth:`all_gather` returns every member's tensor of a sub-group, as
+      bytes (any dtype).
 
     Peers are global ranks. The kinds counted are ``"p2p"``, the sends;
     ``"reduce"``, the all-reduces (the tensor's bytes to each other
     member: what a pair exchanges; broadcasts count as ``"p2p"`` from
-    their source); ``"scalar"``, any message of one element. ``ms[kind]``
+    their source); ``"gather"``, the all-gathers (the rank's own tensor's
+    bytes to each other member); ``"scalar"``, any message of one
+    element. ``ms[kind]``
     is the host time spent in each kind, waits for the peers included,
     after the stream has drained. :meth:`busy_ms` is the time the rank's
     stream spent between exchanges (CUDA events; the host clock on the
     CPU). A group of one rank exchanges nothing."""
 
-    KINDS = ("p2p", "reduce", "scalar")
+    KINDS = ("p2p", "reduce", "gather", "scalar")
 
     def __init__(self, device):
         super().__init__(device, dist.get_world_size())
@@ -450,6 +455,25 @@ class TensorTransport(_Staged):
                     host.nbytes)
         self._leave(kind, t0)
         return t
+
+    def all_gather(self, t: torch.Tensor, group) -> List[torch.Tensor]:
+        """Each member's ``t`` (one shape and dtype on every member) on
+        ``device``, in the group's rank order; ``[t]`` in a group of
+        one."""
+        members = dist.get_process_group_ranks(group)
+        if len(members) == 1:
+            return [t]
+        t0 = self._enter()
+        host = self.stage_out(t)
+        parts = [self._empty(host.shape, host.dtype) for _ in members]
+        dist.all_gather([self._bytes_of(p) for p in parts],
+                        self._bytes_of(host), group=group)
+        out = [self.stage_in(p) for p in parts]
+        kind = self._kind(t, "gather")
+        self._count(kind, [p for p in members if p != dist.get_rank()],
+                    host.nbytes)
+        self._leave(kind, t0)
+        return out
 
     def broadcast(self, t: torch.Tensor, src: int, group) -> torch.Tensor:
         """``t`` of rank ``src`` on every rank of ``group``, in place;

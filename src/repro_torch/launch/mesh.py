@@ -14,9 +14,13 @@ rows (``dist.ctx.data_rows``), the decode cache's head count
 ``jax.sharding.Mesh(np.array(devs).reshape(shape), names)`` places
 devices: rank r sits at r's row-major position over ``axis_names``. Each rank knows its ``coords``, the process group of its
 line along each axis (``groups``, ``line``) and a ``TensorTransport``
-over the whole group. The pipe and data axes run on ranks; the model axis
-(tensor parallelism) stays logical, so a mesh of ranks refuses a model
-axis > 1.
+over the whole group. Every axis runs on ranks: the pipe and data axes
+for the pipelined trainer, the data and model axes for tensor-parallel
+serving of the dense and vlm families (``dist.tensor_parallel``: each
+rank holds its shard of the weights and of the decode cache and exchanges
+partial products over ``groups["model"]``). What a model axis > 1 on
+ranks does not run yet refuses where it is called: the pipelined trainer
+(ROADMAP A8d6) and the other families (``tensor_parallel.check_tp``).
 
 Single pod: (16, 16) = 256 chips, axes ("data", "model").
 Multi-pod:  (2, 16, 16) = 512 chips, axes ("pod", "data", "model") — the
@@ -48,8 +52,7 @@ class Mesh:
     every axis, in the same order on every rank (gloo hangs otherwise);
     ``transport`` carries the model path's exchanges. Raises
     ``ValueError`` before any collective when the mesh's size is not the
-    world's, or when its ``"model"`` axis is > 1 (tensor parallelism on
-    ranks is ROADMAP A8d)."""
+    world's."""
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
                  device="cuda", group=None):
@@ -77,11 +80,6 @@ class Mesh:
                 f"a mesh of {self.size} devices {self.shape} on ranks needs "
                 f"a group of the whole world of {self.size} processes, got "
                 f"{world} of {dist.get_world_size()}")
-        if self.shape.get("model", 1) > 1:
-            raise ValueError(
-                f"model axis {self.shape['model']} on ranks: tensor "
-                "parallelism on rank processes is ROADMAP A8d (the model "
-                "axis stays logical)")
         sizes = tuple(self.shape.values())
         rank = dist.get_rank(group)
         self.coords = dict(zip(self.axis_names,
@@ -120,18 +118,20 @@ def make_host_mesh(model: int = 2, data: int = 2, device="cuda") -> Mesh:
     return Mesh((data, model), ("data", "model"), device)
 
 
-def make_dev_mesh(n_devices: int, model: int = 0, device="cuda") -> Mesh:
-    """The launchers' mesh of ``n_devices`` logical devices, as the JAX
-    package's launchers pick it: the production mesh from 256 on, else
-    (n / model, model) over ("data", "model") with model = min(4, n)
-    unless given."""
-    if n_devices >= 256 and not model:
+def make_dev_mesh(n_devices: int, model: int = 0, device="cuda",
+                  group=None) -> Mesh:
+    """The launchers' mesh of ``n_devices`` devices, as the JAX package's
+    launchers pick it: the production mesh from 256 on, else (n / model,
+    model) over ("data", "model") with model = min(4, n) unless given;
+    logical, or on ``group``'s ranks when given."""
+    if n_devices >= 256 and not model and group is None:
         return make_production_mesh(device=device)
     model = model or max(1, min(4, n_devices))
     if n_devices % model:
         raise ValueError(f"model axis {model} does not divide {n_devices} "
                          "devices")
-    return Mesh((n_devices // model, model), ("data", "model"), device)
+    return Mesh((n_devices // model, model), ("data", "model"), device,
+                group=group)
 
 
 def make_pipeline_mesh(stages: int, n_devices: int, device="cuda",

@@ -2,7 +2,7 @@
 decode loop.
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 \
-        --tokens 16 [--reduced] [--device cpu] [--host-devices N]
+        --tokens 16 [--reduced] [--device cpu] [--host-devices N [--ranks]]
 
 The JAX package's decode loop (``repro.launch.serve``): one warm-up step,
 then ``--tokens`` timed steps from a fresh cache of ``--max-seq``
@@ -22,9 +22,20 @@ the JAX launcher makes it: there is no encoder pass).
 reference's launcher, it sets the batch axes (``batch_axis``) and builds
 the cache with ``kv_head_pad`` replicated KV heads; an MoE arch then
 routes each step's tokens in ``data_rows()`` dispatch rows.
+
+``--ranks`` lays that (N / model, model) mesh on N rank processes
+(``dist.ranks.spawn_ranks``; on ``cuda`` they share the card): each rank
+draws only its tensor-parallel shard of the weights
+(``dist.tensor_parallel.init_shard_params``) and holds its shard of the
+cache (its rows of the batch over ``"data"``, its KV heads over
+``"model"``); the row-parallel products, the embedding and the logits
+cross the model group through gloo. Rank 0 prints. The dense and vlm
+families only: a moe, ssm, hybrid or encdec arch, or MLA, exits naming
+the ROADMAP item that ports it, before any rank starts.
 """
 
 import argparse
+import sys
 import time
 
 
@@ -37,19 +48,22 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="serve under a logical mesh of N devices")
+    ap.add_argument("--ranks", action="store_true",
+                    help="with --host-devices N: one process per device of "
+                         "the ('data', 'model') mesh, tensor-parallel over "
+                         "'model' through torch.distributed (gloo)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.ranks and args.host_devices < 1:
+        sys.exit("--ranks lays the mesh of --host-devices N on N rank "
+                 "processes; pass --host-devices N")
 
     import torch
 
     from repro_torch.configs.base import reduced as reduce_cfg
     from repro_torch.configs.registry import get_config
-    from repro_torch.dist.ctx import launch_mesh
-    from repro_torch.dist.sharding import kv_head_pad
     from repro_torch.launch.mesh import make_dev_mesh
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serve.decode import make_serve_step
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -58,39 +72,103 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
+    if args.ranks:
+        from repro_torch.dist.ranks import spawn_ranks
+        from repro_torch.dist.tensor_parallel import check_tp
+
+        # the checks a rank would exit on, once, before any process starts
+        try:
+            check_tp(cfg, make_dev_mesh(args.host_devices,
+                                        device="meta").shape["model"])
+        except ValueError as exc:
+            sys.exit(f"--ranks: {exc}")
+        spawn_ranks(_rank_main, args.host_devices, args, cfg, device=device,
+                    timeout=_RANK_TIMEOUT)
+        return
     mesh = (make_dev_mesh(args.host_devices, device=device)
             if args.host_devices else None)
+    _serve(args, cfg, device, mesh)
+
+
+# a ranked run's deadline, and its collectives'
+_RANK_TIMEOUT = 24 * 3600.0
+
+
+def _rank_main(rank, world, args, cfg, *, device):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    _serve(args, cfg, device, make_dev_mesh(world, device=device,
+                                            group=dist.group.WORLD))
+
+
+def _serve(args, cfg, device, mesh) -> None:
+    """The warm-up and the timed greedy steps, on one process or on this
+    rank of a mesh of ranks; prints (rank 0 only, on ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.ctx import launch_mesh
+    from repro_torch.dist.sharding import kv_head_pad
+    from repro_torch.dist.tensor_parallel import (init_shard_cache,
+                                                  init_shard_params)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.decode import make_serve_step
+
+    device = torch.device(device)
+    ranked = mesh is not None and mesh.group is not None
+    show = not ranked or dist.get_rank() == 0
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
     pad = kv_head_pad(cfg, mesh.shape["model"]) if mesh else 1
-    print(f"device: {where}, arch={cfg.name}" + (
-        f", mesh: {mesh.shape} (logical), kv_head_pad {pad}" if mesh
-        else ""))
-    with torch.inference_mode(), launch_mesh(mesh,
-                                             global_batch=args.batch):
-        params = tfm.init_params(cfg, seed=args.seed, device=device)
-        enc_out = None
-        if cfg.family == "encdec":
-            enc_out = tuple(torch.zeros(
-                (cfg.n_layers, args.batch, cfg.n_kv_heads, args.max_seq,
-                 cfg.head_dim), dtype=torch.bfloat16, device=device)
-                for _ in range(2))
-        cache = tfm.init_cache(cfg, args.batch, args.max_seq, enc_out=enc_out,
-                               device=device, kv_head_pad=pad)
-        step = make_serve_step(cfg)
-        tok = torch.ones((args.batch,), dtype=torch.int64, device=device)
-        tok, _, cache = step(params, tok, cache)          # warm-up
-        out = []
+    if show:
+        print(f"device: {where}, arch={cfg.name}" + (
+            f", mesh: {mesh.shape} " + (f"on {mesh.size} rank processes"
+                                        if ranked else "(logical)")
+            + f", kv_head_pad {pad}" if mesh else ""), flush=True)
+
+    def drain():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        if ranked:
+            dist.barrier()
+
+    with torch.inference_mode(), launch_mesh(mesh,
+                                             global_batch=args.batch):
+        if ranked:
+            params = init_shard_params(cfg, mesh, seed=args.seed,
+                                       device=device)
+            cache = init_shard_cache(cfg, mesh, args.batch, args.max_seq,
+                                     device=device)
+        else:
+            params = tfm.init_params(cfg, seed=args.seed, device=device)
+            enc_out = None
+            if cfg.family == "encdec":
+                enc_out = tuple(torch.zeros(
+                    (cfg.n_layers, args.batch, cfg.n_kv_heads, args.max_seq,
+                     cfg.head_dim), dtype=torch.bfloat16, device=device)
+                    for _ in range(2))
+            cache = tfm.init_cache(cfg, args.batch, args.max_seq,
+                                   enc_out=enc_out, device=device,
+                                   kv_head_pad=pad)
+        rows = cache.layers["dense"][0].shape[1] if ranked else args.batch
+        step = make_serve_step(cfg)
+        tok = torch.ones((rows,), dtype=torch.int64, device=device)
+        tok, _, cache = step(params, tok, cache)          # warm-up
+        out = []
+        drain()
         t0 = time.perf_counter()
         for _ in range(args.tokens):
             tok, _, cache = step(params, tok, cache)
             out.append(tok)
         sample = torch.stack(out, 1)[0][:12].tolist()    # waits for the device
+        drain()
         dt = time.perf_counter() - t0
-    print(f"decoded {args.tokens} x batch {args.batch}: "
-          f"{args.batch * args.tokens / dt:.1f} tok/s; sample {sample}")
+    if show:
+        print(f"decoded {args.tokens} x batch {args.batch}: "
+              f"{args.batch * args.tokens / dt:.1f} tok/s; sample {sample}",
+              flush=True)
 
 
 if __name__ == "__main__":

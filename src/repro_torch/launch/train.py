@@ -42,8 +42,9 @@ processes on the (S, N / S, 1) mesh (they share the card on ``cuda``, or
 the CPU), each holding, training and checkpointing only its own stage's
 leaves (``make_pipeline_train_step`` on a ``Mesh(..., group=)``,
 ``checkpoint.RankCheckpointer``: the reference's layout, byte for byte).
-Rank 0 prints the step lines. ``--ranks`` without ``--pipeline`` (a model
-axis > 1 on ranks: ROADMAP A8d) or with ``--elastic`` (A8e) exits with a
+Rank 0 prints the step lines. ``--ranks`` without ``--pipeline``
+(training with a model axis > 1 on ranks: ROADMAP A8d6; serving with one
+is ``launch.serve --ranks``) or with ``--elastic`` (A8e) exits with a
 message.
 """
 
@@ -101,8 +102,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.ranks and args.pipeline < 1:
         sys.exit("--ranks runs the pipelined mesh's pipe and data axes on "
-                 "ranks; pass --pipeline STAGES (the model axis and "
-                 "non-pipelined meshes on ranks are ROADMAP A8d)")
+                 "ranks; pass --pipeline STAGES (training with a model axis "
+                 "and non-pipelined meshes on ranks is ROADMAP A8d6)")
     if args.ranks and args.elastic:
         sys.exit("--elastic does not run on ranks yet (ROADMAP A8e)")
 

@@ -6,7 +6,8 @@ becomes the port's dict of tensors with the same tree, names, shapes and
 values, so both packages then compute the same function. bfloat16 arrays
 (numpy's ``ml_dtypes`` type) keep their bits. Optimizer states convert
 too (``opt_state_from_reference``), and ``to_numpy`` turns the port's
-trees back into numpy arrays.
+trees back into numpy arrays. On a mesh of ranks with a model axis a rank
+carries across only its shard (``shard_params_from_reference``).
 """
 
 from __future__ import annotations
@@ -60,3 +61,13 @@ def to_numpy(tree: Any) -> Any:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(one, tree)
+
+
+def shard_params_from_reference(cfg, tree: Any, mesh, device="cuda") -> Any:
+    """This rank's shard of ``repro``'s parameters on a mesh of ranks with
+    a model axis: each numpy leaf sliced by
+    ``dist.tensor_parallel.shard_params`` before it is copied, so only the
+    shard becomes a tensor on ``device``."""
+    from ..dist.tensor_parallel import shard_params
+
+    return params_from_reference(shard_params(cfg, tree, mesh), device)

@@ -37,13 +37,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
-           w_out: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+           w_out: torch.Tensor, product=torch.matmul) -> torch.Tensor:
+    """The SwiGLU FFN; ``product`` takes the hidden activations through
+    ``w_out`` (the tensor-parallel row product on a model axis)."""
+    return product(F.silu(x @ w_gate) * (x @ w_in), w_out)
 
 
-def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor
-             ) -> torch.Tensor:
-    return F.gelu(x @ w_in, approximate="tanh") @ w_out
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+             product=torch.matmul) -> torch.Tensor:
+    """The GELU (tanh) FFN; ``product`` as in :func:`swiglu`."""
+    return product(F.gelu(x @ w_in, approximate="tanh"), w_out)
 
 
 # Elements of an f32 draw for a narrower tensor (1 GiB): a bf16 matrix

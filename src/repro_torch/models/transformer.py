@@ -27,6 +27,14 @@ kernels on CUDA tensors, the plain versions on CPU tensors. MLA (deepseek-
 v3) runs as the reference runs it: prefill through ``chunked_attention``
 (its q and k are 192 wide and v 128, which B2 does not take), decode in
 the absorbed form over the latent cache (ckv, k_rope), einsums in f32.
+
+On a mesh of ranks with a model axis (``dist.tensor_parallel``) the dense
+and vlm paths run on the rank's shard of the weights and of the decode
+cache: the head counts come from the local ``wq``/``wk`` shapes, the
+row-parallel products (``wo``, the FFN's ``w_out``) are all-reduced
+(``row_product``), the vocab-sharded embedding is looked up with a mask
+(``vocab_embed``) and the logits gathered (``vocab_gather``). Without one
+those calls are the identity.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..dist.ctx import act_spec, annotate
 from ..dist.sharding import P
+from ..dist.tensor_parallel import (require, row_product, vocab_embed,
+                                    vocab_gather)
 from ..kernels._build import needs_grad
 from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
@@ -109,19 +119,23 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def _init_tree(gen: torch.Generator, shapes, n_stack: int, dtype,
-               device) -> Any:
+               device, keep, path) -> Any:
     """Norm weights and biases (1-D) are ones (biases are re-zeroed by
     :func:`_zero_biases`); matrices are LeCun-normal in their first axis,
-    one draw per layer when stacked."""
+    one draw per layer when stacked. Each leaf goes through ``keep(path,
+    leaf)``."""
     if isinstance(shapes, dict):
-        return {k: _init_tree(gen, v, n_stack, dtype, device)
+        return {k: _init_tree(gen, v, n_stack, dtype, device, keep,
+                              path + (k,))
                 for k, v in shapes.items()}
     if len(shapes) == 1:
-        return torch.ones((n_stack, *shapes) if n_stack else shapes,
+        leaf = torch.ones((n_stack, *shapes) if n_stack else shapes,
                           dtype=dtype, device=device)
-    if n_stack:
-        return stacked_dense_init(gen, n_stack, shapes, 0, dtype, device)
-    return dense_init(gen, shapes, 0, dtype, device)
+    elif n_stack:
+        leaf = stacked_dense_init(gen, n_stack, shapes, 0, dtype, device)
+    else:
+        leaf = dense_init(gen, shapes, 0, dtype, device)
+    return keep(path, leaf)
 
 
 def _zero_biases(tree, names=("router_bias", "conv_b", "dt_bias")):
@@ -149,37 +163,43 @@ def layer_kinds(cfg: ModelConfig) -> Dict[str, int]:
     raise ValueError(cfg.family)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                keep=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's tree, shapes and init rules,
     drawn from a generator on ``device`` seeded with ``seed``. The numbers
     differ from ``repro``'s ``init_params``; to compute the same function as
     ``repro``, convert its parameters with :mod:`repro_torch.models.convert`.
     On the ``meta`` device nothing is drawn or allocated
-    (``abstract_params``)."""
+    (``abstract_params``). With ``keep``, each leaf is handed to
+    ``keep(path, leaf)`` (``path`` its keys) as soon as it is drawn and
+    what that returns is kept: a rank keeps its shard
+    (``dist.tensor_parallel.init_shard_params``) with at most one whole
+    leaf in memory."""
     device = torch.device(device)
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
     dtype = dtype_of(cfg.param_dtype)
     kinds = layer_kinds(cfg)
+    keep = keep or (lambda path, leaf: leaf)
     params: Dict[str, Any] = {
-        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), 1, dtype,
-                            device),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "embed": keep(("embed",), dense_init(
+            gen, (cfg.vocab_size, cfg.d_model), 1, dtype, device)),
+        "final_norm": keep(("final_norm",), torch.ones(
+            (cfg.d_model,), dtype=dtype, device=device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), 0,
-                                       dtype, device)
+        params["lm_head"] = keep(("lm_head",), dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), 0, dtype, device))
     for seg, depth in kinds.items():
         kind = "dense" if seg == "enc" else seg
         params[seg] = _init_tree(gen, _block_shapes(cfg, kind), depth, dtype,
-                                 device)
+                                 device, keep, (seg,))
     if cfg.family == "hybrid":
         params["shared"] = _init_tree(gen, _block_shapes(cfg, "dense"), 0,
-                                      dtype, device)
+                                      dtype, device, keep, ("shared",))
     if cfg.family == "encdec":
-        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
-                                        device=device)
+        params["enc_norm"] = keep(("enc_norm",), torch.ones(
+            (cfg.d_model,), dtype=dtype, device=device))
     return _zero_biases(params)
 
 
@@ -202,14 +222,15 @@ def _gqa_full(cfg: ModelConfig, p, x, *, causal=True, window=0, kv_x=None):
     """Full-sequence GQA (prefill); returns (out, (k, v) cache), k and v
     [B, Hkv, S_kv, hd] (v a transposed view). Self-attention (RoPE on q and
     k) unless ``kv_x`` gives the keys' and values' source: cross-attention,
-    no RoPE."""
+    no RoPE. The head counts are those of ``p``'s (local) weights."""
     b, s, _ = x.shape
     hd = cfg.head_dim
+    hq, hkv = _heads(p, hd)
     kv_src = x if kv_x is None else kv_x
     sk = kv_src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (kv_src @ p["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = (kv_src @ p["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (kv_src @ p["wk"]).reshape(b, sk, hkv, hd)
+    v = (kv_src @ p["wv"]).reshape(b, sk, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -220,8 +241,14 @@ def _gqa_full(cfg: ModelConfig, p, x, *, causal=True, window=0, kv_x=None):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     o = prefill_attention(q, k, v, causal=causal, window=window)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-    return o @ p["wo"], (k, v)
+    o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    return row_product(o, p["wo"]), (k, v)
+
+
+def _heads(p, hd: int) -> Tuple[int, int]:
+    """(query heads, KV heads) of an attention block's weights: the
+    config's on one process, a rank's own under tensor parallelism."""
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
 
 
 def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
@@ -235,14 +262,17 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
     slots in any order). Without one a write at ``pos >= S`` lands on slot
     S - 1, as the reference's ``dynamic_update_index_in_dim`` clamps it
     (PyTorch indexing would raise). A cache of another dtype than the
-    compute dtype raises ``TypeError``, as the reference's update does."""
+    compute dtype raises ``TypeError``, as the reference's update does.
+    The head counts are those of ``p``'s (local) weights and the cache's
+    replication factor is its heads over the KV heads."""
     b, _ = x.shape
     hd = cfg.head_dim
+    hq, hkv = _heads(p, hd)
     k_cache, v_cache = cache_kv
     s_max = k_cache.shape[2]
-    q = (x @ p["wq"]).reshape(b, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, cfg.n_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(b, hq, hd)
+    k = (x @ p["wk"]).reshape(b, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -251,7 +281,7 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
     q = apply_rope(q[:, :, None], cos, sin)[:, :, 0]
     k = apply_rope(k[:, :, None], cos, sin)[:, :, 0]
     _check_cache_dtype(k, k_cache, cfg)
-    pad = k_cache.shape[1] // cfg.n_kv_heads  # cache with replicated heads
+    pad = k_cache.shape[1] // hkv  # cache with replicated heads
     if pad > 1:
         k = k.repeat_interleave(pad, dim=1)
         v = v.repeat_interleave(pad, dim=1)
@@ -259,8 +289,8 @@ def _gqa_decode(cfg: ModelConfig, p, x, cache_kv, pos: int,
     k_cache[:, :, slot] = k
     v_cache[:, :, slot] = v
     o = decode_attention_host(q, k_cache, v_cache, kv_len)
-    o = o.reshape(b, cfg.n_heads * hd)
-    return o @ p["wo"], (k_cache, v_cache)
+    o = o.reshape(b, hq * hd)
+    return row_product(o, p["wo"]), (k_cache, v_cache)
 
 
 def _check_cache_dtype(new: torch.Tensor, cache: torch.Tensor,
@@ -354,8 +384,8 @@ def _cast_params(cfg: ModelConfig, p):
 
 def _ffn_apply(cfg: ModelConfig, p, x):
     if cfg.ffn == "swiglu":
-        return swiglu(x, p["w_gate"], p["w_in"], p["w_out"])
-    return gelu_mlp(x, p["w_in"], p["w_out"])
+        return swiglu(x, p["w_gate"], p["w_in"], p["w_out"], row_product)
+    return gelu_mlp(x, p["w_in"], p["w_out"], row_product)
 
 
 def _mlp(cfg: ModelConfig, p, h):
@@ -396,6 +426,9 @@ def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head: the logits of the vocabulary the
+    head's (local) weights hold (``vocab_gather`` assembles them under
+    tensor parallelism)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
@@ -415,13 +448,24 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
     Hkv, S_enc, hd]); for the hybrid ``{"ssm": [], "shared_kv": [(k, v)
     of each shared site]}``. The encdec family's encoder reads
     ``enc_tokens`` or ``enc_embeds``."""
+    logits, caches = _forward(cfg, params, tokens, embeds, enc_tokens,
+                              enc_embeds, collect_cache)
+    return vocab_gather(logits), caches
+
+
+def _forward(cfg, params, tokens, embeds, enc_tokens, enc_embeds,
+             collect_cache):
+    """``forward`` with the logits of the head's own vocabulary (a rank's
+    slice under tensor parallelism)."""
+    require(cfg)
     kinds = layer_kinds(cfg)
-    x = params["embed"][tokens] if embeds is None else embeds
+    x = vocab_embed(params["embed"], tokens) if embeds is None else embeds
     x = annotate(x.to(dtype_of(cfg.compute_dtype)), act_spec())
     caches: Dict[str, Any] = {}
     enc_out = None
     if cfg.family == "encdec":
-        e = params["embed"][enc_tokens] if enc_embeds is None else enc_embeds
+        e = (vocab_embed(params["embed"], enc_tokens) if enc_embeds is None
+             else enc_embeds)
         e, _ = _scan_segment(cfg, "dense", params["enc"], e.to(x.dtype),
                              causal_kind="enc")
         enc_out = rms_norm(e, params["enc_norm"], cfg.norm_eps)
@@ -564,10 +608,11 @@ def _hybrid_segments(cfg) -> Tuple[int, ...]:
 def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
             enc_tokens=None, enc_embeds=None):
     """Forward over the prompt; returns last-position logits (cache wiring
-    for incremental decode is exercised via decode_step)."""
-    logits, _ = forward(cfg, params, tokens=tokens, embeds=embeds,
-                        enc_tokens=enc_tokens, enc_embeds=enc_embeds)
-    return logits[:, -1]
+    for incremental decode is exercised via decode_step). Under tensor
+    parallelism only the last position's logits are gathered."""
+    logits, _ = _forward(cfg, params, tokens, embeds, enc_tokens, enc_embeds,
+                         False)
+    return vocab_gather(logits[:, -1])
 
 
 def lm_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
@@ -661,8 +706,9 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
     are. KV and latent caches are donated: the step writes the new entries
     into their tensors in place and returns them, so a cache must not be
     used again after a step."""
+    require(cfg)
     if token_or_embed.dim() == 1:
-        x = params["embed"][token_or_embed]
+        x = vocab_embed(params["embed"], token_or_embed)
     else:
         x = token_or_embed
     x = x.to(dtype_of(cfg.compute_dtype))
@@ -684,7 +730,8 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
         x, layers["cross_self"] = _decode_scan_gqa(
             cfg, params["cross"], x, layers["cross_self"], pos,
             enc_out=layers["enc_out"])
-    logits = annotate(_head(cfg, params, x), P(("pod", "data"), "model"))
+    logits = annotate(vocab_gather(_head(cfg, params, x)),
+                      P(("pod", "data"), "model"))
     return logits, DecodeCache(pos=pos + 1, layers=layers)
 
 

@@ -31,7 +31,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..dist.ctx import suspend_annotations
-from ..dist.pipeline import pipeline_apply, split_microbatches
+from ..dist.pipeline import (pipeline_apply, refuse_model_axis,
+                             split_microbatches)
 from ..models.transformer import (_head, _scan_segment, dtype_of,
                                   init_params, layer_kinds, lm_loss,
                                   next_token_loss, unstack)
@@ -153,6 +154,7 @@ def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int,
     per = _pipeline_split(cfg, mesh, axis)
     n_stages = mesh.shape[axis]
     if mesh.group is not None:
+        refuse_model_axis(mesh)
         return _ranked_loss(cfg, mesh, n_micro, axis)
 
     def stage_fn(stage_layers, x):
@@ -326,6 +328,7 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
         return _train_step(cfg, functools.partial(
             value_and_grads, make_pipeline_loss(cfg, mesh, n_micro=n_micro,
                                                 axis=axis)), lr)
+    refuse_model_axis(mesh)
     if cfg.optimizer != "adamw":
         raise ValueError(f"{cfg.optimizer} on ranks: its factored second "
                          "moments of a 2-D stacked leaf span the stages; "

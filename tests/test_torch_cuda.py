@@ -18,7 +18,8 @@ pipeline: B2 launches and bit equality of the pipelined forward, and the
 pipelined loss and gradients on the card against the CPU; the block
 executor on two rank processes that share the card, with B1; and the
 pipelined train step on two stage ranks that share the card, against the
-logical step. They skip with a reason where there is no GPU. This file imports
+logical step; and tensor-parallel serving on two rank processes that share
+the card, B2 and B4 on each rank's head shard. They skip with a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1487,3 +1488,84 @@ def test_pipelined_step_on_two_stage_ranks(cuda):
         assert run["launches"] == 0
         assert run["bytes"] == ([0, handoffs] if r == 0 else [handoffs, 0])
         assert run["staged"] >= 2 * handoffs
+
+
+def _tp_cfg():
+    """The reduced yi-6b at heads of 64 (4 query heads over 2 KV heads),
+    bf16 compute."""
+    return reduced(get_config("yi-6b"), d_head=64)
+
+
+def tensor_parallel_rank(rank, world, *, device):
+    """The reduced yi-6b on this rank of a (1, 2) mesh of ranks: its shard
+    of the seed-0 weights, prefill of 1 x 64 seeded tokens, then 3 serve
+    steps fed seeded tokens over its shard of a 128-position cache; the B2
+    and B4 launches of each and the logits."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.ctx import launch_mesh
+    from repro_torch.dist.tensor_parallel import (init_shard_cache,
+                                                  init_shard_params)
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = _tp_cfg()
+    mesh = make_dev_mesh(world, device=device, group=dist.group.WORLD)
+    params = init_shard_params(cfg, mesh, seed=0, device=device)
+    toks, fed = _tp_inputs(cfg, device)
+    with torch.inference_mode(), launch_mesh(mesh, global_batch=2):
+        flash_attention.launches = decode_attention.launches = 0
+        prefill = make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        counts = [(flash_attention.launches, decode_attention.launches)]
+        cache = init_shard_cache(cfg, mesh, 2, 128, device=device)
+        step = make_serve_step(cfg)
+        logits = []
+        for tok in fed:
+            flash_attention.launches = decode_attention.launches = 0
+            _, lg, cache = step(params, tok, cache)
+            torch.cuda.synchronize()
+            counts.append((flash_attention.launches,
+                           decode_attention.launches))
+            logits.append(lg)
+    return {"counts": counts, "prefill": prefill.float().cpu(),
+            "steps": torch.stack(logits).float().cpu(),
+            "heads": tuple(cache.layers["dense"][0].shape)}
+
+
+def _tp_inputs(cfg, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    return (torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                          device=device),
+            torch.randint(0, cfg.vocab_size, (3, 2), generator=gen,
+                          device=device))
+
+
+def test_tensor_parallel_ranks_launch_b2_and_b4_on_their_head_shard(cuda):
+    """Two rank processes that share the card, each with 2 of the 4 query
+    heads and 1 of the 2 KV heads: every prefill makes one B2 launch a
+    layer on each rank and every serve step one B4 launch a layer, none
+    else; the gathered logits within the bf16 gate (2e-2 of max|logit|) of
+    the one-process run on the same seed, every rank's the same."""
+    from repro_torch.dist.ranks import spawn_ranks
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    runs = spawn_ranks(tensor_parallel_rank, 2, device="cuda", timeout=600)
+    cfg = _tp_cfg()
+    params = init_params(cfg, seed=0, device=cuda)
+    toks, fed = _tp_inputs(cfg, cuda)
+    with torch.inference_mode():
+        want = [make_prefill_step(cfg)(params, {"tokens": toks})]
+        cache = tfm.init_cache(cfg, 2, 128, device=cuda)
+        for tok in fed:
+            _, lg, cache = make_serve_step(cfg)(params, tok, cache)
+            want.append(lg)
+    want = [w.float().cpu() for w in want]
+    n = cfg.n_layers
+    for run in runs:
+        assert run["counts"] == [(n, 0)] + [(0, n)] * 3
+        assert run["heads"] == (n, 2, 1, 128, cfg.head_dim)
+        assert torch.equal(run["prefill"], runs[0]["prefill"])
+        assert torch.equal(run["steps"], runs[0]["steps"])
+    for got, w in zip([runs[0]["prefill"], *runs[0]["steps"]], want):
+        assert float((got - w).abs().max() / w.abs().max()) <= 2e-2

@@ -23,7 +23,10 @@ one spawned process per mesh coordinate, joined into a gloo group
   its own rows bit for bit, and ``repro``'s ``restore`` reads it;
 - under ``launch_mesh`` a rank's context is its own mesh, its batch one
   dispatch row;
-- a mesh off the world's size and a model axis > 1 refuse to go on ranks;
+- a mesh off the world's size refuses to go on ranks; on a mesh of ranks
+  with a model axis > 1 the pipelined trainer refuses (ROADMAP A8d6) and
+  so does serving a family that axis does not run yet (the moe family,
+  A8d2);
   ``launch.train --pipeline 2 --host-devices 2 --ranks --device cpu``
   lowers the loss, and refuses ``--ranks`` without ``--pipeline`` and
   with ``--elastic``.
@@ -48,7 +51,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.dist import ctx, ranks
 from repro_torch.dist.pipeline import pipeline_apply
 from repro_torch.launch.mesh import Mesh, make_pipeline_mesh
-from repro_torch.models.transformer import abstract_params, init_params
+from repro_torch.models.transformer import (abstract_params, forward,
+                                            init_params)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optimizer import adamw_init
@@ -94,6 +98,13 @@ def _batch():
 
 # ------------------------------------------------------ rank functions
 
+def tfm_forward_under(cfg, mesh):
+    """``forward`` of ``cfg`` under ``mesh`` as the serving launcher installs
+    it (it refuses before it reads a parameter)."""
+    with ctx.launch_mesh(mesh, global_batch=ROWS):
+        forward(cfg, {}, tokens=torch.zeros((ROWS, SEQ), dtype=torch.int64))
+
+
 def apply_rank(rank, world, *, device):
     """The reference case on this rank's stage: its output (last stage),
     its parameter's gradient, its counts and bytes; then the refusals."""
@@ -110,10 +121,21 @@ def apply_rank(rank, world, *, device):
                  else out)
     grad, = torch.autograd.grad(objective, [p])
     refused = []
-    for sizes, names in (((world // 2,), ("pipe",)),
-                         ((1, 1, world), ("pipe", "data", "model"))):
+    try:
+        Mesh((world // 2,), ("pipe",), device, group=dist.group.WORLD)
+    except ValueError as exc:
+        refused.append(str(exc))
+    # a model axis lies on ranks; what does not run on it yet refuses
+    tp_mesh = Mesh((1, 1, world), ("pipe", "data", "model"), device,
+                   group=dist.group.WORLD)
+    moe = reduced(get_config("grok-1-314b"))
+    for attempt in (
+            lambda: make_pipeline_train_step(_cfg(), tp_mesh, lr=LR,
+                                             n_micro=MICRO),
+            lambda: pipeline_apply(_stage, p, xs, mesh=tp_mesh),
+            lambda: tfm_forward_under(moe, tp_mesh)):
         try:
-            Mesh(sizes, names, device, group=dist.group.WORLD)
+            attempt()
         except ValueError as exc:
             refused.append(str(exc))
     return {"out": out.detach() if last else None, "grad": grad,
@@ -258,10 +280,18 @@ def test_ranked_pipeline_sends_only_to_its_pair(worlds):
 
 
 def test_a_mesh_off_the_world_or_with_a_model_axis_refuses_ranks(worlds):
+    """A mesh off the world's size refuses to go on ranks. A model axis of
+    4 goes on them, and what does not run on it yet refuses, naming its
+    ROADMAP item: the pipelined train step and ``pipeline_apply``
+    (training with a model axis, A8d6), and serving the moe family
+    (A8d2)."""
     for run in worlds["apply"]:
-        off, model = run["refused"]
+        off, step, apply, moe = run["refused"]
         assert "whole world of 2 processes, got 4" in off
-        assert "model axis 4 on ranks" in model and "A8d" in model
+        for msg in (step, apply):
+            assert "model axis 4 on ranks" in msg and "A8d6" in msg
+        assert "grok-1-314b (moe) on a model axis of 4 ranks" in moe
+        assert "A8d2" in moe
 
 
 # ---------------------------------------------------------- training
@@ -360,6 +390,7 @@ def test_ranked_step_bytes_per_peer(worlds, cell):
             reduce[other] = run["grads"]["embed"].nbytes
         scalar[other] = 8 if s == 1 else 4           # (loss), |g|²
         assert run["bytes"] == {"p2p": p2p, "reduce": reduce,
+                                "gather": [0] * len(runs),
                                 "scalar": scalar}, (cell, run["coords"])
 
 
