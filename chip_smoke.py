@@ -159,21 +159,32 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    byte for byte the one-process save's, each rank's own rows read back
    bit for bit, and a resume bit for bit; then the model axis as rank
    processes that share the card (``phase_tensor_ranks``,
-   ``make_dev_mesh(n, group=)``, ``dist.tensor_parallel``): yi-6b-tp2-r2
-   (yi-6b at full width and depth on a (1, 2) mesh of 2 ranks) and
-   starcoder2-3b-tp4-r4 (on (1, 4), ``kv_head_pad`` 2: each rank holds
-   the whole KV head its query heads read), bf16 compute, each rank
-   drawing only its shard of the seed-0 weights: prefill 1 x 2 048 with
-   n_layers B2 launches per rank, 16 serve steps at batch 8 over a seeded
-   cache (32 768 and 4 096 positions) with n_layers B4 launches a step
-   per rank, every B2 and B4 call of a further prefill and step held to
-   its plain version on its own operands, the bytes each rank sends each
-   peer by kind against their formula, every rank's gathered logits
-   equal, the prefill within 2e-2 and each teacher-forced step within the
-   larger of 2e-2 and twice the one-process step's own B4-vs-plain gap of
-   the one-process run, and in f32 compute a prefill and a step within
-   1e-4; per rank ms a step, tok/s, all-reduce and gather ms and bytes,
-   busy ms and peak memory;
+   ``make_dev_mesh(n, model=, group=)``, ``dist.tensor_parallel``):
+   yi-6b-tp2-r2 (yi-6b at full width and depth on a (1, 2) mesh of 2
+   ranks), starcoder2-3b-tp4-r4 (on (1, 4), ``kv_head_pad`` 2: each rank
+   holds the whole KV head its query heads read), grok-1-314b-d8-tp4-r4
+   (8 of 64 layers on (1, 4): 2 of the 8 experts, 12 q heads over 2 KV
+   heads a rank), deepseek-v3-671b-d5-tp4-r4 (3 dense + 2 MoE layers on
+   (1, 4): 64 of 256 experts, 32 MLA heads a rank, the latent cache whole)
+   and grok-1-314b-d2-dp2-tp2-r4 (2 layers on (2, 2): a data axis of
+   ranks, held to the one-process run under a logical (2, 2) mesh), bf16
+   compute, each rank drawing only its shard of the seed-0 weights:
+   prefill of a 2 048-token row a data rank with n_layers B2 launches per
+   rank (none with MLA), 16 serve steps at batch 8 over a seeded cache
+   (32 768 and 4 096 positions) with n_layers B4 launches a step per rank
+   (none with MLA), every B2 and B4 call of a further prefill and step
+   held to its plain version on its own operands, the bytes each rank
+   sends each peer by kind against their formula, every rank's gathered
+   logits equal, the prefill within 2e-2 and each step within the larger
+   of 2e-2 and twice the one-process step's own B4-vs-plain gap of the
+   one-process run (with MLA: the prefill too, and the gap between its
+   attention and SDPA's), teacher forced (the tokens and the bf16 MoE
+   dispatch the one-process run's; how often the ranks' own dispatch
+   would differ is printed), and in f32 compute a prefill and a step
+   within 1e-4 (deepseek's on its dense layers); for the moe cells one
+   MoE layer in f32 on the ranks fed the one-process input to it, its
+   dispatch bit for bit and its output within 1e-4; per rank ms a step,
+   tok/s, all-reduce and gather ms and bytes, busy ms and peak memory;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -184,7 +195,7 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    ranked pipelined forward; ``pipeline_ranks_train_launches``: each
    rank's in the ranked train steps, 0; ``tensor_ranks_launches``: each
    rank's B2 launches a prefill and B4 launches in 16 steps of the ranked
-   tensor-parallel cells)
+   tensor-parallel cells, the moe cells' included)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -239,7 +250,7 @@ from repro_torch.launch.mesh import (Mesh, make_dev_mesh,  # noqa: E402
                                     make_pipeline_mesh)
 from repro_torch.dist.sharding import kv_head_pad  # noqa: E402
 from repro_torch.dist.tensor_parallel import (  # noqa: E402
-    init_shard_cache, init_shard_params)
+    init_shard_cache, init_shard_params, row_product)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
@@ -248,7 +259,8 @@ from repro_torch.linalg.host_exec import run_host_ptg  # noqa: E402
 from repro_torch.linalg.gemm import (assemble, gemm_2d_program,  # noqa: E402
                                      gemm_executor, gemm_rank, make_blocks)
 from repro_torch.models import mamba2, moe  # noqa: E402
-from repro_torch.models.layers import dense_init  # noqa: E402
+from repro_torch.models.layers import (apply_rope, dense_init,  # noqa: E402
+                                       rms_norm, rope_freqs)
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.attention_chain import (chain_blocks,  # noqa: E402
@@ -1824,6 +1836,57 @@ def plain_attention():
         yield
     finally:
         tfm.prefill_attention, tfm.decode_attention_host = kernels
+
+
+def mla_decode_sdpa(cfg, p, x, cache, pos: int):
+    """MLA's decode step as its prefill attends, a second correct
+    implementation of the absorbed decode (``transformer._mla_decode``,
+    f32 einsums over the latents) for the comparison: the latents written
+    at ``pos`` alike, then keys and values expanded from the latent cache
+    through ``wkv_b`` in the compute dtype and
+    ``scaled_dot_product_attention`` over the positions <= ``pos``."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = tfm._mla_heads(cfg, p)
+    ckv_cache, krope_cache = cache
+    slot = min(pos, ckv_cache.shape[1] - 1)
+    q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(b, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    ckv_t, krope_t = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
+                                            dim=-1)
+    ckv_cache[:, slot] = rms_norm(ckv_t, p["kv_ln"], cfg.norm_eps)
+    cos, sin = rope_freqs(torch.full((1,), pos, device=x.device),
+                          m.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope[:, :, None], cos, sin)[:, :, 0]
+    krope_cache[:, slot] = apply_rope(krope_t[:, None, None], cos,
+                                      sin)[:, 0, 0]
+    n = slot + 1
+    kvb = (ckv_cache[:, :n] @ p["wkv_b"]).reshape(
+        b, n, h, m.qk_nope_dim + m.v_head_dim).transpose(1, 2)
+    k_nope, v = kvb.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, krope_cache[:, None, :n].expand(
+        b, h, n, m.qk_rope_dim)], -1)
+    o = F.scaled_dot_product_attention(
+        torch.cat([q_nope, q_rope], -1)[:, :, None], k, v)
+    return (row_product(o[:, :, 0].reshape(b, h * m.v_head_dim), p["wo"]),
+            (ckv_cache, krope_cache))
+
+
+@contextlib.contextmanager
+def plain_mla():
+    """MLA's attention through a second correct implementation, for the
+    comparison with the model's (no kernel of the port takes MLA):
+    ``scaled_dot_product_attention`` in the prefill in place of
+    ``chunked_attention``, ``mla_decode_sdpa`` in a decode step."""
+    chunked, decode = tfm.chunked_attention, tfm._mla_decode
+    tfm.chunked_attention = lambda q, k, v, causal=True: \
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    tfm._mla_decode = mla_decode_sdpa
+    try:
+        yield
+    finally:
+        tfm.chunked_attention, tfm._mla_decode = chunked, decode
 
 
 # The yi-6b model checks, as max|diff| / max|reference logits|. The
@@ -3679,80 +3742,251 @@ def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
 # max|ranked - one process| / max|one process| over the logits of a call.
 # Both run the cell's bf16 compute on the same weights; the ranks sum each
 # row-parallel product's f32 partials and round once, as one process
-# rounds (``dist/tensor_parallel.py``), but their column products (N
-# halved or quartered: other cuBLAS kernels) and B4's split plan (fewer
-# heads) round elsewhere, and 32 random-weight layers carry that to the
-# logits. The prefill is held to 2e-2, the bf16 gate. A decode step over
-# yi-6b's 32 768-position cache moves as much between two correct
+# rounds (``dist/tensor_parallel.py``), but their sums run in other orders
+# (partials over ranks, batched products over fewer heads or experts, B4's
+# split plan), and the random-weight layers carry the roundings that moves
+# to the logits. The prefill is held to 2e-2, the bf16 gate. A decode step
+# over yi-6b's 32 768-position cache moves as much between two correct
 # attention kernels of one process: B4 against ``decode_ref`` 4.57e-2 at
 # the first step on the H100 (``tp_one_process`` measures it per step in
 # the run). So each step is held to the larger of
 # 2e-2 and TP_NOISE times that one-process gap at the same step, and the
 # argmax equal where the one-process top-2 gap exceeds the step's gate.
-# The strict check is f32: the prefill and a decode step in f32 compute,
-# ranked against one process, at DENSE_TOL (the ranks change only the
-# order of f32 sums).
+# MLA has no kernel: its prefill and steps are held to the larger of 2e-2
+# and TP_NOISE times the one-process gap between its attention and SDPA's
+# (``plain_mla``), 2.1-2.9e-2 on deepseek-v3-671b-d5 on the H100. The MoE's
+# router flips near ties on such roundings: a token then goes to another
+# expert, or a slot past capacity, and its row moves by its own size (on
+# the H100 the ranks' own bf16 dispatch differed from one process's in
+# 1 292 of deepseek's 2 048 prefill tokens). So the bf16 calls are teacher
+# forced on the dispatch as on the tokens (``forced_routes``): each MoE
+# call takes the one-process call's experts and kept slots, weighted by
+# its own router; the dispatch itself is held bit for bit in f32 by the
+# routing gate (``tp_route_report``). The strict check is f32: the
+# prefill and a decode step in f32 compute, ranked against one process,
+# at DENSE_TOL (the ranks change only the order of f32 sums).
 TP_TOL = 2e-2
 TP_NOISE = 2.0
-# (cell, arch, model axis = ranks, cache positions, prompt, batch, steps)
-TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 2, 32768),
-            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 4, 4096))
+# (cell, arch, layers kept (0: all), mesh (data, model) of data x model
+# rank processes, cache positions). A moe arch keeps its leading dense
+# layers in its cut (deepseek-v3-671b-d5: 3 dense + 2 MoE).
+TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768),
+            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 0, (1, 4), 4096),
+            ("grok-1-314b-d8-tp4-r4", "grok-1-314b", 8, (1, 4), 4096),
+            ("deepseek-v3-671b-d5-tp4-r4", "deepseek-v3-671b", 5, (1, 4),
+             4096),
+            ("grok-1-314b-d2-dp2-tp2-r4", "grok-1-314b", 2, (2, 2), 4096))
 
 
-def tp_inputs(cfg, dev, prompt: int, batch: int, seed=17):
-    """The cells' seeded prompt [1, prompt] and first decode tokens
-    [batch], drawn on the card."""
+def tp_config(arch: str, layers: int):
+    """The cell's config: ``arch`` at full width, cut to ``layers``."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def tp_inputs(cfg, dev, prompt: int, batch: int, rows: int = 1, seed=17):
+    """The cells' seeded prompt [rows, prompt] (a row a data rank) and
+    first decode tokens [batch], drawn on the card."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return (torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+    return (torch.randint(0, cfg.vocab_size, (rows, prompt), generator=gen,
                           device=dev),
             torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
                           device=dev))
 
 
-def tp_fill(cfg, cache, upto: int, seed: int, heads=None):
-    """Seeded keys and values at positions [0, upto) of a dense cache:
-    per layer, k then v, a [B, Hkv, upto, hd] normal draw from one
-    generator on the card; ``heads`` picks a rank's (padded) cache heads
-    from the Hkv drawn. Returns the cache at position ``upto``."""
-    k_all, v_all = cache.layers["dense"]
-    gen = torch.Generator(device=k_all.device).manual_seed(seed)
-    for i in range(cfg.n_layers):
-        for t in (k_all, v_all):
-            vals = torch.randn((t.shape[1], cfg.n_kv_heads, upto,
-                                cfg.head_dim), generator=gen,
-                               device=t.device)
-            t[i, :, :, :upto] = (vals if heads is None else
-                                 vals[:, heads]).to(t.dtype)
+def tp_fill(cfg, cache, upto: int, seed: int, heads=None, rows=None,
+            batch: int = 0):
+    """Seeded contents at positions [0, upto) of a dense or moe cache: per
+    segment, layer and leaf, a normal draw for the whole ``batch`` (the
+    cache's own unless given) from one generator on the card (GQA: k then
+    v, [B, Hkv, upto, hd]; MLA: ckv then k_rope, [B, upto, *]); ``rows``
+    picks a data rank's rows of it and ``heads`` a rank's (padded) cache
+    heads from the Hkv drawn (MLA's latents are whole on every rank).
+    Returns the cache at position ``upto``."""
+    mla = cfg.attention == "mla"
+    gen = torch.Generator(device=next(iter(cache.layers.values()))[0].device
+                          ).manual_seed(seed)
+    for seg in cache.layers.values():
+        for i in range(seg[0].shape[0]):
+            for t in seg:
+                b = batch or t.shape[1]
+                vals = torch.randn(
+                    (b, upto, t.shape[-1]) if mla
+                    else (b, cfg.n_kv_heads, upto, cfg.head_dim),
+                    generator=gen, device=t.device)
+                if rows is not None:
+                    vals = vals[rows]
+                if heads is not None and not mla:
+                    vals = vals[:, heads]
+                t[i].narrow(t.dim() - 3, 0, upto).copy_(vals)
     return cache._replace(pos=upto)
+
+
+def tp_f32_cut(cfg, params):
+    """The f32 gate's config and parameters (views): the cell's, in f32
+    compute; for a moe arch with MLA only its leading dense layers, since
+    a MoE layer of deepseek-v3-671b cast to f32 (46 GB) does not fit beside
+    the bf16 model (the routing gate holds that layer in f32 alone)."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.attention != "mla" or not cfg.moe:
+        return f32, params
+    return (dataclasses.replace(f32, n_layers=cfg.moe.first_dense_layers),
+            dict(params, moe=first_layers(params["moe"], 0)))
 
 
 def tp_f32(cfg, params, toks, make_cache, tok) -> tuple:
     """The f32 gate's calls: prefill of ``toks`` and one serve step of
-    ``tok`` from ``make_cache(f32 config)``, both in f32 compute; their
-    logits on the host."""
-    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ``tok`` from ``make_cache(f32 config)``, both in f32 compute on
+    ``tp_f32_cut``'s layers; their logits on the host."""
+    f32, params = tp_f32_cut(cfg, params)
     prefill = make_prefill_step(f32)(params, {"tokens": toks})
     _, step, _ = make_serve_step(f32)(params, tok, make_cache(f32))
     return prefill.cpu(), step.cpu()
 
 
+@contextlib.contextmanager
+def moe_inputs(out: list):
+    """Keeps in ``out`` the input of the last ``moe_ffn`` call of the model
+    in the block (x [B, S, D]; a reference, no copy)."""
+    ffn = tfm.moe_ffn
+
+    def keeping(x, *args):
+        out[:] = [x]
+        return ffn(x, *args)
+
+    tfm.moe_ffn = keeping
+    try:
+        yield out
+    finally:
+        tfm.moe_ffn = ffn
+
+
+@contextlib.contextmanager
+def recorded_routes(out: list):
+    """Each ``moe.route`` call's (experts, positions, kept mask) appended to
+    ``out``, one a dispatch row, in call order (left on the device: the
+    recording adds no synchronisation to a timed window)."""
+    route = moe.route
+
+    def recording(xt, p, cfg_moe):
+        r = route(xt, p, cfg_moe)
+        out.append((r.expert, r.pos, r.keep))
+        return r
+
+    moe.route = recording
+    try:
+        yield out
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def forced_routes(calls: list, own: list):
+    """Teacher-forced routing: each ``moe.route`` call in the block takes
+    the next of ``calls`` (another run's recorded (experts, positions,
+    kept mask), on the device) in place of its own dispatch, weighted by
+    its own router scores for those experts, as the tokens of the ranked
+    steps are the yardstick's. Its own dispatch goes to ``own``."""
+    route = moe.route
+    forced = iter(calls)
+
+    def forcing(xt, p, cfg_moe):
+        r = route(xt, p, cfg_moe)
+        own.append((r.expert, r.pos, r.keep))
+        expert, pos, keep = next(forced)
+        _, src = moe._scores(xt, p, cfg_moe)
+        w = src.gather(1, expert)
+        return moe.Routing(expert, w / (w.sum(-1, keepdim=True) + 1e-9),
+                           pos, keep, r.capacity)
+
+    moe.route = forcing
+    try:
+        yield own
+    finally:
+        moe.route = route
+
+
+def tp_moe_layer(params, i: int) -> dict:
+    """The routing gate's layer: MoE layer ``i``'s leaves of ``params``
+    (one process's, or a rank's shard) in f32 on their device. The layer
+    waits on the host while ``params`` is emptied and the rest of the
+    model freed (the caller holds no other reference to it), so the card
+    never holds the model and the f32 layer at once (deepseek-v3-671b:
+    53.2 GB of bf16 weights, a MoE layer 46 GB in f32)."""
+    dev = params["moe"]["moe"]["w_in"].device
+    layer = {name: leaf[i].cpu()
+             for name, leaf in params["moe"]["moe"].items()}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: layer.pop(name).to(dev).float() for name in list(layer)}
+
+
+def tp_route_gate(cfg, params, x, mesh, batch: int) -> tuple:
+    """One MoE layer (the cut's last) in f32, fed ``x`` (its input in the
+    yardstick's bf16 prefill) under ``mesh``: (output on the host, each
+    dispatch row's (experts, positions, kept mask)). Frees the model."""
+    layer = tp_moe_layer(params, tfm.layer_kinds(cfg)["moe"] - 1)
+    routes = []
+    with launch_mesh(mesh, global_batch=batch), recorded_routes(routes):
+        y = moe.moe_ffn(x.float(), layer, cfg.moe, cfg.ffn, torch.float32)
+    return y.cpu(), host(routes)
+
+
+def host(routes: list) -> list:
+    """Recorded dispatch calls on the host."""
+    return [tuple(a.cpu() for a in call) for call in routes]
+
+
+def layer_routes(calls: list, rows: int) -> list:
+    """A run's recorded MoE calls by layer (``rows`` dispatch rows a
+    layer, in row order): each layer's (experts, kept mask) [T, k] over all
+    its tokens."""
+    return [tuple(torch.cat([calls[i * rows + r][j] for r in range(rows)])
+                  for j in (0, 2)) for i in range(len(calls) // rows)]
+
+
+def routed_alike(a: list, b: list, tokens=slice(None)):
+    """[T] bool over ``tokens`` of ``a`` and ``b`` (two runs'
+    ``layer_routes``, ``b`` taken at ``tokens``): whether each token went
+    to the same experts with the same kept slots in every MoE layer; None
+    without MoE layers."""
+    out = None
+    for (ea, ka), (eb, kb) in zip(a, b):
+        same = (ea == eb[tokens]).all(-1) & (ka == kb[tokens]).all(-1)
+        out = same if out is None else out & same
+    return out
+
+
 def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
-                   steps: int, gate_batch: int) -> dict:
-    """The one-process run the ranked cell is held to: prefill of the
-    seeded prompt, then ``steps`` + 1 greedy serve steps from the seeded
-    cache at ``s_max - steps - 1``: the step inputs and every logits, on
-    the host, and the ms of the timed steps; the same steps fed the same
-    inputs with the plain attention (``decode_ref``), the bf16 noise of a
-    step; the f32 gate's calls (``tp_f32``, a ``gate_batch`` cache)."""
+                   steps: int, gate_batch: int, data: int, model: int
+                   ) -> dict:
+    """The yardstick of a ranked cell, on this process: with a data axis
+    under a logical (data, model) mesh (``dispatch_rows()`` is ``data``:
+    each data rank's row routed on its own), else with no mesh. Prefill of
+    the seeded prompt (a row a data rank), then ``steps`` + 1 greedy serve
+    steps from the seeded cache at ``s_max - steps - 1``: the step inputs
+    and every logits, on the host, and the ms of the timed steps; the same
+    steps fed the same inputs with the plain attention (``decode_ref``),
+    the bf16 noise of a step (with MLA, ``plain_mla``'s SDPA against the
+    model's attention, in the prefill too; the routing forced to the
+    kernel run's, ``forced_routes``); the f32 gate's calls (``tp_f32``,
+    a ``gate_batch`` cache); for a moe arch every MoE call's dispatch in
+    the prefill and the steps, and the routing gate (``tp_route_gate``) on
+    the last MoE layer's input in the prefill."""
+    mesh = Mesh((data, model), ("data", "model"), dev) if data > 1 else None
     params = tfm.init_params(cfg, seed=0, device=dev)
-    toks, first = tp_inputs(cfg, dev, prompt, batch)
+    toks, first = tp_inputs(cfg, dev, prompt, batch, rows=data)
     upto = s_max - steps - 1
     serve = make_serve_step(cfg)
-    with torch.inference_mode():
+    gate_x = []
+    with torch.inference_mode(), launch_mesh(mesh, global_batch=batch):
         make_prefill_step(cfg)(params, {"tokens": toks[:, :256]})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill = make_prefill_step(cfg)(params, {"tokens": toks})
+        pre_routes, routes, plain_routes = [], [], []
+        with moe_inputs(gate_x), recorded_routes(pre_routes):
+            prefill = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
@@ -3763,29 +3997,49 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
             inputs.append(tok)
-            tok, lg, cache = serve(params, tok, cache)
+            routes.append([])
+            with recorded_routes(routes[-1]):
+                tok, lg, cache = serve(params, tok, cache)
             logits.append(lg.float().cpu())
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / steps
         del cache
+        # a second correct attention, the dispatch forced to the run's
+        mla = cfg.attention == "mla"
+        other = plain_mla if mla else plain_attention
         cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
                         upto, seed=18)
         plain = []
-        with plain_attention():
-            for tok in inputs:
-                _, lg, cache = serve(params, tok, cache)
+        with other():
+            for tok, forced in zip(inputs, routes):
+                with forced_routes(forced, []):
+                    _, lg, cache = serve(params, tok, cache)
                 plain.append(lg.float().cpu())
         del cache
+        prefill_noise = 0.0
+        if mla:
+            with other(), forced_routes(pre_routes, []):
+                again = make_prefill_step(cfg)(params, {"tokens": toks})
+            prefill_noise = float((again.float() - prefill.float()).abs().max()
+                                  / prefill.float().abs().max())
+            del again
         torch.cuda.empty_cache()
         f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(c, tfm.init_cache(
             c, gate_batch, s_max, dtype=torch.float32, device=dev), upto,
             seed=19), first[:gate_batch])
+        route = None
+        if cfg.moe:
+            route = tp_route_gate(cfg, params, gate_x[0], mesh, batch)
     out = {"prefill": prefill.float().cpu(), "prefill_ms": prefill_ms,
            "inputs": torch.stack(inputs).cpu(), "step_ms": step_ms,
            "steps": torch.stack(logits), "noise": [
                float((a - b).abs().max() / a.abs().max())
-               for a, b in zip(logits, plain)], "f32": f32}
-    del params, prefill
+               for a, b in zip(logits, plain)],
+           "prefill_noise": prefill_noise, "f32": f32,
+           "route": route, "gate_x": gate_x[0].cpu() if gate_x else None,
+           "prefill_routes": host(pre_routes),
+           "step_routes": [host(r) for r in routes]}
+    del params, prefill, gate_x
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3817,148 +4071,232 @@ def held_kernels(errs: list):
         tfm.prefill_attention, tfm.decode_attention_host = attn, decode
 
 
-def tp_rank(rank, world, arch, s_max, prompt, batch, steps, gate_batch,
-            inputs, *, device):
-    """A ranked tensor-parallel cell on this rank of a (1, world) mesh
-    (``make_dev_mesh(world, group=)``): its shard of the seed-0 weights
-    drawn leaf by leaf, then under ``launch_mesh``: a warm-up prefill, the
-    timed prefill of the seeded prompt (counted), the same prefill with
-    each B2 call held to ``mha_ref``; its shard of the seeded cache, the
-    first serve step with each B4 call held to ``decode_ref``, then
-    ``steps`` timed serve steps fed the one-process run's ``inputs``
-    (counted); then the f32 gate's calls (``tp_f32``). Returns every
+def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
+            gate_x, calls, *, device):
+    """A ranked tensor-parallel cell on this rank of its (data, model)
+    mesh (``make_dev_mesh(world, model=, group=)``): its shard of the
+    seed-0 weights drawn leaf by leaf, then under ``launch_mesh``: a
+    warm-up prefill, the timed prefill of its data row of the seeded
+    prompt (counted), the same prefill with each B2 call held to
+    ``mha_ref``; its shard of the seeded cache (its rows, its KV heads),
+    the first serve step with each B4 call held to ``decode_ref``, then
+    ``steps`` timed serve steps fed its rows of the yardstick's ``inputs``
+    (counted); the MoE's dispatch in these bf16 prefills and steps forced
+    to its data row's of the yardstick's (``calls``: the prefill's and
+    each step's recorded dispatch calls; ``forced_routes``), its own
+    recorded; then the f32 gate's calls (``tp_f32``) and for a moe arch
+    last the routing gate (``tp_route_gate``) on its row of ``gate_x``,
+    which frees the model, both routed by the rank itself. Returns every
     logits (gathered: the whole vocabulary), the windows' counters, the
-    held errors and this rank's peak memory."""
+    held errors, its own dispatch, the gate's output and dispatch, and
+    this rank's peak memory."""
+    _, arch, layers, (_, model), s_max = cell
     dev = torch.device(device)
-    cfg = get_config(arch)
-    mesh = make_dev_mesh(world, model=world, device=dev,
+    cfg = tp_config(arch, layers)
+    mesh = make_dev_mesh(world, model=model, device=dev,
                          group=torch.distributed.group.WORLD)
+    data, d = mesh.shape["data"], mesh.coords["data"]
+    rows = slice(d * batch // data, (d + 1) * batch // data)
     t0 = time.perf_counter()
     params = init_shard_params(cfg, mesh, seed=0, device=dev)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
+    leaf_gb = sum(t.nbytes for t in tree_leaves(params)) / 1e9
     torch.cuda.empty_cache()
-    toks, _ = tp_inputs(cfg, dev, prompt, batch)
-    inputs = inputs.to(dev)
+    toks, _ = tp_inputs(cfg, dev, prompt, batch, rows=data)
+    toks = toks[d:d + 1]
+    g_rows = slice(d * gate_batch // data, (d + 1) * gate_batch // data)
+    gate_tok = inputs[0, :gate_batch][g_rows].to(dev)
+    inputs = inputs[:, rows].to(dev)
     step = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
-    model, pad = mesh.shape["model"], kv_head_pad(cfg, world)
+    pad = kv_head_pad(cfg, model)
     per = cfg.n_kv_heads * pad // model
     heads = torch.arange(per * mesh.coords["model"],
                          per * (mesh.coords["model"] + 1)) // pad
-    errs = []
+    def mine(run):
+        """This data row's calls of a yardstick run: call l·data + d."""
+        return [tuple(a.to(dev) for a in c) for c in run[d::data]]
+
+    pre_calls = mine(calls["prefill"])
+    step_calls = [mine(c) for c in calls["steps"]]
+    errs, pre_routes, routes = [], [], []
     with torch.inference_mode(), launch_mesh(mesh, global_batch=batch):
         step(params, {"tokens": toks[:, :256]})           # warm-up
         t0 = rank_window(mesh, dev)
-        prefill = step(params, {"tokens": toks})
+        with forced_routes(pre_calls, pre_routes):
+            prefill = step(params, {"tokens": toks})
         pre = rank_window_end(mesh, dev, t0)
         pre["gather_ms"] = mesh.transport.ms["gather"]
-        with held_kernels(errs):
+        with held_kernels(errs), forced_routes(pre_calls, []):
             again = step(params, {"tokens": toks})
         cache = tp_fill(cfg, init_shard_cache(cfg, mesh, batch, s_max,
                                               device=dev),
-                        s_max - steps - 1, seed=18, heads=heads)
-        with held_kernels(errs):
+                        s_max - steps - 1, seed=18, heads=heads, rows=rows,
+                        batch=batch)
+        routes.append([])
+        with held_kernels(errs), forced_routes(step_calls[0], routes[-1]):
             _, first, cache = serve(params, inputs[0], cache)
         logits = [first]
         t0 = rank_window(mesh, dev)
         for i in range(1, steps + 1):
-            _, lg, cache = serve(params, inputs[i], cache)
+            routes.append([])
+            with forced_routes(step_calls[i], routes[-1]):
+                _, lg, cache = serve(params, inputs[i], cache)
             logits.append(lg)
         dec = rank_window_end(mesh, dev, t0)
         dec["gather_ms"] = mesh.transport.ms["gather"]
-        shape = tuple(cache.layers["dense"][0].shape)
-        cache_gb = sum(t.nbytes for t in cache.layers["dense"]) / 1e9
-        del cache
+        first_seg = next(iter(cache.layers.values()))
+        shape = tuple(first_seg[0].shape)
+        cache_gb = sum(t.nbytes for seg in cache.layers.values()
+                       for t in seg) / 1e9
+        del cache, first_seg
         torch.cuda.empty_cache()
         f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(
             c, init_shard_cache(c, mesh, gate_batch, s_max,
                                 dtype=torch.float32, device=dev),
-            s_max - steps - 1, seed=19, heads=heads), inputs[0][:gate_batch])
+            s_max - steps - 1, seed=19, heads=heads, rows=g_rows,
+            batch=gate_batch), gate_tok)
+        route = None
+        if cfg.moe:
+            route = tp_route_gate(cfg, params, gate_x[d:d + 1].to(dev), mesh,
+                                  batch)
     return {"coords": mesh.coords, "init_s": init_s, "prefill_window": pre,
-            "decode_window": dec, "errs": errs, "f32": f32,
+            "decode_window": dec, "errs": errs, "f32": f32, "route": route,
+            "prefill_routes": layer_routes(host(pre_routes), 1),
+            "step_routes": [layer_routes(host(r), 1) for r in routes],
             "prefill": prefill.float().cpu(),
             "prefill_again": torch.equal(again, prefill),
             "steps": torch.stack(logits).float().cpu(),
-            "cache_heads": shape,
-            "leaf_gb": sum(t.nbytes for t in tree_leaves(params)) / 1e9,
-            "cache_gb": cache_gb,
+            "cache_shape": shape, "leaf_gb": leaf_gb, "cache_gb": cache_gb,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def tp_gate(tag: str, got: torch.Tensor, want: torch.Tensor,
-            tol: float) -> float:
+def tp_gate(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+            failed: list) -> float:
     """max|got - want| / max|want| of one call's logits, gated at ``tol``,
     and the argmax equal on every row whose one-process top-2 gap exceeds
     ``tol`` x max|want| (teacher forced: the ranks were fed the one-process
-    run's tokens)."""
+    run's tokens and MoE dispatch); a gate that fails is added to
+    ``failed``."""
     err = float((got - want).abs().max() / want.abs().max())
     top2 = want.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > tol * float(want.abs().max())
     same = got.argmax(-1) == want.argmax(-1)
-    check(err <= tol, f"{tag}: ranked logits vs one process {err} (tol "
-          f"{tol})")
-    check(bool(same[sure].all()), f"{tag}: argmax differs on "
-          f"{int((~same & sure).sum())} rows whose top-2 gap exceeds the "
-          "gate")
+    if err > tol:
+        failed.append(f"{tag}: ranked logits vs one process {err} (tol "
+                      f"{tol})")
+    if not bool(same[sure].all()):
+        failed.append(f"{tag}: argmax differs on {int((~same & sure).sum())}"
+                      " rows whose top-2 gap exceeds the gate")
     return err
 
 
+def tp_reduces(cfg) -> int:
+    """The f32 [tokens, d_model] all-reduces a forward sends a peer of its
+    model group: the embedding, each attention ``wo``, each dense
+    ``w_out``, each MoE combine and each shared ``w_out`` (one collective
+    with the combine, its bytes)."""
+    kinds = tfm.layer_kinds(cfg)
+    shared = 1 if cfg.moe and cfg.moe.n_shared_experts else 0
+    return (1 + cfg.n_layers + kinds.get("dense", 0)
+            + kinds.get("moe", 0) * (1 + shared))
+
+
+def tp_route_report(name: str, cfg, runs, want: dict) -> float:
+    """Hold every rank's routing gate to the yardstick's: its dispatch
+    row's experts, positions and kept masks bit for bit, its output within
+    DENSE_TOL; returns the kept share."""
+    y_want, r_want = want["route"]
+    kept = float(torch.cat([r[2].float().flatten() for r in r_want]).mean())
+    errs = []
+    for r in runs:
+        d = r["coords"]["data"]
+        y, routes = r["route"]
+        same = len(routes) == 1 and all(
+            torch.equal(a, b) for a, b in zip(routes[0], r_want[d]))
+        err = float((y[0] - y_want[d]).abs().max() / y_want[d].abs().max())
+        errs.append(err)
+        check(same and err <= DENSE_TOL, f"{name}: rank {r['coords']} "
+              f"routing gate: dispatch equal {same}, output {err}")
+    tokens = want["gate_x"].shape[1]
+    log(f"[tensor ranks] {name}: its last MoE layer in f32 on the ranks, "
+        f"fed the yardstick's bf16 prefill input to it "
+        f"{list(want['gate_x'].shape)} ({len(r_want)} dispatch rows of "
+        f"{tokens} tokens, capacity {moe.capacity(tokens, cfg.moe)}): "
+        f"experts, positions and kept masks bit for bit the yardstick's on "
+        f"every rank, outputs {max(errs):.3e} (tol {DENSE_TOL:.0e}); kept "
+        f"{kept:.4f} of routed slots [{card()}]")
+    return kept
+
+
 def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
-              steps: int) -> dict:
+              steps: int, gate_batch: int) -> dict:
     """Hold a ranked cell's per-rank counts, bytes and logits and print
     its numbers; returns its launches per rank."""
-    model = len(runs)
+    model = max(r["coords"]["model"] for r in runs) + 1
+    data = len(runs) // model
+    rows = batch // data
+    gqa = 0 if cfg.attention == "mla" else cfg.n_layers
     d = cfg.d_model
-    pre_reduce = (2 * cfg.n_layers + 1) * prompt * d * 4
+    per = tp_reduces(cfg)
+    pre_reduce = per * prompt * d * 4
     pre_gather = cfg.vocab_size // model * 2
-    dec_reduce = steps * (2 * cfg.n_layers + 1) * batch * d * 4
-    dec_gather = steps * batch * cfg.vocab_size // model * 2
+    dec_reduce = steps * per * rows * d * 4
+    dec_gather = steps * rows * cfg.vocab_size // model * 2
     for r in runs:
         pw, dw = r["prefill_window"], r["decode_window"]
         b2 = [e for e in r["errs"] if e[0] == "B2"]
         b4 = [e for e in r["errs"] if e[0] == "B4"]
-        peers = [p for p in range(model) if p != r["coords"]["model"]]
+        peers = [p for p, o in enumerate(runs)
+                 if o["coords"]["data"] == r["coords"]["data"]
+                 and o["coords"] != r["coords"]]
         log(f"[tensor ranks] {name} rank {r['coords']}: weights "
             f"{r['leaf_gb']:.2f} GB (drawn as shards in {r['init_s']:.2f} s)"
-            f", cache {r['cache_gb']:.2f} GB {list(r['cache_heads'])}, peak "
+            f", cache {r['cache_gb']:.2f} GB {list(r['cache_shape'])}, peak "
             f"{r['peak_gb']:.2f} GB; prefill 1 x {prompt}: "
             f"{pw['wall_ms']:.1f} ms, all-reduce {pw['reduce_ms']:.1f} ms "
             f"({pw['reduce_ms'] / pw['wall_ms']:.1%}), gather "
             f"{pw['gather_ms']:.2f} ms, busy {pw['busy_ms']:.1f} ms, "
             f"launches {pw['launches']}; decode: "
             f"{dw['wall_ms'] / steps:.2f} ms a step, "
-            f"{batch * steps / dw['wall_ms'] * 1e3:.1f} tok/s, all-reduce "
+            f"{rows * steps / dw['wall_ms'] * 1e3:.1f} tok/s, all-reduce "
             f"{dw['reduce_ms'] / steps:.2f} ms a step "
             f"({dw['reduce_ms'] / dw['wall_ms']:.1%}), gather "
-            f"{dw['gather_ms'] / steps:.2f} ms, busy "
+            f"{dw['gather_ms'] / steps:.2f} ms "
+            f"({dw['gather_ms'] / dw['wall_ms']:.1%}), busy "
             f"{dw['busy_ms'] / steps:.2f} ms a step, launches "
             f"{dw['launches']}; bytes to each peer: prefill "
             f"{pw['bytes']['reduce'][peers[0]]} all-reduce + "
             f"{pw['bytes']['gather'][peers[0]]} gather, a step "
             f"{dw['bytes']['reduce'][peers[0]] // steps} + "
             f"{dw['bytes']['gather'][peers[0]] // steps} [{card()}]")
-        log(f"[tensor ranks]   its {len(b2)} B2 calls against mha_ref: max "
-            f"err {max(e[1] for e in b2):.3e}, per head "
-            f"{max(e[2] for e in b2):.3e}; its {len(b4)} B4 calls against "
-            f"decode_ref: {max(e[1] for e in b4):.3e}, per row "
-            f"{max(e[2] for e in b4):.3e} (tol {TOL[torch.bfloat16]:.0e}, "
-            f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
-        check(pw["launches"]["flash_attention"] == cfg.n_layers
+        if gqa:
+            log(f"[tensor ranks]   its {len(b2)} B2 calls against mha_ref: "
+                f"max err {max(e[1] for e in b2):.3e}, per head "
+                f"{max(e[2] for e in b2):.3e}; its {len(b4)} B4 calls against "
+                f"decode_ref: {max(e[1] for e in b4):.3e}, per row "
+                f"{max(e[2] for e in b4):.3e} (tol {TOL[torch.bfloat16]:.0e}, "
+                f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
+        check(pw["launches"]["flash_attention"] == gqa
               and pw["launches"]["decode_attention"] == 0
-              and dw["launches"]["decode_attention"] == cfg.n_layers * steps
+              and dw["launches"]["decode_attention"] == gqa * steps
               and dw["launches"]["flash_attention"] == 0
               and not pw["launches"]["block_gemm"]
-              and not dw["launches"]["block_gemm"],
+              and not dw["launches"]["block_gemm"]
+              and not pw["launches"]["ssd_scan"]
+              and not dw["launches"]["ssd_scan"],
               f"{name}: rank {r['coords']} launches {pw['launches']} "
               f"{dw['launches']}")
-        check(len(b2) == len(b4) == cfg.n_layers
-              and max(e[1] for e in b2 + b4) <= TOL[torch.bfloat16]
-              and max(e[2] for e in b2) <= TOL[torch.bfloat16]
-              and max(e[2] for e in b4) <= DECODE_ROW_TOL[torch.bfloat16],
+        check(len(b2) == len(b4) == gqa
+              and max((e[1] for e in b2 + b4), default=0)
+              <= TOL[torch.bfloat16]
+              and max((e[2] for e in b2), default=0) <= TOL[torch.bfloat16]
+              and max((e[2] for e in b4), default=0)
+              <= DECODE_ROW_TOL[torch.bfloat16],
               f"{name}: held kernel calls {r['errs']}")
         check(r["prefill_again"], f"{name}: a second prefill differs")
-        for p in range(model):
+        for p in range(len(runs)):
             check(pw["bytes"]["reduce"][p] == (pre_reduce if p in peers
                                                else 0)
                   and pw["bytes"]["gather"][p] == (pre_gather if p in peers
@@ -3970,72 +4308,135 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
                   and not any(pw["bytes"]["p2p"] + dw["bytes"]["p2p"]),
                   f"{name}: rank {r['coords']} bytes {pw['bytes']} "
                   f"{dw['bytes']}")
-        check(torch.equal(r["prefill"], runs[0]["prefill"])
-              and torch.equal(r["steps"], runs[0]["steps"]),
-              f"{name}: ranks disagree on the gathered logits")
-    err = tp_gate(f"{name} prefill", runs[0]["prefill"], want["prefill"],
-                  TP_TOL)
+        for p in peers:
+            check(torch.equal(r["prefill"], runs[p]["prefill"])
+                  and torch.equal(r["steps"], runs[p]["steps"])
+                  and all(torch.equal(a, b) for a, b in zip(
+                      r["f32"], runs[p]["f32"])),
+                  f"{name}: ranks {r['coords']} and {runs[p]['coords']} "
+                  "disagree on the gathered logits")
     gates = [max(TP_TOL, TP_NOISE * n) for n in want["noise"]]
-    step_errs = [tp_gate(f"{name} step {i}", got, w, tol) for i, (got, w, tol)
-                 in enumerate(zip(runs[0]["steps"], want["steps"], gates))]
-    f32 = [float((a - b).abs().max() / b.abs().max())
-           for a, b in zip(runs[0]["f32"], want["f32"])]
-    log(f"[tensor ranks] {name}: the one-process bf16 steps with B4 against "
-        f"decode_ref: {[float(f'{n:.3e}') for n in want['noise']]}; the "
-        f"step gates {[float(f'{g:.3e}') for g in gates]}; f32 compute, "
-        f"ranked vs one process: prefill {f32[0]:.3e}, a step at batch "
-        f"{want['f32'][1].shape[0]} {f32[1]:.3e} (tol {DENSE_TOL:.0e})")
-    check(max(f32) <= DENSE_TOL, f"{name}: f32 ranked vs one process {f32}")
-    check(all(torch.equal(r["f32"][0], runs[0]["f32"][0])
-              and torch.equal(r["f32"][1], runs[0]["f32"][1]) for r in runs),
-          f"{name}: ranks disagree on the gathered f32 logits")
+    pre_gate = max(TP_TOL, TP_NOISE * want["prefill_noise"])
+    errs, step_errs, f32, failed, own = [], [], [], [], []
+    for r in runs:
+        if r["coords"]["model"]:
+            continue
+        dd = r["coords"]["data"]
+        sl = slice(dd * rows, (dd + 1) * rows)
+        gl = slice(dd * gate_batch // data, (dd + 1) * gate_batch // data)
+        errs.append(tp_gate(f"{name} prefill, data rank {dd}", r["prefill"],
+                            want["prefill"][dd:dd + 1], pre_gate, failed))
+        step_errs.append([
+            tp_gate(f"{name} step {i}, data rank {dd}", got, w[sl], tol,
+                    failed)
+            for i, (got, w, tol) in enumerate(zip(r["steps"], want["steps"],
+                                                  gates))])
+        f32.append([float((a - b).abs().max() / b.abs().max()) for a, b in
+                    ((r["f32"][0], want["f32"][0][dd:dd + 1]),
+                     (r["f32"][1], want["f32"][1][gl]))])
+        if cfg.moe:      # what the ranks' own bf16 dispatch would have been
+            own.append((routed_alike(
+                r["prefill_routes"],
+                layer_routes(want["prefill_routes"], data),
+                slice(dd * prompt, (dd + 1) * prompt)), [
+                    routed_alike(mine, layer_routes(theirs, data), sl)
+                    for mine, theirs in zip(r["step_routes"],
+                                            want["step_routes"])]))
+    if cfg.moe:
+        flips = [sum(int((~a).sum()) for a in step)
+                 for step in zip(*(q for _, q in own))]
+        log(f"[tensor ranks] {name}: the MoE dispatch of the bf16 prefill "
+            f"and steps forced to the yardstick's; the ranks' own would "
+            f"have routed otherwise (experts or kept slots of a MoE layer: "
+            f"near ties of the router flipped by the bf16 rounding of "
+            f"another sum order) {sum(int((~p).sum()) for p, _ in own)} of "
+            f"{data * prompt} prefill tokens (the last: "
+            f"{sum(int(~p[-1]) for p, _ in own)} of {data}) and of the "
+            f"{batch} rows a step {flips} [{card()}]")
+    f32_cfg, _ = tp_f32_cut(cfg, {"moe": {}})
+    other = ("bf16 prefill and steps with SDPA against its MLA attention: "
+             f"prefill {want['prefill_noise']:.3e} (gate {pre_gate:.3e}), "
+             "steps " if cfg.attention == "mla" else
+             "bf16 steps with B4 against decode_ref: ")
+    log(f"[tensor ranks] {name}: the yardstick's {other}"
+        f"{[float(f'{n:.3e}') for n in want['noise']]}; the "
+        f"step gates {[float(f'{g:.3e}') for g in gates]}; f32 compute "
+        f"({f32_cfg.n_layers} layers), ranked vs the yardstick: prefill "
+        f"{max(e[0] for e in f32):.3e}, a step at batch {gate_batch} "
+        f"{max(e[1] for e in f32):.3e} (tol {DENSE_TOL:.0e})")
+    check(max(max(e) for e in f32) <= DENSE_TOL,
+          f"{name}: f32 ranked vs one process {f32}")
+    kept = tp_route_report(name, cfg, runs, want) if cfg.moe else None
     wall = max(r["decode_window"]["wall_ms"] for r in runs) / steps
     pre = max(r["prefill_window"]["wall_ms"] for r in runs)
-    log(f"[tensor ranks] {name}: prefill {pre:.1f} ms (one process "
-        f"{want['prefill_ms']:.1f} ms), decode {wall:.2f} ms a step on the "
-        f"slowest rank, {batch * 1e3 / wall:.1f} tok/s (one process "
-        f"{want['step_ms']:.2f} ms); bf16 logits vs one process: prefill "
-        f"{err:.3e} (tol {TP_TOL:.0e}), steps "
-        f"{[float(f'{e:.3e}') for e in step_errs]}; the "
-        f"ranks' peaks {sum(r['peak_gb'] for r in runs):.2f} GB [{card()}]")
+    log(f"[tensor ranks] {name}: prefill {data} x {prompt} ({prompt} tokens "
+        f"a data rank) {pre:.1f} ms (yardstick {want['prefill_ms']:.1f} ms),"
+        f" decode {wall:.2f} ms a step on the slowest rank, "
+        f"{batch * 1e3 / wall:.1f} tok/s (yardstick {want['step_ms']:.2f} "
+        f"ms); bf16 logits vs the yardstick: prefill {max(errs):.3e} (tol "
+        f"{pre_gate:.3e}), steps "
+        f"{[float(f'{max(e):.3e}') for e in zip(*step_errs)]}; the ranks' "
+        f"peaks {[round(r['peak_gb'], 2) for r in runs]} GB, "
+        f"{sum(r['peak_gb'] for r in runs):.2f} GB in all [{card()}]")
+    check(not failed, "; ".join(failed))
     return {"prefill": [r["prefill_window"]["launches"] for r in runs],
-            "decode": [r["decode_window"]["launches"] for r in runs]}
+            "decode": [r["decode_window"]["launches"] for r in runs],
+            "prefill_ms": pre, "step_ms": wall, "kept": kept}
 
 
 def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
                        cells=TP_CELLS) -> dict:
     """The model axis as rank processes that share the card
-    (``make_dev_mesh(n, group=)``, ``dist.tensor_parallel``; all-reduces
-    and gathers through gloo over pinned host buffers): each cell's arch at
-    full width and depth, bf16 compute, on a (1, n) mesh of n ranks, each
-    drawing only its shard of the seed-0 weights. Per cell, first the one-
-    process run on this process (``tp_one_process``), then the ranks
-    (``tp_rank``): prefill 1 x ``prompt`` (n_layers B2 launches per rank),
-    ``steps`` serve steps at ``batch`` over the seeded cache (n_layers B4
-    launches a step per rank), every B2 and B4 call of a further prefill
-    and step held to its plain version on its own operands; the bytes per
-    peer by kind against their formula, every rank's gathered logits
-    equal, and rank 0's against the one-process run (``tp_gate``: bf16 at
-    TP_TOL, each step at the larger of TP_TOL and TP_NOISE times the
-    one-process step's own B4-vs-plain gap; the f32 prefill and a
-    ``gate_batch`` f32 step at DENSE_TOL)."""
+    (``make_dev_mesh(n, model=, group=)``, ``dist.tensor_parallel``;
+    all-reduces and gathers through gloo over pinned host buffers): each
+    cell's arch at full width (cut in depth where the cell says), bf16
+    compute, on its (data, model) mesh of rank processes, each drawing
+    only its shard of the seed-0 weights. Per cell, first its yardstick on
+    this process (``tp_one_process``: with a data axis, under the logical
+    mesh of the same shape, where each data row is routed on its own),
+    freed, then the ranks (``tp_rank``): prefill ``data`` x ``prompt`` (a
+    row a data rank; n_layers B2 launches per rank, none with MLA),
+    ``steps`` serve steps at ``batch`` (``batch / data`` rows a data rank)
+    over the seeded cache (n_layers B4 launches a step per rank, none
+    with MLA), every B2 and B4 call of a further prefill and step held to
+    its plain version on its own operands; the bytes per peer by kind
+    against their formula (``tp_reduces``), every rank of a model group's
+    gathered logits equal, and each data rank's against the yardstick's
+    (``tp_gate``: bf16 at TP_TOL, each step at the larger of TP_TOL and
+    TP_NOISE times the yardstick step's own B4-vs-plain gap; the f32
+    prefill and a ``gate_batch`` f32 step at DENSE_TOL); for a moe arch one
+    MoE layer in f32 on the ranks fed the yardstick's input to it, its
+    dispatch bit for bit and its output at DENSE_TOL
+    (``tp_route_report``)."""
     t_phase = time.perf_counter()
     out = {}
-    for name, arch, ranks, s_max in cells:
+    for cell in cells:
+        name, arch, layers, (data, model), s_max = cell
         t0 = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = tp_config(arch, layers)
         want = tp_one_process(cfg, dev, s_max, prompt, batch, steps,
-                              gate_batch)
+                              gate_batch, data, model)
         t1 = time.perf_counter()
-        log(f"[tensor ranks] {name}: {cfg.name} at full width and depth "
-            f"({cfg.n_layers} layers, {cfg.n_heads} q heads over "
-            f"{cfg.n_kv_heads} KV heads, kv_head_pad "
-            f"{kv_head_pad(cfg, ranks)}) on a (1, {ranks}) mesh of {ranks} "
-            f"rank processes; the one-process run {t1 - t0:.1f} s")
-        runs = spawn_ranks(tp_rank, ranks, arch, s_max, prompt, batch, steps,
-                           gate_batch, want["inputs"], device=dev,
-                           timeout=600)
-        out[name] = tp_report(name, cfg, runs, want, prompt, batch, steps)
+        attn = (f"MLA over {cfg.n_heads} heads" if cfg.attention == "mla"
+                else f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads, "
+                f"kv_head_pad {kv_head_pad(cfg, model)}")
+        experts = (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
+        log(f"[tensor ranks] {name}: {cfg.name} at full width, "
+            f"{cfg.n_layers} layers ({attn}{experts}) on a ({data}, {model}) "
+            f"mesh of {data * model} rank processes; the yardstick "
+            + ("under a logical mesh of that shape " if data > 1 else "")
+            + f"{t1 - t0:.1f} s")
+        log(f"[tensor ranks] {name}: this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved as its "
+            "ranks start")
+        runs = spawn_ranks(tp_rank, data * model, cell, prompt, batch, steps,
+                           gate_batch, want["inputs"], want["gate_x"],
+                           {"prefill": want["prefill_routes"],
+                            "steps": want["step_routes"]},
+                           device=dev, timeout=900)
+        out[name] = tp_report(name, cfg, runs, want, prompt, batch, steps,
+                              gate_batch)
         log(f"[tensor ranks] {name}: the ranks {time.perf_counter() - t1:.1f}"
             " s, spawning included")
         del runs, want
@@ -4089,8 +4490,11 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
     bf16), at the model's own prefill call ([4, 32|4, 2048, 128] bf16,
     strided views), at zamba2's windowed prefill call ([2, 32|32, 8192, 64]
     bf16, window 4 096), at seamless's cross-attention ([4, 16|16,
-    512|2048, 64] bf16, full) and at grok-1's prefill call ([4, 48|8, 2048,
-    128] bf16, GQA 6, strided views): the kernel, its plain version and
+    512|2048, 64] bf16, full), at grok-1's prefill call ([4, 48|8, 2048,
+    128] bf16, GQA 6, strided views) and at the tensor-parallel cells'
+    per-rank shards (yi-6b tp2 [1, 16|2, 2048, 128], starcoder2-3b tp4
+    [1, 6|1, 2048, 128], grok-1-314b tp4 [1, 12|2, 2048, 128]): the
+    kernel, its plain version and
     ``scaled_dot_product_attention`` with the same mask (an explicit band
     for the window; timed only), with each path's registers, spills and
     resident blocks."""
@@ -4121,6 +4525,9 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
                                          hd), True, torch.bfloat16, True, 0),
             ("starcoder2-3b tp4 prefill shard", (1, sc.n_heads // 4, 1, 2048,
                                                  2048, sc.head_dim), True,
+             torch.bfloat16, True, 0),
+            ("grok-1-314b tp4 prefill shard", (1, gh // 4, gg // 4, 2048,
+                                               2048, gd), True,
              torch.bfloat16, True, 0)):
         q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
         kw = dict(causal=causal, window=win)
@@ -4317,7 +4724,8 @@ def main() -> int:
         ("llava decode layer", (8, 56, 8, 4096, 128)),
         ("grok decode layer", (8, 48, 8, 4096, 128)),
         ("yi-6b tp2 decode shard", (8, 16, 2, 32768, 128)),
-        ("starcoder2-3b tp4 decode shard", (8, 6, 1, 4096, 128)))}
+        ("starcoder2-3b tp4 decode shard", (8, 6, 1, 4096, 128)),
+        ("grok-1-314b tp4 decode shard", (8, 12, 2, 4096, 128)))}
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{run_peak() / 2 ** 30:.2f} GiB; GEMM main path launches "
         f"{gemm['launches']}")
@@ -4345,7 +4753,9 @@ def main() -> int:
             "grok prefill": attn_times["grok prefill"],
             "yi-6b tp2 prefill shard": attn_times["yi-6b tp2 prefill shard"],
             "starcoder2-3b tp4 prefill shard":
-                attn_times["starcoder2-3b tp4 prefill shard"]},
+                attn_times["starcoder2-3b tp4 prefill shard"],
+            "grok-1-314b tp4 prefill shard":
+                attn_times["grok-1-314b tp4 prefill shard"]},
             "launches_per_prefill": {
                 "zamba2-1.2b": hybrid["b2_launches"],
                 "seamless-m4t-large-v2": encdec["b2_launches"],

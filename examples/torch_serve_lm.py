@@ -4,7 +4,7 @@ family).
 
 The port's counterpart of ``examples/serve_lm.py``; on ``cuda`` (the
 decode attention kernel) unless ``--device cpu``. With ``--ranks N`` the
-dense and vlm families serve tensor-parallel on N rank processes: a (N /
+dense, vlm and moe families serve tensor-parallel on N rank processes: a (N /
 model, model) ("data", "model") mesh, model = min(4, N), each rank
 holding its shard of the weights and of the cache
 (``repro_torch.dist.tensor_parallel``); rank 0 prints.
@@ -14,6 +14,8 @@ holding its shard of the weights and of the cache
       --tokens 64 --device cpu
   PYTHONPATH=src python examples/torch_serve_lm.py --arch yi-6b \
       --ranks 2 --device cpu
+  PYTHONPATH=src python examples/torch_serve_lm.py --arch \
+      deepseek-v3-671b --ranks 4 --device cpu
 """
 
 import argparse
@@ -44,7 +46,8 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--ranks", type=int, default=0, metavar="N",
-                    help="tensor-parallel on N rank processes (dense, vlm)")
+                    help="tensor-parallel on N rank processes (dense, vlm, "
+                         "moe)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -82,7 +85,7 @@ def serve(rank, world, args, cfg, *, device, ranks=True):
             params = init_shard_params(cfg, mesh, seed=0, device=device)
             cache = init_shard_cache(cfg, mesh, b, args.max_seq,
                                      device=device)
-            rows = cache.layers["dense"][0].shape[1]
+            rows = next(iter(cache.layers.values()))[0].shape[1]
             lo = mesh.coords["data"] * rows if batch_axis(mesh, b) else 0
         else:
             params = tfm.init_params(cfg, seed=0, device=device)

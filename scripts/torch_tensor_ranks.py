@@ -1,14 +1,15 @@
 """Run ``chip_smoke.py``'s tensor-parallel serving phase alone on the GPU:
-build the kernels, run ``phase_tensor_ranks`` (yi-6b-tp2-r2 and
-starcoder2-3b-tp4-r4 at full width and depth on rank processes that share
-the card, against the one-process run) and time B2 and B4 at the ranks'
-per-shard layouts.
+build the kernels, run ``phase_tensor_ranks`` (each cell of ``TP_CELLS``
+on rank processes that share the card, against its one-process
+yardstick: yi-6b-tp2-r2, starcoder2-3b-tp4-r4, grok-1-314b-d8-tp4-r4,
+deepseek-v3-671b-d5-tp4-r4, grok-1-314b-d2-dp2-tp2-r4) and time B2 and B4
+at the ranks' per-shard layouts.
 
-    python3 scripts/torch_tensor_ranks.py
+    python3 scripts/torch_tensor_ranks.py [cell ...]
 
-Needs one CUDA GPU and nvcc; about 2 minutes (the whole ``chip_smoke.py``
-about 11). Prints what the phase prints, with the card's name and power
-limit on every line of numbers.
+Names of cells pick some, run in that order (all by default). Needs one CUDA GPU and nvcc.
+Prints what the phase prints, with the card's name and power limit on
+every line of numbers.
 """
 
 import os
@@ -25,7 +26,9 @@ import chip_smoke as cs  # noqa: E402
 # (name, B2 layout (b, hq, hkv, lq, lk, d), B4 layout (b, hq, hkv, s, d))
 SHARDS = (("yi-6b tp2", (1, 16, 2, 2048, 2048, 128), (8, 16, 2, 32768, 128)),
           ("starcoder2-3b tp4", (1, 6, 1, 2048, 2048, 128),
-           (8, 6, 1, 4096, 128)))
+           (8, 6, 1, 4096, 128)),
+          ("grok-1-314b tp4", (1, 12, 2, 2048, 2048, 128),
+           (8, 12, 2, 4096, 128)))
 
 
 def main() -> int:
@@ -38,8 +41,12 @@ def main() -> int:
     cs.log(cs.card())
     cs.phase_build()
     cs.log(f"[tensor ranks] build {time.perf_counter() - t0:.1f} s")
-    out = cs.phase_tensor_ranks(dev)
+    names = sys.argv[1:]
+    out = cs.phase_tensor_ranks(dev, cells=[
+        c for n in names for c in cs.TP_CELLS if c[0] == n] or cs.TP_CELLS)
     cs.log(f"[tensor ranks] launches per rank {out}")
+    cs.log(f"[tensor ranks] peak device memory of this process "
+           f"{cs.run_peak() / 1e9:.2f} GB [{cs.card()}]")
     gen = torch.Generator(device=dev).manual_seed(5)
     for name, attn, decode in SHARDS:
         q, k, v = cs.attention_operands(gen, dev, torch.bfloat16, *attn,

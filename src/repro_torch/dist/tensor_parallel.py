@@ -1,6 +1,6 @@
 """Tensor parallelism on rank processes: the ``"model"`` axis of a mesh of
-ranks (``launch.mesh.Mesh(..., group=)``) for serving the dense and vlm
-families.
+ranks (``launch.mesh.Mesh(..., group=)``) for serving the dense, vlm and
+moe families (GQA or MLA attention).
 
 The JAX package has no counterpart: its launchers place the weights and
 the decode cache by ``param_specs``/``cache_specs`` on a mesh of devices
@@ -9,11 +9,19 @@ shard and the model code calls the collectives of Megatron-style tensor
 parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
 (gloo over pinned host memory):
 
-- column-parallel products (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_in``,
-  and ``lm_head`` or a tied ``embed.T`` on the vocabulary) take their
-  replicated input as it is: the identity;
-- a row-parallel product (``wo``, ``w_out``) gives each rank a partial
-  sum, all-reduced by :func:`row_product`;
+- column-parallel products (``wq``, ``wk``, ``wv``, MLA's ``wq_b`` and
+  ``wkv_b``, ``w_gate``, ``w_in``, the shared experts' ``shared_w_gate``
+  and ``shared_w_in``, and ``lm_head`` or a tied ``embed.T`` on the
+  vocabulary) take their replicated input as it is: the identity;
+- a row-parallel product (``wo``, ``w_out``, ``shared_w_out``) gives each
+  rank a partial sum, all-reduced by :func:`row_product`;
+- the experts (``models/moe.py``): every rank routes every token of its
+  dispatch row with the whole router (each rank of a model group holds
+  the same tokens, so no all-to-all), scatters the slots of its own
+  experts (or, where the axis does not divide the experts, every slot
+  into its slice of each expert's hidden dim), and its f32 combine is a
+  partial summed over the group by :func:`sum_partials`, with the shared
+  experts' partial in the same collective;
 - the vocab-sharded ``embed`` is looked up by :func:`vocab_embed`: each
   rank takes the rows of the tokens in its range, zeros elsewhere, and an
   all-reduce sums them (exact: one term is nonzero);
@@ -22,8 +30,8 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
 
 With no mesh of ranks with a model axis > 1 in the context every one of
 them is the identity, so the one-process and logical-mesh paths are bit for
-bit what they were. The model code takes its head counts from the local
-weights' shapes.
+bit what they were. The model code takes its head and expert counts from
+the local weights' shapes.
 
 Rounding. ``TensorTransport.all_reduce`` sums in f32 only. The
 one-process bf16 product sums all of its terms in the matmul's f32
@@ -40,24 +48,38 @@ an f32 product (TF32 off), the price of the one rounding.
 
 Shards. :func:`shard_params` slices a full parameter tree by
 ``param_specs`` sanitized against the mesh (what ``named_shardings``
-reads), :func:`shard_cache` a full decode cache by ``cache_specs``.
-Where ``kv_head_pad`` > 1 the specs split ``wk``/``wv`` inside a KV head
-(starcoder2-3b's 2 KV heads of 128 over a model axis of 4: 64 columns),
-which GSPMD reshards and explicit tensor parallelism cannot use: each rank
-holds instead the whole KV head its query heads read, the one the padded
-cache layout (``repeat_interleave(pad)``) puts in its head shard, and
-writes it into its own cache shard, unpadded on the rank. The placements
-``named_shardings`` gives stay those of ``repro`` (values, not DTensors:
-real DTensors need NCCL with one card per rank, ROADMAP A8b).
-:func:`init_shard_params` draws the weights leaf by leaf from the one
-seeded generator and keeps only the rank's shard, so no rank holds the
-whole model (yi-6b is 24.2 GB in f32); the values are bit for bit the
-slices of ``init_params(cfg, seed=seed)``.
+reads), :func:`shard_cache` a full decode cache by ``cache_specs``. Three
+layouts of the specs explicit tensor parallelism cannot use, where each
+rank holds more than its spec's shard (the placements ``named_shardings``
+gives stay those of ``repro``: values, not DTensors; real DTensors need
+NCCL with one card per rank, ROADMAP A8b):
+
+- where ``kv_head_pad`` > 1 the specs split ``wk``/``wv`` inside a KV
+  head (starcoder2-3b's 2 KV heads of 128 over a model axis of 4: 64
+  columns), which GSPMD reshards: each rank holds instead the whole KV
+  head its query heads read, the one the padded cache layout
+  (``repeat_interleave(pad)``) puts in its head shard, and writes it into
+  its own cache shard, unpadded on the rank;
+- the router [L, d, E] is whole on every rank (the specs shard E, or d):
+  a gathered or all-reduced router product need not be bit for bit the
+  one-process product, and a near tie would then flip a top-k choice, so
+  each rank routes with the one-process call on the same operands;
+- MLA's ``wq_a`` and ``wkv_a`` (the specs shard their ``q_lora`` and
+  ``kv_lora + rope`` columns, which ``q_ln`` and ``kv_ln`` normalise
+  over) and its latent cache [L, B, S, r] / [L, B, S, rope] (the specs
+  shard its sequence) are whole on every rank, and every rank writes the
+  same latents; the heads of ``wq_b``, ``wkv_b`` and ``wo`` split.
+
+:func:`init_shard_params` draws each leaf as the rank's box of it from the
+one seeded generator (``init_params(shard=)``), so no rank holds the whole
+model (yi-6b is 24.2 GB in f32) nor a whole leaf drawn piece by piece (an
+expert stack of grok-1-314b is 25.8 GB in bf16): the values are bit for
+bit the slices of ``init_params(cfg, seed=seed)``.
 
 What a model axis on ranks does not run yet raises ``ValueError`` naming
-its ROADMAP item (:func:`check_tp`): the moe family (A8d2), MLA (A8d3),
-the ssm and hybrid families (A8d4), encdec (A8d5); under grad the
-collectives raise (training with a model axis, A8d6).
+its ROADMAP item (:func:`check_tp`): the ssm and hybrid families (A8d4),
+encdec (A8d5); under grad the collectives raise (training with a model
+axis, A8d6).
 """
 
 from __future__ import annotations
@@ -73,40 +95,41 @@ from .sharding import (P, cache_specs, kv_head_pad, map_tree, param_specs,
 
 # what the model axis on ranks does not run yet, and the ROADMAP item that
 # ports it
-UNPORTED = {"moe": "moe expert parallelism on ranks (ROADMAP A8d2)",
-            "mla": "MLA on ranks (ROADMAP A8d3)",
-            "ssm": "the ssm and hybrid heads on ranks (ROADMAP A8d4)",
+UNPORTED = {"ssm": "the ssm and hybrid heads on ranks (ROADMAP A8d4)",
             "hybrid": "the ssm and hybrid heads on ranks (ROADMAP A8d4)",
             "encdec": "encdec cross-attention on ranks (ROADMAP A8d5)"}
 TRAINING = ("training with a model axis on ranks (the backward of the "
             "tensor-parallel collectives) is ROADMAP A8d6")
 
 
-def unported(cfg: ModelConfig) -> List[str]:
-    """What of ``cfg`` a model axis on ranks does not run yet, each with
-    its ROADMAP item; empty for the dense and vlm families."""
-    out = []
-    if cfg.family in UNPORTED:
-        out.append(UNPORTED[cfg.family])
-    if cfg.attention == "mla":
-        out.append(UNPORTED["mla"])
-    return out
-
-
 def check_tp(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError`` unless a model axis of ``model`` ranks can
-    serve ``cfg``: a dense or vlm config whose query heads, padded KV heads
-    (``kv_head_pad``), vocabulary and d_ff the axis divides."""
+    serve ``cfg``: a dense, vlm or moe config whose query heads, padded KV
+    heads (``kv_head_pad``; GQA), vocabulary and dense d_ff the axis
+    divides, and for the moe family its experts (or else the expert
+    d_ff) and the shared experts' d_ff."""
     if model == 1:
         return
-    missing = unported(cfg)
-    if missing:
+    from ..models.transformer import layer_kinds
+
+    if cfg.family in UNPORTED:
         raise ValueError(f"{cfg.name} ({cfg.family}) on a model axis of "
-                         f"{model} ranks: " + "; ".join(missing))
-    hkv = max(cfg.n_kv_heads, 1) * kv_head_pad(cfg, model)
-    for what, n in (("query heads", cfg.n_heads),
-                    ("KV heads (padded)", hkv),
-                    ("vocabulary", cfg.vocab_size), ("d_ff", cfg.d_ff)):
+                         f"{model} ranks: {UNPORTED[cfg.family]}")
+    sizes = [("query heads", cfg.n_heads), ("vocabulary", cfg.vocab_size)]
+    if cfg.attention != "mla":
+        sizes.append(("KV heads (padded)", max(cfg.n_kv_heads, 1)
+                      * kv_head_pad(cfg, model)))
+    if "dense" in layer_kinds(cfg):
+        sizes.append(("d_ff", cfg.d_ff))
+    if cfg.moe is not None:
+        m = cfg.moe
+        if m.n_experts % model:
+            sizes.append((f"expert d_ff (its {m.n_experts} experts do not "
+                          "divide)", m.d_ff))
+        if m.n_shared_experts:
+            sizes.append(("shared experts' d_ff",
+                          m.d_ff * m.n_shared_experts))
+    for what, n in sizes:
         if n % model:
             raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
                              f"its {n} {what} do not divide over the axis")
@@ -152,6 +175,21 @@ def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
     _no_grad(x)
     return _sum_f32(mesh, x.float() @ w.float()).to(x.dtype)
+
+
+def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
+    """f32 partials of one shape summed over the model group in one
+    all-reduce (each its own sum: stacked, reduced, split): the MoE's
+    combine and its shared experts' ``w_out`` product. The identity
+    without tensor parallelism."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return list(parts)
+    for t in parts:
+        _no_grad(t)
+    both = _sum_f32(mesh, torch.stack(parts) if len(parts) > 1
+                    else parts[0][None])
+    return list(both.unbind(0))
 
 
 def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -226,7 +264,14 @@ def _kv_head_index(cfg: ModelConfig, shape, mesh) -> tuple:
     return (slice(None),) * (len(shape) - 1) + (slice(lo * hd, hi * hd),)
 
 
+# leaves every rank holds whole where the specs shard them (the module's
+# docstring): the router, and MLA's down-projections
+WHOLE = {"router", "wq_a", "wkv_a"}
+
+
 def _param_index(cfg: ModelConfig, path, spec: P, shape, mesh) -> tuple:
+    if path[-1] in WHOLE:
+        return (slice(None),) * len(shape)
     if path[-1] in ("wk", "wv") and kv_head_pad(cfg,
                                                 mesh.shape["model"]) > 1:
         return _kv_head_index(cfg, shape, mesh)
@@ -254,22 +299,21 @@ def shard_params(cfg: ModelConfig, params: Any, mesh) -> Any:
 def init_shard_params(cfg: ModelConfig, mesh, *, seed: int = 0,
                       device="cuda") -> Any:
     """This rank's shard of ``init_params(cfg, seed=seed, device=device)``,
-    drawn leaf by leaf from the same generator and kept as soon as each
-    leaf is drawn: bit for bit the slices :func:`shard_params` takes, with
-    at most one whole leaf in memory."""
+    each leaf drawn as the rank's box of it from the same generator: bit
+    for bit the slices :func:`shard_params` takes, with no whole leaf in
+    memory beyond one piece of a piecewise draw (``layers.DRAW``)."""
     from ..models.transformer import init_params
 
     check_tp(cfg, mesh.shape["model"])
     specs = param_shard_specs(cfg, mesh)
 
-    def keep(path, leaf):
+    def shard(path, shape):
         spec = specs
         for k in path:
             spec = spec[k]
-        return leaf[_param_index(cfg, path, spec, leaf.shape,
-                                 mesh)].clone()
+        return _param_index(cfg, path, spec, shape, mesh)
 
-    return init_params(cfg, seed=seed, device=device, keep=keep)
+    return init_params(cfg, seed=seed, device=device, shard=shard)
 
 
 def cache_shard_specs(cfg: ModelConfig, cache, mesh, global_batch: int
@@ -283,17 +327,31 @@ def cache_shard_specs(cfg: ModelConfig, cache, mesh, global_batch: int
                     model_axis=mesh.shape["model"]), cache, mesh)
 
 
+def _cache_index(cfg: ModelConfig, spec: P, shape, mesh) -> tuple:
+    """This rank's slices of a cache leaf: its sanitized spec's, with
+    MLA's latents whole over the sequence (every rank writes the same
+    latents; the spec puts the sequence on ``"model"``)."""
+    if cfg.attention == "mla":
+        spec = P(*(None if e == "model" else e for e in spec))
+    return shard_index(spec, shape, mesh)
+
+
+def _cache_batch(cache) -> int:
+    """The batch of a dense or moe decode cache: dim 1 of a segment's
+    first leaf ([L, B, ...])."""
+    return next(iter(cache.layers.values()))[0].shape[1]
+
+
 def shard_cache(cfg: ModelConfig, cache, mesh) -> Any:
     """This rank's shard of the full decode cache ``cache`` (built with
     ``kv_head_pad(cfg, model)``): every leaf sliced by its sanitized
-    ``cache_specs`` entry (heads on ``"model"``, the batch on its axes), as
-    a copy; ``pos`` kept."""
+    ``cache_specs`` entry (KV heads on ``"model"``, the batch on its axes;
+    MLA's latents whole over the sequence), as a copy; ``pos`` kept."""
     check_tp(cfg, mesh.shape["model"])
-    batch = cache.layers["dense"][0].shape[1]
-    specs = cache_shard_specs(cfg, cache, mesh, batch)
+    specs = cache_shard_specs(cfg, cache, mesh, _cache_batch(cache))
     return type(cache)(pos=cache.pos, layers=map_tree(
-        lambda leaf, spec: leaf[shard_index(spec, leaf.shape,
-                                            mesh)].clone(),
+        lambda leaf, spec: leaf[_cache_index(cfg, spec, leaf.shape,
+                                             mesh)].clone(),
         cache.layers, specs.layers))
 
 
@@ -312,19 +370,13 @@ def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
     specs = cache_shard_specs(cfg, whole, mesh, global_batch)
     return type(whole)(pos=0, layers=map_tree(
         lambda leaf, spec: torch.zeros(
-            local_shape(spec, leaf.shape, mesh), dtype=dtype, device=device),
+            leaf[_cache_index(cfg, spec, leaf.shape, mesh)].shape,
+            dtype=dtype, device=device),
         whole.layers, specs.layers))
 
 
-def local_shape(spec: P, shape, mesh) -> Tuple[int, ...]:
-    """The shape of one rank's shard of a leaf of ``shape`` under the
-    sanitized ``spec``."""
-    return tuple(dim if entry is None else dim // _span(entry, mesh)[1]
-                 for dim, entry in zip(shape, spec))
-
-
 __all__ = ["TRAINING", "UNPORTED", "cache_shard_specs", "check_tp",
-           "init_shard_cache", "init_shard_params", "local_shape",
-           "param_shard_specs", "require", "row_product", "shard_cache",
-           "shard_index", "shard_params", "tp_mesh",
-           "unported", "vocab_embed", "vocab_gather"]
+           "init_shard_cache", "init_shard_params", "param_shard_specs",
+           "require", "row_product", "shard_cache", "shard_index",
+           "shard_params", "sum_partials", "tp_mesh", "vocab_embed",
+           "vocab_gather"]

@@ -2,7 +2,8 @@
 decode loop.
 
     python -m repro_torch.launch.serve --arch yi-6b --batch 8 \
-        --tokens 16 [--reduced] [--device cpu] [--host-devices N [--ranks]]
+        --tokens 16 [--reduced] [--layers N] [--device cpu] \
+        [--host-devices N [--ranks]]
 
 The JAX package's decode loop (``repro.launch.serve``): one warm-up step,
 then ``--tokens`` timed steps from a fresh cache of ``--max-seq``
@@ -29,12 +30,19 @@ draws only its tensor-parallel shard of the weights
 (``dist.tensor_parallel.init_shard_params``) and holds its shard of the
 cache (its rows of the batch over ``"data"``, its KV heads over
 ``"model"``); the row-parallel products, the embedding and the logits
-cross the model group through gloo. Rank 0 prints. The dense and vlm
-families only: a moe, ssm, hybrid or encdec arch, or MLA, exits naming
-the ROADMAP item that ports it, before any rank starts.
+cross the model group through gloo. Rank 0 prints. The dense, vlm and
+moe families (grok-1-314b's experts, 2 a rank on 4 ranks; deepseek-v3-
+671b's, 64 a rank, with MLA's heads split and its latent cache whole on
+every rank): an ssm, hybrid or encdec arch exits naming the ROADMAP item
+that ports it (A8d4, A8d5), before any rank starts. ``--layers N`` keeps
+the config's first N layers at full width (a moe arch's leading dense
+layers first), so that a moe arch fits the card without ``--reduced``:
+``--arch grok-1-314b --layers 8 --host-devices 4 --ranks`` holds 14 GB of
+bf16 weights a rank.
 """
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -46,6 +54,8 @@ def main(argv=None) -> None:
     ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (full width)")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="serve under a logical mesh of N devices")
     ap.add_argument("--ranks", action="store_true",
@@ -72,6 +82,12 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if args.layers:
+        if cfg.moe and args.layers <= cfg.moe.first_dense_layers:
+            sys.exit(f"--layers {args.layers}: {cfg.name} keeps its "
+                     f"{cfg.moe.first_dense_layers} dense layers first; "
+                     "keep at least one MoE layer")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.ranks:
         from repro_torch.dist.ranks import spawn_ranks
         from repro_torch.dist.tensor_parallel import check_tp
@@ -152,7 +168,9 @@ def _serve(args, cfg, device, mesh) -> None:
             cache = tfm.init_cache(cfg, args.batch, args.max_seq,
                                    enc_out=enc_out, device=device,
                                    kv_head_pad=pad)
-        rows = cache.layers["dense"][0].shape[1] if ranked else args.batch
+        # this rank's rows of the batch: dim 1 of a segment's first leaf
+        rows = (next(iter(cache.layers.values()))[0].shape[1] if ranked
+                else args.batch)
         step = make_serve_step(cfg)
         tok = torch.ones((rows,), dtype=torch.int64, device=device)
         tok, _, cache = step(params, tok, cache)          # warm-up

@@ -57,32 +57,100 @@ DRAW = 1 << 28
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis: Optional[int] = 0, dtype=torch.float32,
-               device=None) -> torch.Tensor:
+               device=None, index: Optional[tuple] = None) -> torch.Tensor:
     """LeCun-normal in the input dimension(s), drawn from ``gen`` (on the
     generator's device unless ``device`` is given). On the ``meta`` device
-    nothing is drawn or allocated."""
+    nothing is drawn or allocated. With ``index`` (one step-1 slice per
+    dim) only that box of the tensor is returned: the generator advances
+    as for the whole draw and the box holds the whole draw's values, and a
+    tensor drawn piece by piece is never whole in memory (a rank's shard
+    of an expert stack plus one piece)."""
     if device is not None and torch.device(device).type == "meta":
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+        whole = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        return whole if index is None else whole[index]
     fan_in = 1
     for ax in range(len(shape) - 1) if in_axis is None else [in_axis]:
         fan_in *= shape[ax]
     device = gen.device if device is None else device
     n = math.prod(shape)
     if dtype == torch.float32 or n <= DRAW:
-        return (torch.randn(tuple(shape), generator=gen, device=device)
-                * fan_in ** -0.5).to(dtype)
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
-    flat = out.view(-1)
+        out = (torch.randn(tuple(shape), generator=gen, device=device)
+               * fan_in ** -0.5).to(dtype)
+        return out if index is None else out[index].clone()
+    box = _Box(shape, index)
+    out = torch.empty(box.shape, dtype=dtype, device=device)
     for i in range(0, n, DRAW):
         m = min(DRAW, n - i)
-        flat[i:i + m] = torch.randn(m, generator=gen,
-                                    device=device) * fan_in ** -0.5
+        box.take(out, (torch.randn(m, generator=gen, device=device)
+                       * fan_in ** -0.5).to(dtype), i)
     return out
+
+
+class _Box:
+    """A box (one step-1 slice per dim) of a C-contiguous tensor of
+    ``shape``, seen as rows: the flat tensor is [outer, row] with ``row``
+    the elements from the box's last cut dim ``j`` on, and the box takes
+    columns [lo, hi) of the rows whose multi-index over the dims before
+    ``j`` lies in its slices. ``take`` copies the part of a flat piece of
+    the tensor that falls in the box into the box's own tensor."""
+
+    def __init__(self, shape: Sequence[int], index: Optional[tuple]):
+        shape = tuple(shape)
+        spans = [(0, n) if index is None else index[d].indices(n)[:2]
+                 for d, n in enumerate(shape)]
+        self.shape = tuple(b - a for a, b in spans)
+        cut = [d for d, (a, b) in enumerate(spans) if (a, b) != (0, shape[d])]
+        j = cut[-1] if cut else 0
+        inner = math.prod(shape[j + 1:])
+        self.row = shape[j] * inner
+        self.lo, self.hi = spans[j][0] * inner, spans[j][1] * inner
+        self.outer = list(zip(shape[:j], spans[:j]))
+        self.whole_rows = all((a, b) == (0, n) for n, (a, b) in self.outer)
+
+    def _dest(self, rows: torch.Tensor):
+        """(in the box, the box's row) of full-tensor rows ``rows``."""
+        ok = torch.ones_like(rows, dtype=torch.bool)
+        dest = torch.zeros_like(rows)
+        rem, coords = rows, []
+        for n, _ in reversed(self.outer):
+            coords.append(rem % n)
+            rem = rem // n
+        for c, (n, (a, b)) in zip(reversed(coords), self.outer):
+            ok &= (c >= a) & (c < b)
+            dest = dest * (b - a) + (c - a)
+        return ok, dest
+
+    def take(self, out: torch.Tensor, vals: torch.Tensor, start: int) -> None:
+        rows2d = out.view(-1, self.hi - self.lo)
+        row, lo, hi = self.row, self.lo, self.hi
+        end = start + vals.numel()
+        fa, fb = -(-start // row), end // row        # rows wholly inside
+        if fa < fb:
+            block = vals[fa * row - start:fb * row - start].view(
+                fb - fa, row)[:, lo:hi]
+            if self.whole_rows:
+                rows2d[fa:fb] = block
+            else:
+                ok, dest = self._dest(torch.arange(fa, fb,
+                                                   device=vals.device))
+                rows2d[dest[ok]] = block[ok]
+        for r in sorted({start // row, (end - 1) // row}):
+            if fa <= r < fb:
+                continue
+            a = max(lo, start - r * row)
+            b = min(hi, end - r * row)
+            if a >= b:
+                continue
+            ok, dest = self._dest(torch.tensor([r], device=vals.device))
+            if bool(ok[0]):
+                rows2d[int(dest[0]), a - lo:b - lo] = \
+                    vals[r * row + a - start:r * row + b - start]
 
 
 def stacked_dense_init(gen: torch.Generator, n: int, shape: Sequence[int],
                        in_axis: int = 0, dtype=torch.float32,
-                       device=None) -> torch.Tensor:
+                       device=None, index: Optional[tuple] = None
+                       ) -> torch.Tensor:
     """[n, *shape]: one independent init per layer (``in_axis`` indexes
-    ``shape``)."""
-    return dense_init(gen, (n, *shape), in_axis + 1, dtype, device)
+    ``shape``); ``index`` as in :func:`dense_init`."""
+    return dense_init(gen, (n, *shape), in_axis + 1, dtype, device, index)

@@ -23,8 +23,13 @@ expert keeps follow the reference step for step, per row:
   dropped slot adds zeros at (E-1, C-1)), a batched expert FFN, slot by
   slot combine in f32, then the shared experts.
 
-The expert products are plain batched matrix products (``torch.bmm``), as
-the JAX package computes them outside any Pallas kernel. ``moe_ref`` is a
+On a mesh of ranks with a model axis (``dist.tensor_parallel``) a rank
+holds its experts (or every expert's slice of the hidden dim), routes
+every token of its row with the whole router and sums its combine over
+the model group (``moe_ffn``); no all-to-all: every rank of a model group
+holds the same tokens. The expert products are plain batched matrix
+products (``torch.bmm``), as the JAX package computes them outside any
+Pallas kernel. ``moe_ref`` is a
 plain version written apart from the dispatch: it walks the experts one by
 one and runs one FFN per expert on the tokens it keeps (one row).
 """
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 from ..configs.base import MoEConfig
 from ..dist.ctx import annotate, batch_axes, data_rows
 from ..dist.sharding import P
+from ..dist.tensor_parallel import sum_partials, tp_mesh
 from ..launch.flags import moe_capacity_factor
 
 
@@ -116,15 +122,19 @@ def route(xt: torch.Tensor, p: dict, cfg_moe: MoEConfig) -> Routing:
     return Routing(expert, weight, pos, pos < cap, cap)
 
 
-def _expert_ffn(h: torch.Tensor, w: dict, ffn: str, prefix: str = ""
-                ) -> torch.Tensor:
+def _expert_ffn(h: torch.Tensor, w: dict, ffn: str, prefix: str = "",
+                f32_out: bool = False) -> torch.Tensor:
     """The FFN of one expert (h [C, D], 2-D weights) or of every expert at
-    once (h [E, C, D], stacked weights)."""
+    once (h [E, C, D], stacked weights). With ``f32_out`` the ``w_out``
+    product is formed in f32 from the operands' values: a rank's partial
+    over its slice of the hidden dim (``dist.tensor_parallel``)."""
     mm = torch.bmm if h.dim() == 3 else torch.matmul
     if ffn == "swiglu":
         a = F.silu(mm(h, w[prefix + "w_gate"])) * mm(h, w[prefix + "w_in"])
     else:
         a = F.gelu(mm(h, w[prefix + "w_in"]), approximate="tanh")
+    if f32_out:
+        return mm(a.float(), w[prefix + "w_out"].float())
     return mm(a, w[prefix + "w_out"])
 
 
@@ -162,12 +172,34 @@ def _rows(parts: List[torch.Tensor]) -> torch.Tensor:
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
             compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x [B, S, D] -> [B, S, D]."""
+    """x [B, S, D] -> [B, S, D].
+
+    Under tensor parallelism (``dist.tensor_parallel``) ``p`` holds the
+    rank's shard of the expert banks: its ``E / model`` experts (expert
+    parallelism), or, where the axis does not divide the experts, every
+    expert's slice of the hidden dim. Every rank routes every token of its
+    row with the whole router (the same call as on one process), scatters
+    only the slots of its own experts into [E_local, C, D] buffers (the
+    capacity is the whole E's; a slot that is dropped or not the rank's
+    adds zeros at the rank's own dump slot), and its f32 combine is a
+    partial: summed over the model group in one all-reduce with the shared
+    experts' row-parallel partial (``sum_partials``), then rounded once."""
     b, s, d = x.shape
     e, k = cfg_moe.n_experts, cfg_moe.experts_per_token
     xt, routes = dispatch(x, p, cfg_moe)
     rows, t = xt.shape[:2]
     cap = routes[0].capacity
+    mesh = tp_mesh()
+    local = p["w_in"].shape[0]                    # this rank's experts
+    first = mesh.coords["model"] * local if local < e else 0
+
+    def mine(r: Routing, j: int) -> torch.Tensor:
+        """Slot j of each token: kept, and in this rank's experts."""
+        kj = r.keep[:, j]
+        if local == e:
+            return kj
+        return kj & (r.expert[:, j] >= first) & (r.expert[:, j]
+                                                 < first + local)
 
     # scatter, row by row and slot by slot: a kept slot owns its (expert,
     # pos) alone; a dropped one adds zeros at (E-1, C-1). On CUDA
@@ -176,11 +208,13 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
     # zeros, so the sum is exact whatever the order.
     bufs = []
     for x_r, r in zip(xt, routes):
-        xin = torch.zeros((e, cap, d), dtype=compute_dtype, device=x.device)
+        xin = torch.zeros((local, cap, d), dtype=compute_dtype,
+                          device=x.device)
         xc = x_r.to(compute_dtype)
         for j in range(k):
-            kj = r.keep[:, j]
-            xin.index_put_((torch.where(kj, r.expert[:, j], e - 1),
+            kj = mine(r, j)
+            xin.index_put_((torch.where(kj, r.expert[:, j] - first,
+                                        local - 1),
                             torch.where(kj, r.pos[:, j], cap - 1)),
                            torch.where(kj[:, None], xc, 0), accumulate=True)
         bufs.append(xin)
@@ -188,9 +222,11 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
     xin = annotate(xin, P(batch_axes(), "model", None, None))
 
     # every row's buffers through the experts at once: [E, R·C, D] (a view
-    # of the one row's [E, C, D] when R = 1)
-    yout = _expert_ffn(xin.transpose(0, 1).reshape(e, rows * cap, d), p,
-                       ffn).reshape(e, rows, cap, d).transpose(0, 1)
+    # of the one row's [E, C, D] when R = 1); on hidden-dim shards the
+    # w_out product is the rank's f32 partial
+    yout = _expert_ffn(xin.transpose(0, 1).reshape(local, rows * cap, d), p,
+                       ffn, f32_out=mesh is not None and local == e
+                       ).reshape(local, rows, cap, d).transpose(0, 1)
     yout = annotate(yout, P(batch_axes(), "model", None, None))  # [R,E,C,D]
 
     # combine, row by row and slot by slot, in f32
@@ -198,15 +234,25 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg_moe: MoEConfig, ffn: str,
     for yout_r, r in zip(yout, routes):
         acc = torch.zeros((t, d), dtype=torch.float32, device=x.device)
         for j in range(k):
-            kj = r.keep[:, j]
-            g = yout_r[torch.where(kj, r.expert[:, j], 0),
+            kj = mine(r, j)
+            g = yout_r[torch.where(kj, r.expert[:, j] - first, 0),
                        torch.where(kj, r.pos[:, j], 0)]          # [T, D]
             acc += torch.where(kj[:, None], g, 0).float() \
                 * r.weight[:, j, None]
         accs.append(acc)
-    acc = _rows(accs)                                          # [R, T, D]
-    y = _add_shared(acc.reshape(b * s, d).to(x.dtype), x.reshape(b * s, d),
-                    p, cfg_moe, ffn, compute_dtype)
+    acc = _rows(accs).reshape(b * s, d)                        # [R·T, D]
+    if mesh is None:
+        y = _add_shared(acc.to(x.dtype), x.reshape(b * s, d), p, cfg_moe,
+                        ffn, compute_dtype)
+        return y.reshape(b, s, d)
+    parts = [acc]
+    if cfg_moe.n_shared_experts:
+        parts.append(_expert_ffn(x.reshape(b * s, d).to(compute_dtype), p,
+                                 ffn, "shared_", f32_out=True))
+    sums = sum_partials(*parts)
+    y = sums[0].to(x.dtype)
+    if len(sums) > 1:
+        y = y + sums[1].to(compute_dtype).to(y.dtype)
     return y.reshape(b, s, d)
 
 

@@ -28,13 +28,14 @@ v3) runs as the reference runs it: prefill through ``chunked_attention``
 (its q and k are 192 wide and v 128, which B2 does not take), decode in
 the absorbed form over the latent cache (ckv, k_rope), einsums in f32.
 
-On a mesh of ranks with a model axis (``dist.tensor_parallel``) the dense
-and vlm paths run on the rank's shard of the weights and of the decode
-cache: the head counts come from the local ``wq``/``wk`` shapes, the
-row-parallel products (``wo``, the FFN's ``w_out``) are all-reduced
-(``row_product``), the vocab-sharded embedding is looked up with a mask
-(``vocab_embed``) and the logits gathered (``vocab_gather``). Without one
-those calls are the identity.
+On a mesh of ranks with a model axis (``dist.tensor_parallel``) the dense,
+vlm and moe paths run on the rank's shard of the weights and of the decode
+cache: the head counts come from the local ``wq``/``wk`` (MLA: ``wq_b``)
+shapes, the row-parallel products (``wo``, the FFN's ``w_out``) are
+all-reduced (``row_product``), the experts are the rank's own
+(``moe_ffn``), the vocab-sharded embedding is looked up with a mask
+(``vocab_embed``) and the logits gathered (``vocab_gather``); MLA's latent
+cache is whole on every rank. Without one those calls are the identity.
 """
 
 from __future__ import annotations
@@ -119,23 +120,24 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def _init_tree(gen: torch.Generator, shapes, n_stack: int, dtype,
-               device, keep, path) -> Any:
+               device, shard, path) -> Any:
     """Norm weights and biases (1-D) are ones (biases are re-zeroed by
     :func:`_zero_biases`); matrices are LeCun-normal in their first axis,
-    one draw per layer when stacked. Each leaf goes through ``keep(path,
-    leaf)``."""
+    one draw per layer when stacked. Each leaf is drawn as its box
+    ``shard(path, shape)`` (None: whole)."""
     if isinstance(shapes, dict):
-        return {k: _init_tree(gen, v, n_stack, dtype, device, keep,
+        return {k: _init_tree(gen, v, n_stack, dtype, device, shard,
                               path + (k,))
                 for k, v in shapes.items()}
+    shape = (n_stack, *shapes) if n_stack else tuple(shapes)
+    index = shard(path, shape)
     if len(shapes) == 1:
-        leaf = torch.ones((n_stack, *shapes) if n_stack else shapes,
-                          dtype=dtype, device=device)
-    elif n_stack:
-        leaf = stacked_dense_init(gen, n_stack, shapes, 0, dtype, device)
-    else:
-        leaf = dense_init(gen, shapes, 0, dtype, device)
-    return keep(path, leaf)
+        leaf = torch.ones(shape, dtype=dtype, device=device)
+        return leaf if index is None else leaf[index].clone()
+    if n_stack:
+        return stacked_dense_init(gen, n_stack, shapes, 0, dtype, device,
+                                  index)
+    return dense_init(gen, shapes, 0, dtype, device, index)
 
 
 def _zero_biases(tree, names=("router_bias", "conv_b", "dt_bias")):
@@ -164,42 +166,49 @@ def layer_kinds(cfg: ModelConfig) -> Dict[str, int]:
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                keep=None) -> Dict[str, Any]:
+                shard=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's tree, shapes and init rules,
     drawn from a generator on ``device`` seeded with ``seed``. The numbers
     differ from ``repro``'s ``init_params``; to compute the same function as
     ``repro``, convert its parameters with :mod:`repro_torch.models.convert`.
     On the ``meta`` device nothing is drawn or allocated
-    (``abstract_params``). With ``keep``, each leaf is handed to
-    ``keep(path, leaf)`` (``path`` its keys) as soon as it is drawn and
-    what that returns is kept: a rank keeps its shard
-    (``dist.tensor_parallel.init_shard_params``) with at most one whole
-    leaf in memory."""
+    (``abstract_params``). With ``shard``, each leaf is drawn as the box
+    ``shard(path, shape)`` of it (``path`` its keys; None: the whole
+    leaf), with the whole draw's values (``layers.dense_init``): a rank
+    draws its shard (``dist.tensor_parallel.init_shard_params``) without
+    holding a whole leaf drawn piece by piece."""
     device = torch.device(device)
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
     dtype = dtype_of(cfg.param_dtype)
     kinds = layer_kinds(cfg)
-    keep = keep or (lambda path, leaf: leaf)
+    shard = shard or (lambda path, shape: None)
+
+    def ones(name):
+        leaf = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        index = shard((name,), leaf.shape)
+        return leaf if index is None else leaf[index].clone()
+
+    def matrix(name, shape, in_axis):
+        return dense_init(gen, shape, in_axis, dtype, device,
+                          shard((name,), shape))
+
     params: Dict[str, Any] = {
-        "embed": keep(("embed",), dense_init(
-            gen, (cfg.vocab_size, cfg.d_model), 1, dtype, device)),
-        "final_norm": keep(("final_norm",), torch.ones(
-            (cfg.d_model,), dtype=dtype, device=device)),
+        "embed": matrix("embed", (cfg.vocab_size, cfg.d_model), 1),
+        "final_norm": ones("final_norm"),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = keep(("lm_head",), dense_init(
-            gen, (cfg.d_model, cfg.vocab_size), 0, dtype, device))
+        params["lm_head"] = matrix("lm_head", (cfg.d_model, cfg.vocab_size),
+                                   0)
     for seg, depth in kinds.items():
         kind = "dense" if seg == "enc" else seg
         params[seg] = _init_tree(gen, _block_shapes(cfg, kind), depth, dtype,
-                                 device, keep, (seg,))
+                                 device, shard, (seg,))
     if cfg.family == "hybrid":
         params["shared"] = _init_tree(gen, _block_shapes(cfg, "dense"), 0,
-                                      dtype, device, keep, ("shared",))
+                                      dtype, device, shard, ("shared",))
     if cfg.family == "encdec":
-        params["enc_norm"] = keep(("enc_norm",), torch.ones(
-            (cfg.d_model,), dtype=dtype, device=device))
+        params["enc_norm"] = ones("enc_norm")
     return _zero_biases(params)
 
 
@@ -306,10 +315,10 @@ def _mla_full(cfg: ModelConfig, p, x):
     """Full-sequence MLA (prefill); returns (out, (ckv [B, S, r] after its
     norm, k_rope [B, S, rope] after RoPE)). The attention (q and k of nope +
     rope, v of v_head_dim) runs through ``chunked_attention``, as in the
-    reference."""
+    reference. The heads are those of ``p``'s (local) ``wq_b``."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = _mla_heads(cfg, p)
     q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
     q = (q_lat @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
@@ -327,17 +336,25 @@ def _mla_full(cfg: ModelConfig, p, x):
                         k_rope.expand(b, h, s, m.qk_rope_dim)], -1)
     o = chunked_attention(q_full, k_full, v.transpose(1, 2), causal=True)
     o = o.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
-    return o @ p["wo"], (ckv, k_rope[:, 0])
+    return row_product(o, p["wo"]), (ckv, k_rope[:, 0])
+
+
+def _mla_heads(cfg: ModelConfig, p) -> int:
+    """MLA's heads in ``p``'s ``wq_b``: the config's on one process, a
+    rank's own under tensor parallelism."""
+    m = cfg.mla
+    return p["wq_b"].shape[-1] // (m.qk_nope_dim + m.qk_rope_dim)
 
 
 def _mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
     """Absorbed MLA decode: attention runs in the latent space over cache
     (ckv [B, S, r], k_rope [B, S, rope]), written IN PLACE at ``pos`` (slot
     S - 1 for ``pos >= S``, as the reference's update clamps it), over the
-    positions ``<= pos``; the einsums in f32."""
+    positions ``<= pos``; the einsums in f32. The heads are those of
+    ``p``'s (local) ``wq_b``."""
     m = cfg.mla
     b, _ = x.shape
-    h = cfg.n_heads
+    h = _mla_heads(cfg, p)
     ckv_cache, krope_cache = cache
     s_max = ckv_cache.shape[1]
     q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
@@ -368,7 +385,7 @@ def _mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
     ctx = torch.einsum("bhs,bsr->bhr", w, ckv_f)
     o = torch.einsum("bhr,rhv->bhv", ctx, w_v)
     o = o.reshape(b, h * m.v_head_dim).to(x.dtype)
-    return o @ p["wo"], (ckv_cache, krope_cache)
+    return row_product(o, p["wo"]), (ckv_cache, krope_cache)
 
 
 # ================================================================= blocks

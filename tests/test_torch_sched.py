@@ -668,9 +668,18 @@ def _kill_midstream(side):
 
 
 def test_kill_midstream_chained_results_bit_identical():
-    """A chained stream survives a resident rank dying mid-stream: every
-    future resolves to the sequential one-shot oracle."""
-    both(_kill_midstream)
+    """A chained stream survives a resident rank dying mid-stream (its 8th
+    user AM): every future resolves to the sequential one-shot oracle of
+    both packages, bit for bit. The JAX package's faulted service is not
+    run: at this kill point, on a loaded host, it deadlocks in its
+    completion protocol after the adoption (rank 0 alive, rank 1 dead,
+    three submissions open) and fails after its 90 s timeout, in about 3
+    of 100 runs beside six pytest workers (ROADMAP's reference caveats);
+    the port's never did."""
+    outs, _ = _kill_midstream(TORCH)
+    blocks = jx_tb.taskbench_blocks(W, D, seed=11)
+    assert_same({"torch": outs, "jax": chained_refs(JAX, "stencil", blocks,
+                                                    4, seed=11)})
 
 
 @settings(deadline=None, max_examples=6,
@@ -680,10 +689,10 @@ def test_kill_point_sweep_no_hang_any_message_index(at, seed):
     """Kill rank 1 at any user-AM send index of a chained stream (or at
     one never reached): the port's stream drains bit for bit the JAX
     package's sequential one-shots. (The JAX package's faulted service
-    runs once, in the test above: adopting after the watermark has passed
-    the adopted blocks' last writer, and a killed rank's late report,
-    make it fail or hang at some kill points; see ``sched/namespace.py``
-    and ``SchedulerService._rank_done``.)"""
+    runs in no test: adopting after the watermark has passed the adopted
+    blocks' last writer, and a killed rank's late report, make it fail or
+    hang at some kill points; see ``sched/namespace.py`` and
+    ``SchedulerService._rank_done``.)"""
     _, outs = _chained_under_kill(TORCH, 3, at, seed, timeout=60.0)
     blocks = jx_tb.taskbench_blocks(W, D, seed=seed)
     assert_same({"torch": outs, "jax": chained_refs(JAX, "stencil", blocks,
