@@ -211,6 +211,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -250,7 +251,7 @@ from repro_torch.launch.mesh import (Mesh, make_dev_mesh,  # noqa: E402
                                     make_pipeline_mesh)
 from repro_torch.dist.sharding import kv_head_pad  # noqa: E402
 from repro_torch.dist.tensor_parallel import (  # noqa: E402
-    init_shard_cache, init_shard_params, row_product)
+    init_shard_cache, init_shard_params, row_product, shard_cache)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
@@ -343,6 +344,12 @@ def check(ok: bool, what: str) -> None:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|, with no floor."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3762,20 +3769,58 @@ def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
 # forced on the dispatch as on the tokens (``forced_routes``): each MoE
 # call takes the one-process call's experts and kept slots, weighted by
 # its own router; the dispatch itself is held bit for bit in f32 by the
-# routing gate (``tp_route_report``). The strict check is f32: the
-# prefill and a decode step in f32 compute, ranked against one process,
-# at DENSE_TOL (the ranks change only the order of f32 sums).
+# routing gate (``tp_route_report``). The random-weight Mamba-2 stack
+# amplifies a rounding difference in one layer about a thousandfold by the
+# logits (the MODEL_TOL note): on the H100 the ranks' own bf16 run of
+# mamba2-1.3b-tp4-r4 moved 1.245e-1 from one process's in the prefill and
+# 3.7e-2 at the first step, 1.3e-1 by the 16th. So the bf16 calls of an
+# ssm or hybrid cell are teacher forced on each Mamba-2 mixer's input as
+# on the tokens (``mixer_stream``): every ``mamba2_forward`` and
+# ``mamba2_step`` call takes the one-process call's normed input, and its
+# output is held to the one-process call's at TP_TOL; the logits at TP_TOL
+# too. Every decoder layer of an encdec model reads the encoder's output:
+# on the H100 the ranks' own bf16 prefill of seamless-m4t-large-v2-tp2-r2
+# (24 encoder layers over 2 048 frames, 24 decoder layers) sat 2.198e-2
+# from one process's, as far as one process's prefill with B2 sat from its
+# prefill with the plain attention (2.080e-2), and its encoder's output
+# 3.125e-2 from one process's (max|diff| / max|output| of the residual
+# stream). So the bf16 prefill of an encdec cell is teacher forced on
+# each encoder block's output (``encoder_stream``): each block runs on
+# the one process's input, its output is held to the one process's at
+# TP_TOL, and the decoder reads the one process's encoder output; the
+# logits at TP_TOL. The ranks' own bf16 prefill is reported beside each
+# forced one. The strict check is f32, unforced: the prefill and a decode
+# step in f32 compute, ranked against one process, at DENSE_TOL (the ranks
+# change only the order of f32 sums), and for Mamba-2 the conv and SSM
+# states after that step; an ssm or hybrid cell's f32 prefill at
+# MODEL_TOL, the repo's bound for Mamba-2's f32 sums in another order
+# (zamba2-1.2b-tp4-r4's over 4 608 tokens sat 2.300e-4 from one process's
+# on the H100, while a wrong layer moves the logits by their own size).
 TP_TOL = 2e-2
 TP_NOISE = 2.0
+MIXER_FAMILIES = ("ssm", "hybrid")
+# the families whose bf16 calls are teacher forced on a recorded stream
+STREAM_FAMILIES = MIXER_FAMILIES + ("encdec",)
 # (cell, arch, layers kept (0: all), mesh (data, model) of data x model
-# rank processes, cache positions). A moe arch keeps its leading dense
-# layers in its cut (deepseek-v3-671b-d5: 3 dense + 2 MoE).
-TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768),
-            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 0, (1, 4), 4096),
-            ("grok-1-314b-d8-tp4-r4", "grok-1-314b", 8, (1, 4), 4096),
+# rank processes, cache positions, the prefill where it is not the
+# phase's prompt: ``prompt`` tokens and, for encdec, ``frames`` seeded
+# frame embeddings; the cross cache then has as many positions). A moe
+# arch keeps its leading dense layers in its cut (deepseek-v3-671b-d5: 3
+# dense + 2 MoE). zamba2's prompt of 4 608 passes its 4 096-token window
+# by 512 queries, and its steps start at 13 522 (3 x 4 096 + 1 234) with
+# every slot of its rings seeded.
+TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768, {}),
+            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 0, (1, 4), 4096, {}),
+            ("grok-1-314b-d8-tp4-r4", "grok-1-314b", 8, (1, 4), 4096, {}),
             ("deepseek-v3-671b-d5-tp4-r4", "deepseek-v3-671b", 5, (1, 4),
-             4096),
-            ("grok-1-314b-d2-dp2-tp2-r4", "grok-1-314b", 2, (2, 2), 4096))
+             4096, {}),
+            ("grok-1-314b-d2-dp2-tp2-r4", "grok-1-314b", 2, (2, 2), 4096,
+             {}),
+            ("mamba2-1.3b-tp4-r4", "mamba2-1.3b", 0, (1, 4), 4096, {}),
+            ("zamba2-1.2b-tp4-r4", "zamba2-1.2b", 0, (1, 4), 13522 + 17,
+             {"prompt": 4608}),
+            ("seamless-m4t-large-v2-tp2-r2", "seamless-m4t-large-v2", 0,
+             (1, 2), 4096, {"prompt": 512, "frames": 2048}))
 
 
 def tp_config(arch: str, layers: int):
@@ -3792,6 +3837,93 @@ def tp_inputs(cfg, dev, prompt: int, batch: int, rows: int = 1, seed=17):
                           device=dev),
             torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
                           device=dev))
+
+
+def tp_prompt(cfg, dev, opts: dict, prompt: int, batch: int, rows: int = 1
+              ) -> tuple:
+    """A cell's prefill inputs (``tp_inputs``' prompt of the cell's length
+    as ``{"tokens": ...}``, for encdec with ``"enc_embeds"``: [rows,
+    frames, d_model] seeded on the card, the same on every rank) and
+    first decode tokens [batch]."""
+    toks, first = tp_inputs(cfg, dev, opts.get("prompt", prompt), batch,
+                            rows)
+    out = {"tokens": toks}
+    if opts.get("frames"):
+        gen = torch.Generator(device=dev).manual_seed(20)
+        out["enc_embeds"] = torch.randn((rows, opts["frames"], cfg.d_model),
+                                        generator=gen, device=dev)
+    return out, first
+
+
+def tp_kernels(cfg) -> tuple:
+    """(B2 a prefill, B3 a prefill, B4 a step) of ``cfg`` on a rank, as on
+    one process: a GQA layer's attention; a Mamba-2 layer's SSD; the
+    hybrid's shared sites; the encdec encoder's and the decoder's self and
+    cross attention (B4: self and cross); none with MLA."""
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        sites = len(tfm._hybrid_segments(cfg)) - 1
+        return sites, cfg.n_layers, sites
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers, 0, 2 * cfg.n_layers
+    gqa = 0 if cfg.attention == "mla" else cfg.n_layers
+    return gqa, 0, gqa
+
+
+STATE_FAMILIES = ("ssm", "hybrid", "encdec")
+
+
+def _like(seg, leaves: list):
+    """A cache segment of ``seg``'s kind (a tuple, or a ``Mamba2State``)
+    holding ``leaves``."""
+    return type(seg)(*leaves) if hasattr(seg, "_fields") else tuple(leaves)
+
+
+def tp_state(cfg, batch: int, s_max: int, upto: int, seed: int, dev,
+             dtype=torch.bfloat16, enc_seq: int = 0, mesh=None):
+    """The decode cache of an ssm, hybrid or encdec cell at position
+    ``upto``, seeded on the card from one generator layer by layer (at
+    each layer index, each segment's leaves in order, the layer's whole
+    batch drawn): the conv states, the SSM states (x 0.1), every slot of
+    the hybrid's rings, the encdec's self cache at positions [0, upto) and
+    its cross cache of ``enc_seq`` positions. With ``mesh``, this rank's
+    shard of it (``shard_cache`` of each layer's draw: its rows, heads,
+    and conv channels of its heads and groups): a rank holds its shard and
+    one layer's draw, never the whole cache. Per head the ranks' seeded
+    states are the yardstick's own."""
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = tuple(torch.empty(
+            (cfg.n_layers, batch, cfg.n_kv_heads, enc_seq, cfg.head_dim),
+            dtype=dtype, device="meta") for _ in range(2))
+    whole = tfm.init_cache(cfg, batch, s_max, dtype, enc_out=enc_out,
+                           device="meta")
+    mine = whole if mesh is None else shard_cache(cfg, whole, mesh)
+    cache = mine._replace(pos=upto, layers={key: _like(seg, [
+        torch.zeros(t.shape, dtype=t.dtype, device=dev) for t in seg])
+        for key, seg in mine.layers.items()})
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for i in range(max(seg[0].shape[0] for seg in whole.layers.values())):
+        layer = {}
+        for key, seg in whole.layers.items():
+            if i >= seg[0].shape[0]:
+                continue
+            vals = [torch.zeros((1,) + t.shape[1:], dtype=t.dtype,
+                                device=dev) for t in seg]
+            for v in vals:
+                (v.narrow(3, 0, upto) if key == "cross_self" else v
+                 ).normal_(generator=gen)
+            if key == "ssm":
+                vals[1].mul_(0.1)
+            layer[key] = _like(seg, vals)
+        drawn = whole._replace(layers=layer)
+        if mesh is not None:
+            drawn = shard_cache(cfg, drawn, mesh)
+        for key, seg in drawn.layers.items():
+            for dst, src in zip(cache.layers[key], seg):
+                dst[i].copy_(src[0])
+    return cache
 
 
 def tp_fill(cfg, cache, upto: int, seed: int, heads=None, rows=None,
@@ -3834,14 +3966,17 @@ def tp_f32_cut(cfg, params):
             dict(params, moe=first_layers(params["moe"], 0)))
 
 
-def tp_f32(cfg, params, toks, make_cache, tok) -> tuple:
-    """The f32 gate's calls: prefill of ``toks`` and one serve step of
+def tp_f32(cfg, params, prompt: dict, make_cache, tok) -> tuple:
+    """The f32 gate's calls: prefill of ``prompt`` and one serve step of
     ``tok`` from ``make_cache(f32 config)``, both in f32 compute on
-    ``tp_f32_cut``'s layers; their logits on the host."""
+    ``tp_f32_cut``'s layers; their logits on the host, and for a Mamba-2
+    model the conv and SSM states after the step."""
     f32, params = tp_f32_cut(cfg, params)
-    prefill = make_prefill_step(f32)(params, {"tokens": toks})
-    _, step, _ = make_serve_step(f32)(params, tok, make_cache(f32))
-    return prefill.cpu(), step.cpu()
+    prefill = make_prefill_step(f32)(params, prompt)
+    _, step, cache = make_serve_step(f32)(params, tok, make_cache(f32))
+    state = (tuple(t.cpu() for t in cache.layers["ssm"])
+             if "ssm" in cache.layers else None)
+    return prefill.cpu(), step.cpu(), state
 
 
 @contextlib.contextmanager
@@ -3906,6 +4041,70 @@ def forced_routes(calls: list, own: list):
         moe.route = route
 
 
+@contextlib.contextmanager
+def mixer_stream(calls: list, forced=None):
+    """Each Mamba-2 mixer call of the model in the block
+    (``mamba2_forward`` in a prefill, ``mamba2_step`` in a step) appends
+    (its normed input, its output) to ``calls``, on the device; with
+    ``forced`` (an iterator of another run's inputs, on the device) each
+    call takes the next of them as its input instead."""
+    forward, step = tfm.mamba2_forward, tfm.mamba2_step
+
+    def forward_on(h, p, ssm):
+        h = h if forced is None else next(forced)
+        y = forward(h, p, ssm)
+        calls.append((h, y))
+        return y
+
+    def step_on(h, state, p, ssm):
+        h = h if forced is None else next(forced)
+        y, new = step(h, state, p, ssm)
+        calls.append((h, y))
+        return y, new
+
+    tfm.mamba2_forward, tfm.mamba2_step = forward_on, step_on
+    try:
+        yield calls
+    finally:
+        tfm.mamba2_forward, tfm.mamba2_step = forward, step
+
+
+@contextlib.contextmanager
+def encoder_stream(calls: list, forced=None):
+    """Each encoder block of an encdec model in the block appends (its
+    output,) (the residual stream, [B, frames, d_model]) to ``calls``, on
+    the device; with ``forced`` (an iterator of another run's block
+    outputs, on the device) each block still runs, and the next of them
+    takes the place of its output: every encoder block, and the decoder,
+    read the other run's encoder stream."""
+    block = tfm._block_full
+
+    def on(cfg, kind, p, x, **kw):
+        out, cache = block(cfg, kind, p, x, **kw)
+        if kind != "enc":
+            return out, cache
+        calls.append((out,))
+        return (out if forced is None else next(forced)), cache
+
+    tfm._block_full = on
+    try:
+        yield calls
+    finally:
+        tfm._block_full = block
+
+
+def recording(cfg, calls: list, forced=None):
+    """The stream a cell's bf16 calls record or are forced on, each call
+    (what a forced run takes, ..., its output): the Mamba-2 mixers'
+    (``mixer_stream``) of an ssm or hybrid model, the encoder blocks'
+    (``encoder_stream``) of an encdec one, else none."""
+    if cfg.family in MIXER_FAMILIES:
+        return mixer_stream(calls, forced)
+    if cfg.family == "encdec":
+        return encoder_stream(calls, forced)
+    return contextlib.nullcontext()
+
+
 def tp_moe_layer(params, i: int) -> dict:
     """The routing gate's layer: MoE layer ``i``'s leaves of ``params``
     (one process's, or a rank's shard) in f32 on their device. The layer
@@ -3959,8 +4158,8 @@ def routed_alike(a: list, b: list, tokens=slice(None)):
 
 
 def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
-                   steps: int, gate_batch: int, data: int, model: int
-                   ) -> dict:
+                   steps: int, gate_batch: int, data: int, model: int,
+                   opts: dict) -> dict:
     """The yardstick of a ranked cell, on this process: with a data axis
     under a logical (data, model) mesh (``dispatch_rows()`` is ``data``:
     each data rank's row routed on its own), else with no mesh. Prefill of
@@ -3973,24 +4172,37 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
     kernel run's, ``forced_routes``); the f32 gate's calls (``tp_f32``,
     a ``gate_batch`` cache); for a moe arch every MoE call's dispatch in
     the prefill and the steps, and the routing gate (``tp_route_gate``) on
-    the last MoE layer's input in the prefill."""
+    the last MoE layer's input in the prefill. An ssm, hybrid or encdec
+    cell's prefill is ``opts``' (``tp_prompt``), its cache seeded by
+    ``tp_state`` and its bf16 prefill's and steps' stream recorded
+    (``recording``); the f32 step's conv and SSM states come back too."""
     mesh = Mesh((data, model), ("data", "model"), dev) if data > 1 else None
     params = tfm.init_params(cfg, seed=0, device=dev)
-    toks, first = tp_inputs(cfg, dev, prompt, batch, rows=data)
+    toks, first = tp_prompt(cfg, dev, opts, prompt, batch, rows=data)
     upto = s_max - steps - 1
     serve = make_serve_step(cfg)
     gate_x = []
+    enc_seq = opts.get("frames", 0)
+    pre_rec, step_rec = [], []
+
+    def seeded(c, rows, seed, dtype=torch.bfloat16):
+        if c.family in STATE_FAMILIES:
+            return tp_state(c, rows, s_max, upto, seed, dev, dtype, enc_seq)
+        return tp_fill(c, tfm.init_cache(c, rows, s_max, dtype, device=dev),
+                       upto, seed=seed)
+
     with torch.inference_mode(), launch_mesh(mesh, global_batch=batch):
-        make_prefill_step(cfg)(params, {"tokens": toks[:, :256]})
+        make_prefill_step(cfg)(params, {k: v[:, :256]
+                                        for k, v in toks.items()})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pre_routes, routes, plain_routes = [], [], []
-        with moe_inputs(gate_x), recorded_routes(pre_routes):
-            prefill = make_prefill_step(cfg)(params, {"tokens": toks})
+        with moe_inputs(gate_x), recorded_routes(pre_routes), \
+                recording(cfg, pre_rec):
+            prefill = make_prefill_step(cfg)(params, toks)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
-        cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
-                        upto, seed=18)
+        cache = seeded(cfg, batch, 18)
         tok, inputs, logits = first, [], []
         for i in range(steps + 1):
             if i == 1:
@@ -3998,7 +4210,8 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
                 t0 = time.perf_counter()
             inputs.append(tok)
             routes.append([])
-            with recorded_routes(routes[-1]):
+            step_rec.append([])
+            with recorded_routes(routes[-1]), recording(cfg, step_rec[-1]):
                 tok, lg, cache = serve(params, tok, cache)
             logits.append(lg.float().cpu())
         torch.cuda.synchronize()
@@ -4007,8 +4220,7 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
         # a second correct attention, the dispatch forced to the run's
         mla = cfg.attention == "mla"
         other = plain_mla if mla else plain_attention
-        cache = tp_fill(cfg, tfm.init_cache(cfg, batch, s_max, device=dev),
-                        upto, seed=18)
+        cache = seeded(cfg, batch, 18)
         plain = []
         with other():
             for tok, forced in zip(inputs, routes):
@@ -4019,14 +4231,13 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
         prefill_noise = 0.0
         if mla:
             with other(), forced_routes(pre_routes, []):
-                again = make_prefill_step(cfg)(params, {"tokens": toks})
+                again = make_prefill_step(cfg)(params, toks)
             prefill_noise = float((again.float() - prefill.float()).abs().max()
                                   / prefill.float().abs().max())
             del again
         torch.cuda.empty_cache()
-        f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(c, tfm.init_cache(
-            c, gate_batch, s_max, dtype=torch.float32, device=dev), upto,
-            seed=19), first[:gate_batch])
+        f32 = tp_f32(cfg, params, toks, lambda c: seeded(
+            c, gate_batch, 19, torch.float32), first[:gate_batch])
         route = None
         if cfg.moe:
             route = tp_route_gate(cfg, params, gate_x[0], mesh, batch)
@@ -4038,8 +4249,11 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
            "prefill_noise": prefill_noise, "f32": f32,
            "route": route, "gate_x": gate_x[0].cpu() if gate_x else None,
            "prefill_routes": host(pre_routes),
-           "step_routes": [host(r) for r in routes]}
-    del params, prefill, gate_x
+           "step_routes": [host(r) for r in routes],
+           "stream": {"prefill": host(pre_rec),
+                      "steps": [host(m) for m in step_rec]}
+           if cfg.family in STREAM_FAMILIES else None}
+    del params, prefill, gate_x, pre_rec, step_rec
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4047,10 +4261,18 @@ def tp_one_process(cfg, dev, s_max: int, prompt: int, batch: int,
 
 @contextlib.contextmanager
 def held_kernels(errs: list):
-    """Each B2 call of the model held to ``mha_ref`` and each B4 call to
-    ``decode_ref`` on its own operands, whole and per head or row:
-    ``errs`` gets (kernel, whole, per head/row) per call."""
+    """Each B2 call of the model held to ``mha_ref``, each B3 call to
+    ``ssd_chunked_ref`` and each B4 call to ``decode_ref`` on its own
+    operands, whole and per head or row: ``errs`` gets (kernel, whole, per
+    head/row) per call."""
     attn, decode = tfm.prefill_attention, tfm.decode_attention_host
+    scan = mamba2.ssd
+
+    def held_scan(x, dt, a, b, c, d=None, *, q_chunk=128):
+        o = scan(x, dt, a, b, c, d, q_chunk=q_chunk)
+        ref = ssd_chunked_ref(x, dt, a, b, c, d, q_chunk=q_chunk)
+        errs.append(("B3", rel_err(o, ref), ssd_head_err(o, ref)))
+        return o
 
     def held_attn(q, k, v, *, causal=True, window=0):
         o = attn(q, k, v, causal=causal, window=window)
@@ -4065,14 +4287,16 @@ def held_kernels(errs: list):
         return o
 
     tfm.prefill_attention, tfm.decode_attention_host = held_attn, held_decode
+    mamba2.ssd = held_scan
     try:
         yield errs
     finally:
         tfm.prefill_attention, tfm.decode_attention_host = attn, decode
+        mamba2.ssd = scan
 
 
 def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
-            gate_x, calls, *, device):
+            gate_x, calls, recorded, *, device):
     """A ranked tensor-parallel cell on this rank of its (data, model)
     mesh (``make_dev_mesh(world, model=, group=)``): its shard of the
     seed-0 weights drawn leaf by leaf, then under ``launch_mesh``: a
@@ -4086,11 +4310,19 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
     each step's recorded dispatch calls; ``forced_routes``), its own
     recorded; then the f32 gate's calls (``tp_f32``) and for a moe arch
     last the routing gate (``tp_route_gate``) on its row of ``gate_x``,
-    which frees the model, both routed by the rank itself. Returns every
-    logits (gathered: the whole vocabulary), the windows' counters, the
-    held errors, its own dispatch, the gate's output and dispatch, and
-    this rank's peak memory."""
-    _, arch, layers, (_, model), s_max = cell
+    which frees the model, both routed by the rank itself. An ssm, hybrid
+    or encdec cell prefills ``tp_prompt``'s inputs and seeds its shard of
+    the cache (``tp_state``), and each B3 call is held to
+    ``ssd_chunked_ref`` too. Its bf16 prefills and steps are teacher
+    forced on the yardstick's stream (``recorded``: the path of a file of
+    its recorded calls; ``recording``: the Mamba-2 mixers' inputs of an
+    ssm or hybrid cell, the encoder blocks' outputs of an encdec one), each
+    forced call's output held to the yardstick's, and its own unforced
+    prefill is run once more for the report. Returns every logits
+    (gathered: the whole vocabulary), the windows' counters, the held
+    errors, its own dispatch, the gate's output and dispatch (and Mamba-2
+    states), and this rank's peak memory."""
+    _, arch, layers, (_, model), s_max, opts = cell
     dev = torch.device(device)
     cfg = tp_config(arch, layers)
     mesh = make_dev_mesh(world, model=model, device=dev,
@@ -4103,8 +4335,8 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
     init_s = time.perf_counter() - t0
     leaf_gb = sum(t.nbytes for t in tree_leaves(params)) / 1e9
     torch.cuda.empty_cache()
-    toks, _ = tp_inputs(cfg, dev, prompt, batch, rows=data)
-    toks = toks[d:d + 1]
+    toks, _ = tp_prompt(cfg, dev, opts, prompt, batch, rows=data)
+    toks = {k: v[d:d + 1] for k, v in toks.items()}
     g_rows = slice(d * gate_batch // data, (d + 1) * gate_batch // data)
     gate_tok = inputs[0, :gate_batch][g_rows].to(dev)
     inputs = inputs[:, rows].to(dev)
@@ -4118,30 +4350,59 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
         """This data row's calls of a yardstick run: call l·data + d."""
         return [tuple(a.to(dev) for a in c) for c in run[d::data]]
 
+    upto = s_max - steps - 1
+
+    def seeded(c, rows, n, seed, dtype=torch.bfloat16):
+        if c.family in STATE_FAMILIES:
+            return tp_state(c, n, s_max, upto, seed, dev, dtype,
+                            opts.get("frames", 0), mesh)
+        return tp_fill(c, init_shard_cache(c, mesh, n, s_max, dtype,
+                                           device=dev),
+                       upto, seed=seed, heads=heads, rows=rows, batch=n)
+
     pre_calls = mine(calls["prefill"])
     step_calls = [mine(c) for c in calls["steps"]]
     errs, pre_routes, routes = [], [], []
+    stream = {"prefill": [], "steps": [[] for _ in range(steps + 1)]}
+    if recorded:     # the yardstick's forced values, this rank's rows
+        rec = torch.load(recorded, mmap=True)
+        forced = {"prefill": [c[0][d:d + 1].to(dev) for c in rec["prefill"]],
+                  "steps": [[c[0][rows].to(dev) for c in calls_i]
+                            for calls_i in rec["steps"]]}
+
+    def forcing(phase, i=None):
+        """The forced stream of a prefill (``i`` None) or step ``i``."""
+        if not recorded:
+            return contextlib.nullcontext()
+        calls_in = forced[phase] if i is None else forced[phase][i]
+        out = stream[phase] if i is None else stream[phase][i]
+        out.clear()
+        return recording(cfg, out, iter(calls_in))
+
     with torch.inference_mode(), launch_mesh(mesh, global_batch=batch):
-        step(params, {"tokens": toks[:, :256]})           # warm-up
+        step(params, {k: v[:, :256] for k, v in toks.items()})   # warm-up
         t0 = rank_window(mesh, dev)
-        with forced_routes(pre_calls, pre_routes):
-            prefill = step(params, {"tokens": toks})
+        with forced_routes(pre_calls, pre_routes), forcing("prefill"):
+            prefill = step(params, toks)
         pre = rank_window_end(mesh, dev, t0)
         pre["gather_ms"] = mesh.transport.ms["gather"]
-        with held_kernels(errs), forced_routes(pre_calls, []):
-            again = step(params, {"tokens": toks})
-        cache = tp_fill(cfg, init_shard_cache(cfg, mesh, batch, s_max,
-                                              device=dev),
-                        s_max - steps - 1, seed=18, heads=heads, rows=rows,
-                        batch=batch)
+        pre["copies"] = (flash_attention.copies, ssd_scan.narrow)
+        with held_kernels(errs), forced_routes(pre_calls, []), \
+                recording(cfg, [], iter(forced["prefill"])) if recorded \
+                else contextlib.nullcontext():
+            again = step(params, toks)
+        own = step(params, toks).float().cpu() if recorded else None
+        cache = seeded(cfg, rows, batch, 18)
         routes.append([])
-        with held_kernels(errs), forced_routes(step_calls[0], routes[-1]):
+        with held_kernels(errs), forced_routes(step_calls[0], routes[-1]), \
+                forcing("steps", 0):
             _, first, cache = serve(params, inputs[0], cache)
         logits = [first]
         t0 = rank_window(mesh, dev)
         for i in range(1, steps + 1):
             routes.append([])
-            with forced_routes(step_calls[i], routes[-1]):
+            with forced_routes(step_calls[i], routes[-1]), \
+                    forcing("steps", i):
                 _, lg, cache = serve(params, inputs[i], cache)
             logits.append(lg)
         dec = rank_window_end(mesh, dev, t0)
@@ -4151,17 +4412,25 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
         cache_gb = sum(t.nbytes for seg in cache.layers.values()
                        for t in seg) / 1e9
         del cache, first_seg
+        stream_errs = None
+        if recorded:     # each forced call's output against the yardstick's
+            stream_errs = {
+                "prefill": [max_rel(c[-1], w[-1][d:d + 1].to(dev)) for c, w
+                            in zip(stream["prefill"], rec["prefill"])],
+                "steps": [[max_rel(c[-1], w[-1][rows].to(dev)) for c, w
+                           in zip(mine_i, theirs)]
+                          for mine_i, theirs in zip(stream["steps"],
+                                                    rec["steps"])]}
+            del forced, stream, rec
         torch.cuda.empty_cache()
-        f32 = tp_f32(cfg, params, toks, lambda c: tp_fill(
-            c, init_shard_cache(c, mesh, gate_batch, s_max,
-                                dtype=torch.float32, device=dev),
-            s_max - steps - 1, seed=19, heads=heads, rows=g_rows,
-            batch=gate_batch), gate_tok)
+        f32 = tp_f32(cfg, params, toks, lambda c: seeded(
+            c, g_rows, gate_batch, 19, torch.float32), gate_tok)
         route = None
         if cfg.moe:
             route = tp_route_gate(cfg, params, gate_x[d:d + 1].to(dev), mesh,
                                   batch)
     return {"coords": mesh.coords, "init_s": init_s, "prefill_window": pre,
+            "stream_errs": stream_errs, "own_prefill": own,
             "decode_window": dec, "errs": errs, "f32": f32, "route": route,
             "prefill_routes": layer_routes(host(pre_routes), 1),
             "step_routes": [layer_routes(host(r), 1) for r in routes],
@@ -4192,15 +4461,27 @@ def tp_gate(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float,
     return err
 
 
-def tp_reduces(cfg) -> int:
-    """The f32 [tokens, d_model] all-reduces a forward sends a peer of its
-    model group: the embedding, each attention ``wo``, each dense
-    ``w_out``, each MoE combine and each shared ``w_out`` (one collective
-    with the combine, its bytes)."""
+def tp_reduces(cfg, tokens: int, frames: int = 0) -> int:
+    """The f32 bytes a forward of ``tokens`` decoder tokens (``frames``
+    encoder frames) all-reduces with each peer of its model group: a
+    [tokens, d_model] for the embedding, each attention ``wo`` (the
+    cross-attention's too), each dense ``w_out``, each MoE combine and
+    each shared ``w_out`` (one collective with the combine, its bytes),
+    each Mamba-2 ``w_out``, and the encoder's ``wo`` and ``w_out`` at
+    [frames, d_model]; and each Mamba-2 gated norm's [tokens, 1] sum of
+    squares."""
     kinds = tfm.layer_kinds(cfg)
+    d = cfg.d_model
+    if cfg.family == "encdec":
+        return 4 * d * ((1 + 3 * cfg.n_layers) * tokens
+                        + 2 * cfg.encoder_layers * frames)
+    if cfg.ssm is not None:
+        sites = tp_kernels(cfg)[0]
+        return 4 * tokens * ((1 + cfg.n_layers + 2 * sites) * d
+                             + cfg.n_layers)
     shared = 1 if cfg.moe and cfg.moe.n_shared_experts else 0
-    return (1 + cfg.n_layers + kinds.get("dense", 0)
-            + kinds.get("moe", 0) * (1 + shared))
+    return 4 * tokens * d * (1 + cfg.n_layers + kinds.get("dense", 0)
+                             + kinds.get("moe", 0) * (1 + shared))
 
 
 def tp_route_report(name: str, cfg, runs, want: dict) -> float:
@@ -4230,23 +4511,81 @@ def tp_route_report(name: str, cfg, runs, want: dict) -> float:
     return kept
 
 
+def tp_state_report(name: str, cfg, runs, want: dict) -> float:
+    """Hold every rank's conv and SSM states after the f32 gate step to
+    the yardstick's slices in the head-aligned layout (``head_columns``:
+    the conv channels of its heads and groups; its SSM heads) at
+    DENSE_TOL; returns the largest gap."""
+    model = max(r["coords"]["model"] for r in runs) + 1
+    conv_want, ssm_want = want["f32"][2]
+    nh = ssm_want.shape[2]
+    worst = 0.0
+    for r in runs:
+        c = r["coords"]["model"]
+        cols = torch.cat([torch.arange(lo, hi) for lo, hi in
+                          mamba2.head_columns(cfg.ssm, cfg.d_model, model,
+                                              c, "conv")])
+        conv, ssm = r["f32"][2]
+        gaps = [float((got - w).abs().max() / w.abs().max()) for got, w in (
+            (conv, conv_want[..., cols]),
+            (ssm, ssm_want[:, :, c * nh // model:(c + 1) * nh // model]))]
+        worst = max(worst, *gaps)
+        check(conv.shape[-1] == len(cols) and max(gaps) <= DENSE_TOL,
+              f"{name}: rank {r['coords']} f32 conv and SSM states vs the "
+              f"yardstick's slices {gaps}")
+    return worst
+
+
+def tp_stream_report(name: str, cfg, runs, want: dict, failed: list
+                     ) -> None:
+    """Hold every rank's teacher-forced calls (``recording``), each output
+    within TP_TOL of the yardstick's on the same input: a Mamba-2 mixer a
+    layer in each bf16 prefill and step, an encoder block a layer in the
+    prefill; report how far the ranks' own (unforced) bf16 prefill moved
+    from the yardstick's."""
+    mixers = cfg.family in MIXER_FAMILIES
+    per = cfg.n_layers if mixers else cfg.encoder_layers
+    worst_pre, worst_step, own = 0.0, 0.0, []
+    for r in runs:
+        m = r["stream_errs"]
+        counts = [len(m["prefill"])] + [len(c) for c in m["steps"]]
+        check(counts == [per] + [per if mixers else 0] * len(m["steps"]),
+              f"{name}: rank {r['coords']} forced calls {counts}")
+        worst_pre = max(worst_pre, *m["prefill"])
+        worst_step = max(worst_step, 0.0, *(e for c in m["steps"] for e in c))
+        dd = r["coords"]["data"]
+        own.append(max_rel(r["own_prefill"], want["prefill"][dd:dd + 1]))
+    if max(worst_pre, worst_step) > TP_TOL:
+        failed.append(f"{name}: forced calls' outputs vs the yardstick's "
+                      f"{worst_pre}, {worst_step} (tol {TP_TOL})")
+    what = (f"Mamba-2 mixer inputs, {per} calls a prefill and a step per "
+            f"rank; each output vs the yardstick's: bf16 prefill "
+            f"{worst_pre:.3e}, steps {worst_step:.3e}" if mixers else
+            f"encoder block outputs, {per} calls a prefill per rank (the "
+            "decoder reads the yardstick's encoder output); each output vs "
+            f"the yardstick's: {worst_pre:.3e}")
+    log(f"[tensor ranks] {name}: teacher forced on the yardstick's {what} "
+        f"(tol {TP_TOL:.0e}); the ranks' own unforced bf16 prefill vs the "
+        f"yardstick's: {max(own):.3e} (reported) [{card()}]")
+
+
 def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
-              steps: int, gate_batch: int) -> dict:
+              steps: int, gate_batch: int, opts: dict) -> dict:
     """Hold a ranked cell's per-rank counts, bytes and logits and print
     its numbers; returns its launches per rank."""
     model = max(r["coords"]["model"] for r in runs) + 1
     data = len(runs) // model
     rows = batch // data
-    gqa = 0 if cfg.attention == "mla" else cfg.n_layers
-    d = cfg.d_model
-    per = tp_reduces(cfg)
-    pre_reduce = per * prompt * d * 4
+    prompt = opts.get("prompt", prompt)
+    n_b2, n_b3, n_b4 = tp_kernels(cfg)
+    pre_reduce = tp_reduces(cfg, prompt, opts.get("frames", 0))
     pre_gather = cfg.vocab_size // model * 2
-    dec_reduce = steps * per * rows * d * 4
+    dec_reduce = steps * tp_reduces(cfg, rows)
     dec_gather = steps * rows * cfg.vocab_size // model * 2
     for r in runs:
         pw, dw = r["prefill_window"], r["decode_window"]
         b2 = [e for e in r["errs"] if e[0] == "B2"]
+        b3 = [e for e in r["errs"] if e[0] == "B3"]
         b4 = [e for e in r["errs"] if e[0] == "B4"]
         peers = [p for p, o in enumerate(runs)
                  if o["coords"]["data"] == r["coords"]["data"]
@@ -4271,29 +4610,41 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
             f"{pw['bytes']['gather'][peers[0]]} gather, a step "
             f"{dw['bytes']['reduce'][peers[0]] // steps} + "
             f"{dw['bytes']['gather'][peers[0]] // steps} [{card()}]")
-        if gqa:
+        if n_b2:
             log(f"[tensor ranks]   its {len(b2)} B2 calls against mha_ref: "
                 f"max err {max(e[1] for e in b2):.3e}, per head "
                 f"{max(e[2] for e in b2):.3e}; its {len(b4)} B4 calls against "
                 f"decode_ref: {max(e[1] for e in b4):.3e}, per row "
                 f"{max(e[2] for e in b4):.3e} (tol {TOL[torch.bfloat16]:.0e}, "
                 f"{DECODE_ROW_TOL[torch.bfloat16]:.0e})")
-        check(pw["launches"]["flash_attention"] == gqa
+        if n_b3:
+            log(f"[tensor ranks]   its {len(b3)} B3 calls against "
+                f"ssd_chunked_ref: max err {max(e[1] for e in b3):.3e}, per "
+                f"head {max(e[2] for e in b3):.3e} (tol "
+                f"{TOL_SSD[torch.bfloat16]:.0e}, "
+                f"{SSD_ROW_TOL[torch.bfloat16]:.0e}); operands copied for "
+                f"TMA, B3 element-wise copies {pw['copies']}")
+        check(pw["launches"]["flash_attention"] == n_b2
               and pw["launches"]["decode_attention"] == 0
-              and dw["launches"]["decode_attention"] == gqa * steps
+              and dw["launches"]["decode_attention"] == n_b4 * steps
               and dw["launches"]["flash_attention"] == 0
               and not pw["launches"]["block_gemm"]
               and not dw["launches"]["block_gemm"]
-              and not pw["launches"]["ssd_scan"]
-              and not dw["launches"]["ssd_scan"],
+              and pw["launches"]["ssd_scan"] == n_b3
+              and not dw["launches"]["ssd_scan"]
+              and pw["copies"] == (0, 0),
               f"{name}: rank {r['coords']} launches {pw['launches']} "
-              f"{dw['launches']}")
-        check(len(b2) == len(b4) == gqa
+              f"{dw['launches']}, copies {pw['copies']}")
+        check(len(b2) == n_b2 and len(b3) == n_b3 and len(b4) == n_b4
               and max((e[1] for e in b2 + b4), default=0)
               <= TOL[torch.bfloat16]
               and max((e[2] for e in b2), default=0) <= TOL[torch.bfloat16]
               and max((e[2] for e in b4), default=0)
-              <= DECODE_ROW_TOL[torch.bfloat16],
+              <= DECODE_ROW_TOL[torch.bfloat16]
+              and max((e[1] for e in b3), default=0)
+              <= TOL_SSD[torch.bfloat16]
+              and max((e[2] for e in b3), default=0)
+              <= SSD_ROW_TOL[torch.bfloat16],
               f"{name}: held kernel calls {r['errs']}")
         check(r["prefill_again"], f"{name}: a second prefill differs")
         for p in range(len(runs)):
@@ -4312,7 +4663,7 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
             check(torch.equal(r["prefill"], runs[p]["prefill"])
                   and torch.equal(r["steps"], runs[p]["steps"])
                   and all(torch.equal(a, b) for a, b in zip(
-                      r["f32"], runs[p]["f32"])),
+                      r["f32"][:2], runs[p]["f32"][:2])),
                   f"{name}: ranks {r['coords']} and {runs[p]['coords']} "
                   "disagree on the gathered logits")
     gates = [max(TP_TOL, TP_NOISE * n) for n in want["noise"]]
@@ -4358,20 +4709,33 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
              f"prefill {want['prefill_noise']:.3e} (gate {pre_gate:.3e}), "
              "steps " if cfg.attention == "mla" else
              "bf16 steps with B4 against decode_ref: ")
+    pre_tol = MODEL_TOL if cfg.family in MIXER_FAMILIES else DENSE_TOL
     log(f"[tensor ranks] {name}: the yardstick's {other}"
         f"{[float(f'{n:.3e}') for n in want['noise']]}; the "
         f"step gates {[float(f'{g:.3e}') for g in gates]}; f32 compute "
         f"({f32_cfg.n_layers} layers), ranked vs the yardstick: prefill "
-        f"{max(e[0] for e in f32):.3e}, a step at batch {gate_batch} "
-        f"{max(e[1] for e in f32):.3e} (tol {DENSE_TOL:.0e})")
-    check(max(max(e) for e in f32) <= DENSE_TOL,
+        f"{max(e[0] for e in f32):.3e} (tol {pre_tol:.0e}), a step at batch "
+        f"{gate_batch} {max(e[1] for e in f32):.3e} (tol {DENSE_TOL:.0e})")
+    check(max(e[0] for e in f32) <= pre_tol
+          and max(e[1] for e in f32) <= DENSE_TOL,
           f"{name}: f32 ranked vs one process {f32}")
+    if cfg.family in STREAM_FAMILIES:
+        tp_stream_report(name, cfg, runs, want, failed)
+    if cfg.ssm is not None:
+        log(f"[tensor ranks] {name}: after the f32 step every rank's conv "
+            f"and SSM states vs the yardstick's slices (its heads' x "
+            f"channels and its groups' B and C; its SSM heads): "
+            f"{tp_state_report(name, cfg, runs, want):.3e} (tol "
+            f"{DENSE_TOL:.0e})")
     kept = tp_route_report(name, cfg, runs, want) if cfg.moe else None
     wall = max(r["decode_window"]["wall_ms"] for r in runs) / steps
     pre = max(r["prefill_window"]["wall_ms"] for r in runs)
+    frames = (f" after {opts['frames']} encoder frames"
+              if opts.get("frames") else "")
     log(f"[tensor ranks] {name}: prefill {data} x {prompt} ({prompt} tokens "
-        f"a data rank) {pre:.1f} ms (yardstick {want['prefill_ms']:.1f} ms),"
-        f" decode {wall:.2f} ms a step on the slowest rank, "
+        f"a data rank{frames}) {pre:.1f} ms (yardstick "
+        f"{want['prefill_ms']:.1f} ms), decode {wall:.2f} ms a step on the "
+        f"slowest rank, "
         f"{batch * 1e3 / wall:.1f} tok/s (yardstick {want['step_ms']:.2f} "
         f"ms); bf16 logits vs the yardstick: prefill {max(errs):.3e} (tol "
         f"{pre_gate:.3e}), steps "
@@ -4407,19 +4771,32 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
     prefill and a ``gate_batch`` f32 step at DENSE_TOL); for a moe arch one
     MoE layer in f32 on the ranks fed the yardstick's input to it, its
     dispatch bit for bit and its output at DENSE_TOL
-    (``tp_route_report``)."""
+    (``tp_route_report``). The ssm, hybrid and encdec cells (mamba2-1.3b
+    and zamba2-1.2b on 4 ranks, seamless-m4t-large-v2 on 2) prefill the
+    cell's own prompt (and frames), launch B3 in every Mamba-2 layer
+    (held to ``ssd_chunked_ref`` in the further prefill), seed their
+    states, rings and caches layer by layer (``tp_state``), force their
+    bf16 calls on the yardstick's Mamba-2 mixer inputs or encoder block
+    outputs (``tp_stream_report``), and hold each rank's conv and SSM
+    states after the f32 step to the yardstick's slices
+    (``tp_state_report``)."""
     t_phase = time.perf_counter()
     out = {}
     for cell in cells:
-        name, arch, layers, (data, model), s_max = cell
+        name, arch, layers, (data, model), s_max, opts = cell
         t0 = time.perf_counter()
         cfg = tp_config(arch, layers)
         want = tp_one_process(cfg, dev, s_max, prompt, batch, steps,
-                              gate_batch, data, model)
+                              gate_batch, data, model, opts)
         t1 = time.perf_counter()
         attn = (f"MLA over {cfg.n_heads} heads" if cfg.attention == "mla"
+                else f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads in "
+                f"{cfg.ssm.n_groups} group" if cfg.family == "ssm"
                 else f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads, "
                 f"kv_head_pad {kv_head_pad(cfg, model)}")
+        if cfg.family == "hybrid":
+            attn = (f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads; shared "
+                    f"block {attn}, window {cfg.sliding_window}")
         experts = (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
         log(f"[tensor ranks] {name}: {cfg.name} at full width, "
             f"{cfg.n_layers} layers ({attn}{experts}) on a ({data}, {model}) "
@@ -4430,13 +4807,22 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
             f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
             f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved as its "
             "ranks start")
-        runs = spawn_ranks(tp_rank, data * model, cell, prompt, batch, steps,
-                           gate_batch, want["inputs"], want["gate_x"],
-                           {"prefill": want["prefill_routes"],
-                            "steps": want["step_routes"]},
-                           device=dev, timeout=900)
+        tmp = tempfile.mkdtemp(prefix="stream-")
+        recorded = None
+        if want["stream"]:      # the forced stream, read by every rank
+            recorded = os.path.join(tmp, "stream.pt")
+            torch.save(want.pop("stream"), recorded)
+        try:
+            runs = spawn_ranks(tp_rank, data * model, cell, prompt, batch,
+                               steps, gate_batch, want["inputs"],
+                               want["gate_x"],
+                               {"prefill": want["prefill_routes"],
+                                "steps": want["step_routes"]}, recorded,
+                               device=dev, timeout=900)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         out[name] = tp_report(name, cfg, runs, want, prompt, batch, steps,
-                              gate_batch)
+                              gate_batch, opts)
         log(f"[tensor ranks] {name}: the ranks {time.perf_counter() - t1:.1f}"
             " s, spawning included")
         del runs, want
@@ -4493,8 +4879,9 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
     512|2048, 64] bf16, full), at grok-1's prefill call ([4, 48|8, 2048,
     128] bf16, GQA 6, strided views) and at the tensor-parallel cells'
     per-rank shards (yi-6b tp2 [1, 16|2, 2048, 128], starcoder2-3b tp4
-    [1, 6|1, 2048, 128], grok-1-314b tp4 [1, 12|2, 2048, 128]): the
-    kernel, its plain version and
+    [1, 6|1, 2048, 128], grok-1-314b tp4 [1, 12|2, 2048, 128], zamba2-1.2b
+    tp4 [1, 8|8, 4608, 64] with its window of 4 096): the kernel, its
+    plain version and
     ``scaled_dot_product_attention`` with the same mask (an explicit band
     for the window; timed only), with each path's registers, spills and
     resident blocks."""
@@ -4528,7 +4915,10 @@ def phase_time_attention(dev, seq: int, dim: int) -> dict:
              torch.bfloat16, True, 0),
             ("grok-1-314b tp4 prefill shard", (1, gh // 4, gg // 4, 2048,
                                                2048, gd), True,
-             torch.bfloat16, True, 0)):
+             torch.bfloat16, True, 0),
+            ("zamba2-1.2b tp4 windowed prefill shard", (1, zh // 4, zh // 4,
+                                                        4608, 4608, zd),
+             True, torch.bfloat16, True, w)):
         q, k, v = attention_operands(gen, dev, dtype, *shape, model=model)
         kw = dict(causal=causal, window=win)
         got = flash_attention(q, k, v, **kw)
@@ -4717,6 +5107,10 @@ def main() -> int:
     zamba_ssd = phase_time_ssd(dev, [2, 8192, z.ssm.n_heads(z.d_model),
                                      z.ssm.head_dim, z.ssm.n_groups,
                                      z.ssm.d_state], "zamba2-1.2b", False)
+    m = get_config("mamba2-1.3b").ssm
+    shard_ssd = phase_time_ssd(dev, [1, 2048, m.n_heads(2048) // 4,
+                                     m.head_dim, m.n_groups, m.d_state],
+                               "mamba2-1.3b tp4 shard", False)
     decode_time = phase_time_decode(dev)
     decode_rows = {name: phase_time_decode(dev, cell, name) for name, cell in (
         ("zamba2 ring", (8, 32, 32, 4096, 64)),
@@ -4725,7 +5119,8 @@ def main() -> int:
         ("grok decode layer", (8, 48, 8, 4096, 128)),
         ("yi-6b tp2 decode shard", (8, 16, 2, 32768, 128)),
         ("starcoder2-3b tp4 decode shard", (8, 6, 1, 4096, 128)),
-        ("grok-1-314b tp4 decode shard", (8, 12, 2, 4096, 128)))}
+        ("grok-1-314b tp4 decode shard", (8, 12, 2, 4096, 128)),
+        ("zamba2-1.2b tp4 ring shard", (8, 8, 8, 4096, 64)))}
     log(f"[done] {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{run_peak() / 2 ** 30:.2f} GiB; GEMM main path launches "
         f"{gemm['launches']}")
@@ -4755,7 +5150,9 @@ def main() -> int:
             "starcoder2-3b tp4 prefill shard":
                 attn_times["starcoder2-3b tp4 prefill shard"],
             "grok-1-314b tp4 prefill shard":
-                attn_times["grok-1-314b tp4 prefill shard"]},
+                attn_times["grok-1-314b tp4 prefill shard"],
+            "zamba2-1.2b tp4 windowed prefill shard":
+                attn_times["zamba2-1.2b tp4 windowed prefill shard"]},
             "launches_per_prefill": {
                 "zamba2-1.2b": hybrid["b2_launches"],
                 "seamless-m4t-large-v2": encdec["b2_launches"],
@@ -4768,9 +5165,14 @@ def main() -> int:
             "tensor_ranks_launches_per_prefill": {
                 cell: [r["flash_attention"] for r in counts["prefill"]]
                 for cell, counts in tensor_ranks.items()}},
-        "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd},
+        "ssd_scan": {"model_rows": {"zamba2-1.2b layer": zamba_ssd,
+                                    "mamba2-1.3b tp4 shard": shard_ssd},
                      "launches_per_prefill": {
-                         "zamba2-1.2b": hybrid["b3_launches"]}},
+                         "zamba2-1.2b": hybrid["b3_launches"]},
+                     "tensor_ranks_launches_per_prefill": {
+                         cell: [r["ssd_scan"] for r in counts["prefill"]]
+                         for cell, counts in tensor_ranks.items()
+                         if any(r["ssd_scan"] for r in counts["prefill"])}},
         "decode_attention": {"model_rows": decode_rows,
                              "launches_per_step": {
                                  "zamba2-1.2b": hybrid["b4_per_step"],

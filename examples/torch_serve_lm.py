@@ -3,11 +3,11 @@ greedy decode against the KV cache (GQA / MLA-latent / Mamba-state per
 family).
 
 The port's counterpart of ``examples/serve_lm.py``; on ``cuda`` (the
-decode attention kernel) unless ``--device cpu``. With ``--ranks N`` the
-dense, vlm and moe families serve tensor-parallel on N rank processes: a (N /
-model, model) ("data", "model") mesh, model = min(4, N), each rank
-holding its shard of the weights and of the cache
-(``repro_torch.dist.tensor_parallel``); rank 0 prints.
+decode attention kernel) unless ``--device cpu``. With ``--ranks N`` every
+family serves tensor-parallel on N rank processes: a (N / model, model)
+("data", "model") mesh, model = min(4, N), each rank holding its shard of
+the weights and of the cache (``repro_torch.dist.tensor_parallel``);
+rank 0 prints.
 
   PYTHONPATH=src python examples/torch_serve_lm.py --arch yi-6b --tokens 32
   PYTHONPATH=src python examples/torch_serve_lm.py --arch mamba2-1.3b \
@@ -16,6 +16,8 @@ holding its shard of the weights and of the cache
       --ranks 2 --device cpu
   PYTHONPATH=src python examples/torch_serve_lm.py --arch \
       deepseek-v3-671b --ranks 4 --device cpu
+  PYTHONPATH=src python examples/torch_serve_lm.py --arch zamba2-1.2b \
+      --ranks 4 --device cpu
 """
 
 import argparse
@@ -46,8 +48,7 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--ranks", type=int, default=0, metavar="N",
-                    help="tensor-parallel on N rank processes (dense, vlm, "
-                         "moe)")
+                    help="tensor-parallel on N rank processes")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = torch.device(args.device)

@@ -1,6 +1,7 @@
 """Tensor parallelism on rank processes: the ``"model"`` axis of a mesh of
-ranks (``launch.mesh.Mesh(..., group=)``) for serving the dense, vlm and
-moe families (GQA or MLA attention).
+ranks (``launch.mesh.Mesh(..., group=)``) for serving every family: dense,
+vlm and moe (GQA or MLA attention), ssm (Mamba-2), hybrid (Mamba-2 with
+the shared attention block) and encdec (cross-attention).
 
 The JAX package has no counterpart: its launchers place the weights and
 the decode cache by ``param_specs``/``cache_specs`` on a mesh of devices
@@ -11,10 +12,15 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
 
 - column-parallel products (``wq``, ``wk``, ``wv``, MLA's ``wq_b`` and
   ``wkv_b``, ``w_gate``, ``w_in``, the shared experts' ``shared_w_gate``
-  and ``shared_w_in``, and ``lm_head`` or a tied ``embed.T`` on the
-  vocabulary) take their replicated input as it is: the identity;
-- a row-parallel product (``wo``, ``w_out``, ``shared_w_out``) gives each
-  rank a partial sum, all-reduced by :func:`row_product`;
+  and ``shared_w_in``, Mamba-2's ``w_in``, and ``lm_head`` or a tied
+  ``embed.T`` on the vocabulary) take their replicated input as it is:
+  the identity;
+- a row-parallel product (``wo``, the cross-attention's ``wo``,
+  ``w_out``, ``shared_w_out``, Mamba-2's ``w_out``) gives each rank a
+  partial sum, all-reduced by :func:`row_product`;
+- Mamba-2's gated RMSNorm normalises over the whole d_inner, which the
+  heads split: :func:`group_rms_norm` sums each rank's f32 squares over
+  the model group (one [T, 1] all-reduce) and divides by the whole width;
 - the experts (``models/moe.py``): every rank routes every token of its
   dispatch row with the whole router (each rank of a model group holds
   the same tokens, so no all-to-all), scatters the slots of its own
@@ -29,9 +35,10 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
   argmax and the returned ``[B, V]`` read all of them).
 
 With no mesh of ranks with a model axis > 1 in the context every one of
-them is the identity, so the one-process and logical-mesh paths are bit for
-bit what they were. The model code takes its head and expert counts from
-the local weights' shapes.
+them is the identity (the group norm the plain ``rms_norm``), so the
+one-process and logical-mesh paths are bit for bit what they were. The
+model code takes its head, expert and Mamba-2 sizes from the local
+weights' shapes.
 
 Rounding. ``TensorTransport.all_reduce`` sums in f32 only. The
 one-process bf16 product sums all of its terms in the matmul's f32
@@ -48,11 +55,11 @@ an f32 product (TF32 off), the price of the one rounding.
 
 Shards. :func:`shard_params` slices a full parameter tree by
 ``param_specs`` sanitized against the mesh (what ``named_shardings``
-reads), :func:`shard_cache` a full decode cache by ``cache_specs``. Three
+reads), :func:`shard_cache` a full decode cache by ``cache_specs``. Four
 layouts of the specs explicit tensor parallelism cannot use, where each
-rank holds more than its spec's shard (the placements ``named_shardings``
-gives stay those of ``repro``: values, not DTensors; real DTensors need
-NCCL with one card per rank, ROADMAP A8b):
+rank holds other parts than its spec's shard (the placements
+``named_shardings`` gives stay those of ``repro``: values, not DTensors;
+real DTensors need NCCL with one card per rank, ROADMAP A8b):
 
 - where ``kv_head_pad`` > 1 the specs split ``wk``/``wv`` inside a KV
   head (starcoder2-3b's 2 KV heads of 128 over a model axis of 4: 64
@@ -68,18 +75,29 @@ NCCL with one card per rank, ROADMAP A8b):
   ``kv_lora + rope`` columns, which ``q_ln`` and ``kv_ln`` normalise
   over) and its latent cache [L, B, S, r] / [L, B, S, rope] (the specs
   shard its sequence) are whole on every rank, and every rank writes the
-  same latents; the heads of ``wq_b``, ``wkv_b`` and ``wo`` split.
+  same latents; the heads of ``wq_b``, ``wkv_b`` and ``wo`` split;
+- Mamba-2 is head-aligned (``mamba2.head_columns``, beside the packing
+  it cuts): the specs cut the packed ``w_in`` [L, d, z | x | B | C | dt]
+  and the conv's ``conv_w`` and conv state [.., x | B | C] into
+  contiguous blocks, and replicate ``a_log``, ``d_skip``, ``dt_bias``
+  and ``norm_w``; a rank holds instead the z, x and dt columns of its
+  heads, the B and C columns of the groups they read (``n_groups /
+  model`` of them where the axis divides the groups, else the one group
+  its heads read), its heads' slices of the vectors and of the SSM state
+  [L, B, nh, N, P] (as the spec has it), and ``w_out``'s rows of its
+  heads (the spec's shard).
 
-:func:`init_shard_params` draws each leaf as the rank's box of it from the
-one seeded generator (``init_params(shard=)``), so no rank holds the whole
-model (yi-6b is 24.2 GB in f32) nor a whole leaf drawn piece by piece (an
-expert stack of grok-1-314b is 25.8 GB in bf16): the values are bit for
-bit the slices of ``init_params(cfg, seed=seed)``.
+:func:`init_shard_params` draws each leaf as the rank's box of it (a list
+of column boxes for Mamba-2's packed leaves) from the one seeded generator
+(``init_params(shard=)``), so no rank holds the whole model (yi-6b is
+24.2 GB in f32) nor a whole leaf drawn piece by piece (an expert stack of
+grok-1-314b is 25.8 GB in bf16): the values are bit for bit the slices of
+``init_params(cfg, seed=seed)``.
 
-What a model axis on ranks does not run yet raises ``ValueError`` naming
-its ROADMAP item (:func:`check_tp`): the ssm and hybrid families (A8d4),
-encdec (A8d5); under grad the collectives raise (training with a model
-axis, A8d6).
+What a model axis on ranks does not run raises ``ValueError`` naming its
+ROADMAP item (:func:`check_tp`): a vocabulary the axis does not divide
+(the d_model-sharded embedding and head, A8d5b); under grad the
+collectives raise (training with a model axis, A8d6).
 """
 
 from __future__ import annotations
@@ -89,37 +107,41 @@ from typing import Any, List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..models.layers import rms_norm, take_box
 from .ctx import get_mesh
 from .sharding import (P, cache_specs, kv_head_pad, map_tree, param_specs,
                        sanitize_specs)
 
-# what the model axis on ranks does not run yet, and the ROADMAP item that
-# ports it
-UNPORTED = {"ssm": "the ssm and hybrid heads on ranks (ROADMAP A8d4)",
-            "hybrid": "the ssm and hybrid heads on ranks (ROADMAP A8d4)",
-            "encdec": "encdec cross-attention on ranks (ROADMAP A8d5)"}
 TRAINING = ("training with a model axis on ranks (the backward of the "
             "tensor-parallel collectives) is ROADMAP A8d6")
 
 
 def check_tp(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError`` unless a model axis of ``model`` ranks can
-    serve ``cfg``: a dense, vlm or moe config whose query heads, padded KV
-    heads (``kv_head_pad``; GQA), vocabulary and dense d_ff the axis
-    divides, and for the moe family its experts (or else the expert
-    d_ff) and the shared experts' d_ff."""
+    serve ``cfg``: the axis must divide its vocabulary (else A8d5b); its
+    query heads and padded KV heads (``kv_head_pad``; GQA; encdec's KV
+    heads unpadded, as its cross cache is), and the dense d_ff of a family
+    with dense FFNs; for the moe family its experts (or else the expert
+    d_ff) and the shared experts' d_ff; for Mamba-2 (ssm, hybrid) its
+    heads, and its groups or the axis the groups."""
     if model == 1:
         return
     from ..models.transformer import layer_kinds
 
-    if cfg.family in UNPORTED:
-        raise ValueError(f"{cfg.name} ({cfg.family}) on a model axis of "
-                         f"{model} ranks: {UNPORTED[cfg.family]}")
-    sizes = [("query heads", cfg.n_heads), ("vocabulary", cfg.vocab_size)]
-    if cfg.attention != "mla":
+    if cfg.vocab_size % model:
+        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: its "
+                         f"vocabulary of {cfg.vocab_size} does not divide "
+                         "over the axis, which needs the d_model-sharded "
+                         "embedding and head (ROADMAP A8d5b)")
+    sizes = []
+    if cfg.family != "ssm":
+        sizes.append(("query heads", cfg.n_heads))
+    if cfg.family == "encdec":
+        sizes.append(("KV heads", cfg.n_kv_heads))
+    elif cfg.attention not in ("mla", "none"):
         sizes.append(("KV heads (padded)", max(cfg.n_kv_heads, 1)
                       * kv_head_pad(cfg, model)))
-    if "dense" in layer_kinds(cfg):
+    if "dense" in layer_kinds(cfg) or cfg.family in ("hybrid", "encdec"):
         sizes.append(("d_ff", cfg.d_ff))
     if cfg.moe is not None:
         m = cfg.moe
@@ -129,6 +151,13 @@ def check_tp(cfg: ModelConfig, model: int) -> None:
         if m.n_shared_experts:
             sizes.append(("shared experts' d_ff",
                           m.d_ff * m.n_shared_experts))
+    if cfg.ssm is not None:
+        g = cfg.ssm.n_groups
+        if g % model and model % g:
+            raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
+                             f"its {g} SSM groups neither divide the axis "
+                             "nor are divided by it")
+        sizes.append(("SSM heads", cfg.ssm.n_heads(cfg.d_model)))
     for what, n in sizes:
         if n % model:
             raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
@@ -162,6 +191,23 @@ def _sum_f32(mesh, t: torch.Tensor) -> torch.Tensor:
     f = t.float() if t.dtype != torch.float32 else t
     mesh.transport.all_reduce(f, mesh.groups["model"])
     return f if f is t else f.to(t.dtype)
+
+
+def group_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+                   ) -> torch.Tensor:
+    """``rms_norm(x, w)`` over the whole last dim of which ``x`` [..., n]
+    is this rank's slice (Mamba-2's gated norm over d_inner, its heads
+    split): the f32 sum of squares summed over the model group in one
+    [..., 1] all-reduce and divided by ``n`` times the axis. ``rms_norm``
+    itself on one process."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return rms_norm(x, w, eps)
+    _no_grad(x)
+    f = x.float()
+    squares = _sum_f32(mesh, (f * f).sum(dim=-1, keepdim=True))
+    f = f * torch.rsqrt(squares / (x.shape[-1] * mesh.shape["model"]) + eps)
+    return (f * w.float()).to(x.dtype)
 
 
 def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -267,14 +313,38 @@ def _kv_head_index(cfg: ModelConfig, shape, mesh) -> tuple:
 # leaves every rank holds whole where the specs shard them (the module's
 # docstring): the router, and MLA's down-projections
 WHOLE = {"router", "wq_a", "wkv_a"}
+# Mamba-2's leaves laid out by heads (``mamba2.head_columns``); ``w_out``
+# takes its spec's rows
+SSM_LEAVES = {"w_in", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
+              "norm_w"}
 
 
-def _param_index(cfg: ModelConfig, path, spec: P, shape, mesh) -> tuple:
+def _head_columns(cfg: ModelConfig, mesh, leaf: str
+                  ) -> List[Tuple[int, int]]:
+    """This rank's column ranges of a Mamba-2 leaf (``mamba2.head_columns``:
+    the model code owns the packed layout)."""
+    from ..models.mamba2 import head_columns
+
+    return head_columns(cfg.ssm, cfg.d_model, mesh.shape["model"],
+                        mesh.coords["model"], leaf)
+
+
+def _column_boxes(base: tuple, cols: List[Tuple[int, int]]):
+    """``base``'s box with its last dim cut to each of ``cols``: one box, or
+    a list of them to be joined on the last dim (``layers.take_box``)."""
+    boxes = [base[:-1] + (slice(lo, hi),) for lo, hi in cols]
+    return boxes[0] if len(boxes) == 1 else boxes
+
+
+def _param_index(cfg: ModelConfig, path, spec: P, shape, mesh):
     if path[-1] in WHOLE:
         return (slice(None),) * len(shape)
     if path[-1] in ("wk", "wv") and kv_head_pad(cfg,
                                                 mesh.shape["model"]) > 1:
         return _kv_head_index(cfg, shape, mesh)
+    if "mamba" in path and path[-1] in SSM_LEAVES:
+        return _column_boxes((slice(None),) * len(shape),
+                             _head_columns(cfg, mesh, path[-1]))
     return shard_index(spec, shape, mesh)
 
 
@@ -289,11 +359,13 @@ def shard_params(cfg: ModelConfig, params: Any, mesh) -> Any:
     """This rank's shard of the full parameter tree ``params`` (tensors or
     numpy arrays): each leaf sliced by its sanitized ``param_specs`` entry
     on ``mesh``'s coordinates, ``wk``/``wv`` by their KV heads where
-    ``kv_head_pad`` > 1. Slices are views of ``params``' leaves."""
+    ``kv_head_pad`` > 1, Mamba-2's leaves by heads (``mamba2.head_columns``).
+    Slices are views of ``params``' leaves, Mamba-2's joined column boxes
+    copies."""
     check_tp(cfg, mesh.shape["model"])
     return _walk(params, param_shard_specs(cfg, mesh),
-                 lambda path, leaf, spec: leaf[_param_index(
-                     cfg, path, spec, leaf.shape, mesh)])
+                 lambda path, leaf, spec: take_box(leaf, _param_index(
+                     cfg, path, spec, leaf.shape, mesh)))
 
 
 def init_shard_params(cfg: ModelConfig, mesh, *, seed: int = 0,
@@ -327,32 +399,46 @@ def cache_shard_specs(cfg: ModelConfig, cache, mesh, global_batch: int
                     model_axis=mesh.shape["model"]), cache, mesh)
 
 
-def _cache_index(cfg: ModelConfig, spec: P, shape, mesh) -> tuple:
-    """This rank's slices of a cache leaf: its sanitized spec's, with
-    MLA's latents whole over the sequence (every rank writes the same
-    latents; the spec puts the sequence on ``"model"``)."""
+def _cache_index(cfg: ModelConfig, key: str, spec: P, shape, mesh):
+    """This rank's part of a leaf of the cache's segment ``key``: its
+    sanitized spec's slices, with MLA's latents whole over the sequence
+    (every rank writes the same latents; the spec puts the sequence on
+    ``"model"``) and the Mamba-2 conv state [L, B, d_conv-1, conv_dim] its
+    x, B and C columns (``mamba2.head_columns``; the spec's contiguous
+    block)."""
     if cfg.attention == "mla":
         spec = P(*(None if e == "model" else e for e in spec))
+    if key == "ssm" and len(shape) == 4:
+        return _column_boxes(
+            shard_index(P(*list(spec)[:-1], None), shape, mesh),
+            _head_columns(cfg, mesh, "conv"))
     return shard_index(spec, shape, mesh)
 
 
 def _cache_batch(cache) -> int:
-    """The batch of a dense or moe decode cache: dim 1 of a segment's
-    first leaf ([L, B, ...])."""
+    """The batch of a decode cache: dim 1 of a segment's first leaf ([L,
+    B, ...])."""
     return next(iter(cache.layers.values()))[0].shape[1]
+
+
+def _map_cache(cfg: ModelConfig, cache, specs, mesh, fn) -> Any:
+    """``fn(leaf, this rank's index of it)`` over the cache's leaves."""
+    return {key: map_tree(lambda leaf, spec, key=key: fn(
+        leaf, _cache_index(cfg, key, spec, leaf.shape, mesh)), sub,
+        specs.layers[key]) for key, sub in cache.layers.items()}
 
 
 def shard_cache(cfg: ModelConfig, cache, mesh) -> Any:
     """This rank's shard of the full decode cache ``cache`` (built with
     ``kv_head_pad(cfg, model)``): every leaf sliced by its sanitized
-    ``cache_specs`` entry (KV heads on ``"model"``, the batch on its axes;
-    MLA's latents whole over the sequence), as a copy; ``pos`` kept."""
+    ``cache_specs`` entry (KV heads and SSM heads on ``"model"``, the batch
+    on its axes; MLA's latents whole over the sequence; the conv state by
+    ``mamba2.head_columns``), as a copy; ``pos`` kept."""
     check_tp(cfg, mesh.shape["model"])
     specs = cache_shard_specs(cfg, cache, mesh, _cache_batch(cache))
-    return type(cache)(pos=cache.pos, layers=map_tree(
-        lambda leaf, spec: leaf[_cache_index(cfg, spec, leaf.shape,
-                                             mesh)].clone(),
-        cache.layers, specs.layers))
+    return type(cache)(pos=cache.pos, layers=_map_cache(
+        cfg, cache, specs, mesh,
+        lambda leaf, index: take_box(leaf, index).clone()))
 
 
 def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
@@ -360,23 +446,28 @@ def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
                      device="cuda") -> Any:
     """This rank's shard of ``init_cache(cfg, global_batch, max_seq,
     dtype, kv_head_pad=kv_head_pad(cfg, model))``, zeros, made at its own
-    size (the whole cache is never built)."""
+    size (the whole cache is never built). For encdec the cross cache
+    ``enc_out`` is zeros of ``max_seq`` encoder positions, as the serve
+    launcher makes it."""
     from ..models.transformer import init_cache
 
     check_tp(cfg, mesh.shape["model"])
     pad = kv_head_pad(cfg, mesh.shape["model"])
-    whole = init_cache(cfg, global_batch, max_seq, dtype, device="meta",
-                       kv_head_pad=pad)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = tuple(torch.empty(
+            (cfg.n_layers, global_batch, cfg.n_kv_heads, max_seq,
+             cfg.head_dim), dtype=dtype, device="meta") for _ in range(2))
+    whole = init_cache(cfg, global_batch, max_seq, dtype, enc_out=enc_out,
+                       device="meta", kv_head_pad=pad)
     specs = cache_shard_specs(cfg, whole, mesh, global_batch)
-    return type(whole)(pos=0, layers=map_tree(
-        lambda leaf, spec: torch.zeros(
-            leaf[_cache_index(cfg, spec, leaf.shape, mesh)].shape,
-            dtype=dtype, device=device),
-        whole.layers, specs.layers))
+    return type(whole)(pos=0, layers=_map_cache(
+        cfg, whole, specs, mesh, lambda leaf, index: torch.zeros(
+            take_box(leaf, index).shape, dtype=dtype, device=device)))
 
 
-__all__ = ["TRAINING", "UNPORTED", "cache_shard_specs", "check_tp",
-           "init_shard_cache", "init_shard_params", "param_shard_specs",
-           "require", "row_product", "shard_cache", "shard_index",
-           "shard_params", "sum_partials", "tp_mesh", "vocab_embed",
-           "vocab_gather"]
+__all__ = ["TRAINING", "cache_shard_specs", "check_tp",
+           "group_rms_norm", "init_shard_cache", "init_shard_params",
+           "param_shard_specs", "require", "row_product", "shard_cache",
+           "shard_index", "shard_params", "sum_partials",
+           "tp_mesh", "vocab_embed", "vocab_gather"]

@@ -55,19 +55,35 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
 DRAW = 1 << 28
 
 
+def take_box(t, index):
+    """``t[index]`` of one box (a tuple of step-1 slices, one per dim), or
+    for a list of boxes that differ only in their last dim's slice, the
+    boxes joined on the last dim (a copy; ``t`` a tensor or a numpy
+    array): a rank's columns of a packed projection."""
+    if not isinstance(index, list):
+        return t[index]
+    parts = [t[box] for box in index]
+    if isinstance(t, torch.Tensor):
+        return torch.cat(parts, dim=-1)
+    import numpy as np
+
+    return np.concatenate(parts, axis=-1)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis: Optional[int] = 0, dtype=torch.float32,
-               device=None, index: Optional[tuple] = None) -> torch.Tensor:
+               device=None, index=None) -> torch.Tensor:
     """LeCun-normal in the input dimension(s), drawn from ``gen`` (on the
     generator's device unless ``device`` is given). On the ``meta`` device
     nothing is drawn or allocated. With ``index`` (one step-1 slice per
-    dim) only that box of the tensor is returned: the generator advances
-    as for the whole draw and the box holds the whole draw's values, and a
+    dim, or a list of such boxes joined on the last dim: ``take_box``)
+    only that part of the tensor is returned: the generator advances as
+    for the whole draw and the part holds the whole draw's values, and a
     tensor drawn piece by piece is never whole in memory (a rank's shard
     of an expert stack plus one piece)."""
     if device is not None and torch.device(device).type == "meta":
         whole = torch.empty(tuple(shape), dtype=dtype, device="meta")
-        return whole if index is None else whole[index]
+        return whole if index is None else take_box(whole, index)
     fan_in = 1
     for ax in range(len(shape) - 1) if in_axis is None else [in_axis]:
         fan_in *= shape[ax]
@@ -76,13 +92,26 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
     if dtype == torch.float32 or n <= DRAW:
         out = (torch.randn(tuple(shape), generator=gen, device=device)
                * fan_in ** -0.5).to(dtype)
-        return out if index is None else out[index].clone()
-    box = _Box(shape, index)
-    out = torch.empty(box.shape, dtype=dtype, device=device)
+        return out if index is None else take_box(out, index).clone()
+    boxes = [_Box(shape, b) for b in (index if isinstance(index, list)
+                                      else [index])]
+    width = sum(b.hi - b.lo for b in boxes)
+    out = torch.empty((*boxes[0].shape[:-1], width) if len(boxes) > 1
+                      else boxes[0].shape, dtype=dtype, device=device)
+    rows2d = out.view(-1, width)
+    cols, at = [], 0
+    for b in boxes:              # each box's columns of the joined rows
+        if len(boxes) > 1 and b.row != shape[-1]:
+            raise ValueError("dense_init: boxes joined on the last dim must "
+                             "cut no other dim")
+        cols.append(rows2d[:, at:at + b.hi - b.lo])
+        at += b.hi - b.lo
     for i in range(0, n, DRAW):
         m = min(DRAW, n - i)
-        box.take(out, (torch.randn(m, generator=gen, device=device)
-                       * fan_in ** -0.5).to(dtype), i)
+        piece = (torch.randn(m, generator=gen, device=device)
+                 * fan_in ** -0.5).to(dtype)
+        for b, dest in zip(boxes, cols):
+            b.take(dest, piece, i)
     return out
 
 
@@ -92,7 +121,7 @@ class _Box:
     the elements from the box's last cut dim ``j`` on, and the box takes
     columns [lo, hi) of the rows whose multi-index over the dims before
     ``j`` lies in its slices. ``take`` copies the part of a flat piece of
-    the tensor that falls in the box into the box's own tensor."""
+    the tensor that falls in the box into the box's own rows."""
 
     def __init__(self, shape: Sequence[int], index: Optional[tuple]):
         shape = tuple(shape)
@@ -120,8 +149,9 @@ class _Box:
             dest = dest * (b - a) + (c - a)
         return ok, dest
 
-    def take(self, out: torch.Tensor, vals: torch.Tensor, start: int) -> None:
-        rows2d = out.view(-1, self.hi - self.lo)
+    def take(self, rows2d: torch.Tensor, vals: torch.Tensor,
+             start: int) -> None:
+        """``rows2d``: the box's tensor as [box rows, hi - lo] (a view)."""
         row, lo, hi = self.row, self.lo, self.hi
         end = start + vals.numel()
         fa, fb = -(-start // row), end // row        # rows wholly inside
@@ -149,8 +179,7 @@ class _Box:
 
 def stacked_dense_init(gen: torch.Generator, n: int, shape: Sequence[int],
                        in_axis: int = 0, dtype=torch.float32,
-                       device=None, index: Optional[tuple] = None
-                       ) -> torch.Tensor:
+                       device=None, index=None) -> torch.Tensor:
     """[n, *shape]: one independent init per layer (``in_axis`` indexes
     ``shape``); ``index`` as in :func:`dense_init`."""
     return dense_init(gen, (n, *shape), in_axis + 1, dtype, device, index)

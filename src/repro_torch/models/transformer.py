@@ -28,14 +28,19 @@ v3) runs as the reference runs it: prefill through ``chunked_attention``
 (its q and k are 192 wide and v 128, which B2 does not take), decode in
 the absorbed form over the latent cache (ckv, k_rope), einsums in f32.
 
-On a mesh of ranks with a model axis (``dist.tensor_parallel``) the dense,
-vlm and moe paths run on the rank's shard of the weights and of the decode
-cache: the head counts come from the local ``wq``/``wk`` (MLA: ``wq_b``)
-shapes, the row-parallel products (``wo``, the FFN's ``w_out``) are
-all-reduced (``row_product``), the experts are the rank's own
-(``moe_ffn``), the vocab-sharded embedding is looked up with a mask
-(``vocab_embed``) and the logits gathered (``vocab_gather``); MLA's latent
-cache is whole on every rank. Without one those calls are the identity.
+On a mesh of ranks with a model axis (``dist.tensor_parallel``) every
+family runs on the rank's shard of the weights and of the decode cache:
+the head counts come from the local ``wq``/``wk`` (MLA: ``wq_b``; the
+cross-attention's own) shapes and Mamba-2's sizes from its local weights
+(``mamba2.local_sizes``), the row-parallel products (``wo``, the cross
+``wo``, the FFN's and Mamba-2's ``w_out``) are all-reduced
+(``row_product``), Mamba-2's gated norm sums over the group
+(``group_rms_norm``), the experts are the rank's own (``moe_ffn``), the
+vocab-sharded embedding is looked up with a mask (``vocab_embed``) and the
+logits gathered (``vocab_gather``); MLA's latent cache is whole on every
+rank, and the hybrid's ring, the encdec's self and cross caches and the
+SSM states are the rank's heads. Without one those calls are the
+identity.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
                         prefill_attention)
 from .layers import (apply_rope, dense_init, gelu_mlp, rms_norm, rope_freqs,
-                     stacked_dense_init, swiglu)
+                     stacked_dense_init, swiglu, take_box)
 from .mamba2 import (Mamba2State, mamba2_forward, mamba2_init_state,
                      mamba2_params_shapes, mamba2_step)
 from .moe import moe_ffn, moe_params_shapes
@@ -133,7 +138,7 @@ def _init_tree(gen: torch.Generator, shapes, n_stack: int, dtype,
     index = shard(path, shape)
     if len(shapes) == 1:
         leaf = torch.ones(shape, dtype=dtype, device=device)
-        return leaf if index is None else leaf[index].clone()
+        return leaf if index is None else take_box(leaf, index).clone()
     if n_stack:
         return stacked_dense_init(gen, n_stack, shapes, 0, dtype, device,
                                   index)
@@ -425,7 +430,7 @@ def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
     p = _cast_params(cfg, p)
     if kind == "ssm":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        return x + mamba2_forward(h, p["mamba"], cfg.ssm, cfg.d_model), None
+        return x + mamba2_forward(h, p["mamba"], cfg.ssm), None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attention == "mla" and kind in ("dense", "moe"):
         att, cache = _mla_full(cfg, p["attn"], h)
@@ -770,10 +775,10 @@ def _decode_block_gqa(cfg, p, x, kv, pos, kv_len, *, window=0,
     x = x + att
     if enc_out_kv is not None:
         hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-        q = (hc @ p["cross"]["wq"]).reshape(x.shape[0], cfg.n_heads,
-                                            cfg.head_dim)
+        hq, _ = _heads(p["cross"], cfg.head_dim)
+        q = (hc @ p["cross"]["wq"]).reshape(x.shape[0], hq, cfg.head_dim)
         o = decode_attention_host(q, enc_out_kv[0], enc_out_kv[1])
-        x = x + o.reshape(x.shape[0], -1) @ p["cross"]["wo"]
+        x = x + row_product(o.reshape(x.shape[0], -1), p["cross"]["wo"])
     return x + _decode_mlp(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps)), kv
 
 
@@ -821,7 +826,7 @@ def _ssm_steps(cfg, seg_params, x, states: Mamba2State, layers):
         layer_p = _cast_params(cfg, _layer(seg_params, i))
         h = rms_norm(x, layer_p["ln"], cfg.norm_eps)
         y, st = mamba2_step(h, Mamba2State(states.conv[i], states.ssm[i]),
-                            layer_p["mamba"], cfg.ssm, cfg.d_model)
+                            layer_p["mamba"], cfg.ssm)
         x = x + y
         convs.append(st.conv)
         ssms.append(st.ssm)

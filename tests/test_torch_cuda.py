@@ -573,10 +573,10 @@ def _mamba2_block(cuda, cfg, length):
     layer = {k: v[0] for k, v in params["ssm"]["mamba"].items()}
     x = torch.randn((2, length, cfg.d_model),
                     generator=torch.Generator().manual_seed(1))
-    want = mamba2_forward(x, layer, cfg.ssm, cfg.d_model)
+    want = mamba2_forward(x, layer, cfg.ssm)
     layer_c = {k: v.to(cuda) for k, v in layer.items()}
     before, narrow = ssd_scan.launches, ssd_scan.narrow
-    got = mamba2_forward(x.to(cuda), layer_c, cfg.ssm, cfg.d_model)
+    got = mamba2_forward(x.to(cuda), layer_c, cfg.ssm)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert ssd_scan.narrow == narrow

@@ -25,8 +25,8 @@ one spawned process per mesh coordinate, joined into a gloo group
   dispatch row;
 - a mesh off the world's size refuses to go on ranks; on a mesh of ranks
   with a model axis > 1 the pipelined trainer refuses (ROADMAP A8d6) and
-  so does serving a family that axis does not run yet (the ssm family,
-  A8d4);
+  so does serving what that axis does not run yet (full-size
+  seamless-m4t-large-v2 on 4, its vocabulary not dividing, A8d5b);
   ``launch.train --pipeline 2 --host-devices 2 --ranks --device cpu``
   lowers the loss, and refuses ``--ranks`` without ``--pipeline`` and
   with ``--elastic``.
@@ -128,12 +128,12 @@ def apply_rank(rank, world, *, device):
     # a model axis lies on ranks; what does not run on it yet refuses
     tp_mesh = Mesh((1, 1, world), ("pipe", "data", "model"), device,
                    group=dist.group.WORLD)
-    ssm = reduced(get_config("mamba2-1.3b"))
+    seamless = get_config("seamless-m4t-large-v2")
     for attempt in (
             lambda: make_pipeline_train_step(_cfg(), tp_mesh, lr=LR,
                                              n_micro=MICRO),
             lambda: pipeline_apply(_stage, p, xs, mesh=tp_mesh),
-            lambda: tfm_forward_under(ssm, tp_mesh)):
+            lambda: tfm_forward_under(seamless, tp_mesh)):
         try:
             attempt()
         except ValueError as exc:
@@ -283,15 +283,17 @@ def test_a_mesh_off_the_world_or_with_a_model_axis_refuses_ranks(worlds):
     """A mesh off the world's size refuses to go on ranks. A model axis of
     4 goes on them, and what does not run on it yet refuses, naming its
     ROADMAP item: the pipelined train step and ``pipeline_apply``
-    (training with a model axis, A8d6), and serving the ssm family
-    (A8d4)."""
+    (training with a model axis, A8d6), and serving full-size
+    seamless-m4t-large-v2, whose vocabulary of 256 206 does not divide
+    over 4 (the d_model-sharded embedding and head, A8d5b)."""
     for run in worlds["apply"]:
-        off, step, apply, ssm = run["refused"]
+        off, step, apply, vocab = run["refused"]
         assert "whole world of 2 processes, got 4" in off
         for msg in (step, apply):
             assert "model axis 4 on ranks" in msg and "A8d6" in msg
-        assert "mamba2-1.3b (ssm) on a model axis of 4 ranks" in ssm
-        assert "A8d4" in ssm
+        assert ("seamless-m4t-large-v2 on a model axis of 4 ranks: its "
+                "vocabulary of 256206") in vocab
+        assert "A8d5b" in vocab
 
 
 # ---------------------------------------------------------- training

@@ -24,8 +24,9 @@ a KV head and each rank holds the whole KV head of its padded cache shard.
   did (the new keys and values come from the residual stream);
 - the bytes each rank sends each peer, by kind, in ``forward``,
   ``prefill`` and a step equal their formula;
-- the launcher decodes on ranks and refuses what the model axis on ranks
-  does not run, naming its ROADMAP item.
+- the launcher decodes on ranks (also the ssm and encdec families) and
+  refuses what the model axis on ranks does not run, naming its ROADMAP
+  item.
 
 The rank functions live here (a spawned child imports this module, which
 imports nothing of JAX at its top). Each world is spawned once for the
@@ -34,6 +35,7 @@ module: one of 2 ranks ((1, 2) untied and tied), one of 4 ((2, 2), (1,
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -477,33 +479,71 @@ def test_sharded_draw_is_the_whole_draw_off_ranks():
         assert torch.equal(tfm.forward(cfg, a, tokens=toks)[0], want)
 
 
+def _mamba(n_groups, **over):
+    """The reduced mamba2-1.3b (8 SSM heads) with ``n_groups`` SSM groups
+    and ``over`` replaced."""
+    cfg = reduced(get_config("mamba2-1.3b"))
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, n_groups=n_groups), **over)
+
+
+# (arch, model axes at full size): every family, reduced on 2 and 4 ranks
+# (the moe family: grok-1-314b's GQA, deepseek-v3-671b's MLA)
+FAMILIES = [("yi-6b", (2,)), ("starcoder2-3b", (4,)),
+            ("grok-1-314b", (2, 4)), ("deepseek-v3-671b", (2, 4)),
+            ("mamba2-1.3b", (2, 4)), ("zamba2-1.2b", (2, 4)),
+            ("seamless-m4t-large-v2", (2,))]
+
+
+@pytest.mark.parametrize("arch,full", FAMILIES)
+def test_every_family_passes_a_ranked_model_axis(arch, full):
+    """``check_tp`` passes every family on a model axis of ranks, reduced
+    on 2 and 4 ranks and at full size on the axes in ``full``."""
+    for model in (2, 4):
+        tp.check_tp(reduced(get_config(arch)), model)
+    for model in full:
+        tp.check_tp(get_config(arch), model)
+    tp.check_tp(get_config(arch), 1)         # no model axis: nothing to do
+
+
 @pytest.mark.parametrize("arch,items", [
-    ("grok-1-314b", []), ("deepseek-v3-671b", []),
-    ("mamba2-1.3b", ["A8d4"]), ("zamba2-1.2b", ["A8d4"]),
-    ("seamless-m4t-large-v2", ["A8d5"])])
+    ("seamless-m4t-large-v2", ["4 ranks", "vocabulary of 256206", "A8d5b"])])
 def test_unported_families_refuse_a_ranked_model_axis(arch, items):
-    """The ssm, hybrid and encdec families refuse a model axis on ranks,
-    naming their ROADMAP item; the moe family (grok-1-314b's GQA,
-    deepseek-v3-671b's MLA) passes, reduced and at full size."""
-    cfg = reduced(get_config(arch))
-    if not items:
-        for model in (2, 4):
-            tp.check_tp(cfg, model)
-            tp.check_tp(get_config(arch), model)
-        return
+    """What a model axis on ranks does not run yet refuses, naming its
+    ROADMAP item: full-size seamless-m4t-large-v2 on 4 ranks, its
+    vocabulary of 256 206 not dividing (the d_model-sharded embedding and
+    head, A8d5b)."""
     with pytest.raises(ValueError) as exc:
-        tp.check_tp(cfg, 2)
+        tp.check_tp(get_config(arch), 4)
     assert all(item in str(exc.value) for item in items), str(exc.value)
-    tp.check_tp(cfg, 1)                      # no model axis: nothing to do
 
 
-def test_a_model_axis_that_does_not_divide_refuses():
-    cfg = reduced(get_config("yi-6b"), n_heads=6, n_kv_heads=2)
-    with pytest.raises(ValueError, match="6 query heads"):
-        tp.check_tp(cfg, 4)
-    tp.check_tp(_cfg(False), 4)
-    tp.check_tp(get_config("starcoder2-3b"), 4)
-    tp.check_tp(get_config("yi-6b"), 2)
+@pytest.mark.parametrize("make,model,message", [
+    (lambda: reduced(get_config("yi-6b"), n_heads=6, n_kv_heads=2), 4,
+     "6 query heads"),
+    # 12 SSM heads in 3 groups: the axis neither divides the groups nor is
+    # divided by them
+    (lambda: _mamba(3, d_model=192, vocab_size=516), 2, "SSM groups"),
+    (lambda: _mamba(4), 16, "8 SSM heads"),
+    (lambda: _mamba(4, vocab_size=510), 4, "A8d5b")],
+    ids=["query-heads", "ssm-groups", "ssm-heads", "vocabulary"])
+def test_a_model_axis_that_does_not_divide_refuses(make, model, message):
+    with pytest.raises(ValueError, match=message):
+        tp.check_tp(make(), model)
+
+
+@pytest.mark.parametrize("make,model", [
+    (lambda: _cfg(False), 4), (lambda: get_config("starcoder2-3b"), 4),
+    (lambda: get_config("yi-6b"), 2),
+    (lambda: _mamba(3, d_model=192, vocab_size=516), 3),
+    (lambda: _mamba(3, d_model=192, vocab_size=516), 6),
+    (lambda: _mamba(4), 4), (lambda: _mamba(2), 4)],
+    ids=["yi-reduced-4", "starcoder2-4", "yi-2", "ssm-groups-3",
+         "ssm-groups-6", "ssm-groups-4", "ssm-one-group-a-rank"])
+def test_a_model_axis_that_divides_passes(make, model):
+    """The axis divides the query heads, the SSM heads and the vocabulary,
+    and divides the SSM groups or is divided by them."""
+    tp.check_tp(make(), model)
 
 
 # ----------------------------------------------------------- launcher
@@ -528,13 +568,37 @@ def test_serve_launcher_on_ranks():
     assert len(sample) == 6 and all(0 <= t < 512 for t in sample)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b",
+                                  "seamless-m4t-large-v2"])
+def test_serve_launcher_serves_every_family_on_ranks(arch):
+    """The launcher decodes the ssm, hybrid and encdec families on 2 rank
+    processes."""
+    proc = _serve("--arch", arch, "--host-devices", "2", "--ranks",
+                  "--batch", "2", "--tokens", "3")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0] == (f"device: cpu, arch={arch}, mesh: {{'data': 1, "
+                        "'model': 2} on 2 rank processes, kv_head_pad 1")
+    assert lines[1].startswith("decoded 3 x batch 2: ") and len(lines) == 2
+    sample = ast.literal_eval(lines[1].split("sample ")[1])
+    vocab = reduced(get_config(arch)).vocab_size
+    assert len(sample) == 3 and all(0 <= t < vocab for t in sample)
+
+
 @pytest.mark.parametrize("args,message", [
-    (("--arch", "seamless-m4t-large-v2", "--host-devices", "2", "--ranks"),
-     "A8d5"),
-    (("--arch", "mamba2-1.3b", "--host-devices", "2", "--ranks"), "A8d4"),
-    (("--arch", "yi-6b", "--ranks"), "pass --host-devices N")])
+    (("--reduced", "--arch", "yi-6b", "--ranks"), "pass --host-devices N"),
+    (("--arch", "seamless-m4t-large-v2", "--host-devices", "4", "--ranks"),
+     "A8d5b")])
 def test_serve_launcher_refuses_on_ranks(args, message):
-    proc = _serve(*args)
+    """The launcher refuses, before any rank starts, what a model axis on
+    ranks does not run: ``--ranks`` without a mesh, and full-size
+    seamless-m4t-large-v2 on 4 ranks (its vocabulary, A8d5b; refused
+    before any weights)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         *args], capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=env)
     assert proc.returncode != 0 and message in proc.stderr, proc.stderr
     assert "Traceback" not in proc.stderr
 
