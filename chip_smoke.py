@@ -185,6 +185,22 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    MoE layer in f32 on the ranks fed the one-process input to it, its
    dispatch bit for bit and its output within 1e-4; per rank ms a step,
    tok/s, all-reduce and gather ms and bytes, busy ms and peak memory;
+   then training with that model axis on rank processes that share the
+   card (``phase_train_ranks``, ``make_train_step(cfg, mesh=)`` on
+   ``make_dev_mesh(n, model, group=)``; the collectives' backward is
+   Megatron's f and g): starcoder2-3b-train-tp4-r4 (full width and depth,
+   f32 params and AdamW, bf16 compute, remat full, 1 x 2 048 tokens on a
+   (1, 4) mesh: each rank 807 M parameters and their moments, a whole KV
+   head shared with one other rank) and starcoder2-3b-d4-train-dp2-tp2-r4
+   (4 of 30 layers in f32 on (2, 2), 2 x 2 048), each from seed 0 against
+   the one-process step on the same weights and batch (1 warm-up and 2
+   timed steps, or 1 and 1): no B1-B4 launch, the loss falling, the first
+   step's loss and |g| within 1e-2 and 5e-2 (bf16) or every step's within
+   1e-5 and 1e-4 (f32) and the first update held to the one-process
+   update's boxes, the bytes each rank sends each peer by kind against
+   their formula, the ranks that hold one box (KV heads, norms) bit for
+   bit; ms a step and tok/s beside one process, per rank all-reduce and
+   gather ms, busy ms and peak memory;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -195,7 +211,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    ranked pipelined forward; ``pipeline_ranks_train_launches``: each
    rank's in the ranked train steps, 0; ``tensor_ranks_launches``: each
    rank's B2 launches a prefill and B4 launches in 16 steps of the ranked
-   tensor-parallel cells, the moe cells' included)
+   tensor-parallel cells, the moe cells' included;
+   ``tensor_ranks_train_launches``: each rank's in the timed steps of the
+   ranked tensor-parallel train cells, 0)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -216,6 +234,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -251,7 +270,8 @@ from repro_torch.launch.mesh import (Mesh, make_dev_mesh,  # noqa: E402
                                     make_pipeline_mesh)
 from repro_torch.dist.sharding import kv_head_pad  # noqa: E402
 from repro_torch.dist.tensor_parallel import (  # noqa: E402
-    init_shard_cache, init_shard_params, row_product, shard_cache)
+    box_holders, init_shard_cache, init_shard_params, row_product,
+    shard_boxes, shard_cache, shard_tree)
 from repro_torch.linalg.cholesky import (assemble_lower,  # noqa: E402
                                          cholesky_bodies, cholesky_executor,
                                          cholesky_graph, cholesky_program,
@@ -277,7 +297,7 @@ from repro_torch.train.optimizer import adamw_init  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     init_train_state, loss_and_grads, make_pipeline_loss,
     make_pipeline_train_step, make_train_step, pipeline_rows, pipeline_shard,
-    value_and_grads)
+    replica_leaves, value_and_grads)
 from repro_torch.train.tree import (leaf_paths, leaves as tree_leaves,  # noqa: E402,E501
                                     tree_map)
 
@@ -2668,6 +2688,7 @@ def train_batch(cfg, step: int, seq: int, batch: int, device, seed=3,
                      encdec=cfg.family == "encdec", learnable=learnable)
     b = ds.batch_at(step)
     if mask:
+        b["labels"] = b["labels"].copy()      # a view of the tokens' array
         b["labels"][0, ::5] = -1
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
@@ -3809,6 +3830,10 @@ STREAM_FAMILIES = MIXER_FAMILIES + ("encdec",)
 # dense + 2 MoE). zamba2's prompt of 4 608 passes its 4 096-token window
 # by 512 queries, and its steps start at 13 522 (3 x 4 096 + 1 234) with
 # every slot of its rings seeded.
+# Two cells run cut in depth, so that the whole smoke keeps a margin under
+# its time limit (their full-depth cells were the longest: PERF.md keeps
+# their runs): mamba2-1.3b to 12 of 48 layers and zamba2-1.2b to 14 of 38
+# (two shared attention sites).
 TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768, {}),
             ("starcoder2-3b-tp4-r4", "starcoder2-3b", 0, (1, 4), 4096, {}),
             ("grok-1-314b-d8-tp4-r4", "grok-1-314b", 8, (1, 4), 4096, {}),
@@ -3816,8 +3841,8 @@ TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768, {}),
              4096, {}),
             ("grok-1-314b-d2-dp2-tp2-r4", "grok-1-314b", 2, (2, 2), 4096,
              {}),
-            ("mamba2-1.3b-tp4-r4", "mamba2-1.3b", 0, (1, 4), 4096, {}),
-            ("zamba2-1.2b-tp4-r4", "zamba2-1.2b", 0, (1, 4), 13522 + 17,
+            ("mamba2-1.3b-d12-tp4-r4", "mamba2-1.3b", 12, (1, 4), 4096, {}),
+            ("zamba2-1.2b-d14-tp4-r4", "zamba2-1.2b", 14, (1, 4), 13522 + 17,
              {"prompt": 4608}),
             ("seamless-m4t-large-v2-tp2-r2", "seamless-m4t-large-v2", 0,
              (1, 2), 4096, {"prompt": 512, "frames": 2048}))
@@ -4324,6 +4349,10 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
     states), and this rank's peak memory."""
     _, arch, layers, (_, model), s_max, opts = cell
     dev = torch.device(device)
+    t_in = time.perf_counter()
+    gc.collect()              # the world's cell before this one
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     cfg = tp_config(arch, layers)
     mesh = make_dev_mesh(world, model=model, device=dev,
                          group=torch.distributed.group.WORLD)
@@ -4430,6 +4459,7 @@ def tp_rank(rank, world, cell, prompt, batch, steps, gate_batch, inputs,
             route = tp_route_gate(cfg, params, gate_x[d:d + 1].to(dev), mesh,
                                   batch)
     return {"coords": mesh.coords, "init_s": init_s, "prefill_window": pre,
+            "job_s": time.perf_counter() - t_in,
             "stream_errs": stream_errs, "own_prefill": own,
             "decode_window": dec, "errs": errs, "f32": f32, "route": route,
             "prefill_routes": layer_routes(host(pre_routes), 1),
@@ -4758,7 +4788,9 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
     only its shard of the seed-0 weights. Per cell, first its yardstick on
     this process (``tp_one_process``: with a data axis, under the logical
     mesh of the same shape, where each data row is routed on its own),
-    freed, then the ranks (``tp_rank``): prefill ``data`` x ``prompt`` (a
+    each freed before the next; then one world of rank processes a world
+    size runs its cells in turn (``run_jobs``, ``tp_rank``), so that a
+    world starts once: prefill ``data`` x ``prompt`` (a
     row a data rank; n_layers B2 launches per rank, none with MLA),
     ``steps`` serve steps at ``batch`` (``batch / data`` rows a data rank)
     over the seeded cache (n_layers B4 launches a step per rank, none
@@ -4781,55 +4813,451 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
     states after the f32 step to the yardstick's slices
     (``tp_state_report``)."""
     t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="stream-")
+    wants, worlds, runs = {}, {}, {}
+    try:
+        for cell in cells:
+            name, arch, layers, (data, model), s_max, opts = cell
+            t0 = time.perf_counter()
+            cfg = tp_config(arch, layers)
+            want = tp_one_process(cfg, dev, s_max, prompt, batch, steps,
+                                  gate_batch, data, model, opts)
+            attn = (f"MLA over {cfg.n_heads} heads"
+                    if cfg.attention == "mla"
+                    else f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads in "
+                    f"{cfg.ssm.n_groups} group" if cfg.family == "ssm"
+                    else f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV "
+                    f"heads, kv_head_pad {kv_head_pad(cfg, model)}")
+            if cfg.family == "hybrid":
+                attn = (f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads; shared "
+                        f"block {attn}, window {cfg.sliding_window}")
+            experts = (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
+            log(f"[tensor ranks] {name}: {cfg.name} at full width, "
+                f"{cfg.n_layers} layers ({attn}{experts}) on a ({data}, "
+                f"{model}) mesh of {data * model} rank processes; the "
+                "yardstick " + ("under a logical mesh of that shape "
+                                if data > 1 else "")
+                + f"{time.perf_counter() - t0:.1f} s")
+            recorded = None
+            if want["stream"]:      # the forced stream, read by every rank
+                recorded = os.path.join(tmp, f"{name}.pt")
+                torch.save(want.pop("stream"), recorded)
+            wants[name] = want
+            worlds.setdefault(data * model, []).append((cell, (tp_rank, (
+                cell, prompt, batch, steps, gate_batch, want["inputs"],
+                want["gate_x"], {"prefill": want["prefill_routes"],
+                                 "steps": want["step_routes"]}, recorded),
+                {})))
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[tensor ranks] this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved as "
+            "the ranks start")
+        for world, jobs in worlds.items():
+            t0 = time.perf_counter()
+            got = spawn_ranks(run_jobs, world, [job for _, job in jobs],
+                              device=dev, timeout=900)
+            runs.update({cell[0]: [r[i] for r in got]
+                         for i, (cell, _) in enumerate(jobs)})
+            wall = time.perf_counter() - t0
+            busy = sum(max(r[i]["job_s"] for r in got)
+                       for i in range(len(jobs)))
+            log(f"[tensor ranks] {len(jobs)} cells on one world of {world} "
+                f"ranks: {wall:.1f} s, of which the cells {busy:.1f} s "
+                f"(slowest rank each) and the world's start and end "
+                f"{wall - busy:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     out = {}
     for cell in cells:
-        name, arch, layers, (data, model), s_max, opts = cell
-        t0 = time.perf_counter()
-        cfg = tp_config(arch, layers)
-        want = tp_one_process(cfg, dev, s_max, prompt, batch, steps,
-                              gate_batch, data, model, opts)
-        t1 = time.perf_counter()
-        attn = (f"MLA over {cfg.n_heads} heads" if cfg.attention == "mla"
-                else f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads in "
-                f"{cfg.ssm.n_groups} group" if cfg.family == "ssm"
-                else f"{cfg.n_heads} q heads over {cfg.n_kv_heads} KV heads, "
-                f"kv_head_pad {kv_head_pad(cfg, model)}")
-        if cfg.family == "hybrid":
-            attn = (f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads; shared "
-                    f"block {attn}, window {cfg.sliding_window}")
-        experts = (f", {cfg.moe.n_experts} experts" if cfg.moe else "")
-        log(f"[tensor ranks] {name}: {cfg.name} at full width, "
-            f"{cfg.n_layers} layers ({attn}{experts}) on a ({data}, {model}) "
-            f"mesh of {data * model} rank processes; the yardstick "
-            + ("under a logical mesh of that shape " if data > 1 else "")
-            + f"{t1 - t0:.1f} s")
-        log(f"[tensor ranks] {name}: this process holds "
-            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
-            f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved as its "
-            "ranks start")
-        tmp = tempfile.mkdtemp(prefix="stream-")
-        recorded = None
-        if want["stream"]:      # the forced stream, read by every rank
-            recorded = os.path.join(tmp, "stream.pt")
-            torch.save(want.pop("stream"), recorded)
-        try:
-            runs = spawn_ranks(tp_rank, data * model, cell, prompt, batch,
-                               steps, gate_batch, want["inputs"],
-                               want["gate_x"],
-                               {"prefill": want["prefill_routes"],
-                                "steps": want["step_routes"]}, recorded,
-                               device=dev, timeout=900)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        out[name] = tp_report(name, cfg, runs, want, prompt, batch, steps,
-                              gate_batch, opts)
-        log(f"[tensor ranks] {name}: the ranks {time.perf_counter() - t1:.1f}"
-            " s, spawning included")
-        del runs, want
-        gc.collect()
-        torch.cuda.empty_cache()
+        name, arch, layers = cell[:3]
+        out[name] = tp_report(name, tp_config(arch, layers), runs[name],
+                              wants[name], prompt, batch, steps, gate_batch,
+                              cell[5])
+        log(f"[tensor ranks] {name}: the slowest rank's cell "
+            f"{max(r['job_s'] for r in runs[name]):.1f} s")
+        del runs[name], wants[name]
     log(f"[tensor ranks] phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ------------------------------------- training on a model axis of ranks
+
+# (name, layers (0: all), (data, model), compute dtype, rows a data rank,
+# warm-up steps, timed steps)
+TRAIN_TP_CELLS = (
+    ("starcoder2-3b-train-tp4-r4", 0, (1, 4), "bfloat16", 1, 1, 2),
+    ("starcoder2-3b-d4-train-dp2-tp2-r4", 4, (2, 2), "float32", 1, 1, 1))
+# The ranked step against one process on the same weights and batch. In
+# f32 the ranks change only the order of f32 sums (partials over ranks,
+# the data group's gradient sum, |g|² per rank): the losses to 1e-5 and
+# |g| to 1e-4 relative, the chip's counterparts of the CPU test's 1e-6 and
+# 1e-5 at full width and 64x the tokens. In bf16 compute each rank
+# rounds its own products to bf16 (its columns, its partial input
+# gradients before their f32 sum), which one process rounds once over all
+# columns: the first step's loss to 1e-2 and |g| to 5e-2 relative.
+TP_TRAIN_LOSS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+TP_TRAIN_NORM_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+def tp_train_config(layers: int, compute: str):
+    """starcoder2-3b at full width, its first ``layers`` layers (0: all 30),
+    in ``compute``."""
+    cfg = get_config("starcoder2-3b")
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                               compute_dtype=compute)
+
+
+def tp_train_batch(cfg, rows: int, seq: int) -> dict:
+    """``SyntheticLM``'s learnable batch 0 of ``rows`` x ``seq`` (on the
+    CPU), every fifth label of row 0 masked: data rank 0 keeps fewer labels
+    than the others."""
+    return train_batch(cfg, 0, seq, rows, "cpu", seed=0, learnable=True)
+
+
+def tp_train_one_process(cfg, dev, batch: dict, warmup: int, steps: int,
+                         lr: float, keep: str = None) -> dict:
+    """The one-process ``make_train_step`` from seed 0 on ``batch`` every
+    step: losses, |g|, ms a step after ``warmup`` (host clock, synchronised)
+    and the peak; with ``keep``, the parameters and AdamW's m (0.1 g) after
+    the first step saved there (on the host) for the ranks to read their
+    boxes of."""
+    t_in, save_s = time.perf_counter(), 0.0
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr=lr)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    losses, norms = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for s in range(warmup + steps):
+        if s == warmup:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if s == 0 and keep:
+            t_save = time.perf_counter()
+            torch.save({"after": tree_map(lambda t: t.cpu(), params),
+                        "m": tree_map(lambda t: t.cpu(), opt.m)}, keep)
+            save_s = time.perf_counter() - t_save
+    torch.cuda.synchronize(dev)
+    out = {"losses": losses, "norms": norms,
+           "ms": 1e3 * (time.perf_counter() - t0) / steps,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "s": time.perf_counter() - t_in, "save_s": save_s}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+ADAMW_EPS = 1e-8           # train/optimizer.py's adamw_update
+# The f32 cell's gradient boxes against one process's, of the leaf's max.
+# On an H100 a sound step reads 7.351e-6 at most (embed), the same to the
+# last digit in each of three runs (fixed shapes, seeds, sum orders); the
+# subtlest fault planted by ``scripts/torch_train_ranks.py --plant``
+# (f's sum taken on bf16-rounded gradients) reads 2.9e-3.
+TP_GRAD_TOL = 1e-5
+
+
+def tp_update_gate(cfg, mesh, params, m, keep: str, lr: float) -> dict:
+    """This rank's first step against its boxes of the one-process step
+    saved in ``keep``. (a) Its gradient of every leaf (AdamW's m after the
+    first step, 0.1 g) within TP_GRAD_TOL of the box's max|m|. (b) Its
+    parameters after the step within lr / 1000 of the one-process ones for
+    every weight whose update a gradient error within (a) cannot turn by
+    more: AdamW's first step moves a weight by lr·g/(|g| + eps), which an
+    error δ turns by up to lr·eps·δ/(|g| + eps)², so (b) holds the weights
+    with (|g| + eps)² >= 1e3·eps·δ, δ = TP_GRAD_TOL·max|g| (and |g| > 1e-5
+    max|g|, the rule of ``tests/test_torch_pipeline_ranks.py``). The
+    weights that rule alone would hold that differ by more than lr / 1000
+    are counted (``near_eps``)."""
+    whole = torch.load(keep, mmap=True)
+    after, m1 = dict(leaf_paths(whole["after"])), dict(leaf_paths(whole["m"]))
+    boxes = shard_boxes(cfg, tfm.abstract_params(cfg), mesh)
+    mine = dict(leaf_paths(m))
+    tol = lr * 1e-3
+    grad, worst, held, over = (0.0, ""), (0.0, ""), 0, 0
+    for name, p in leaf_paths(params):
+        w = after[name][boxes[name]].to(p.device)
+        want = m1[name][boxes[name]].to(p.device)
+        top = float(want.abs().max())
+        grad = max(grad, (float((mine[name] - want).abs().max())
+                          / max(top, 1e-30), name))
+        g = want.abs() / 0.1
+        moved = g > 1e-5 * g.max()
+        diff = (p - w).abs()
+        over += int(((diff > tol) & moved).sum())
+        sure = moved & ((g + ADAMW_EPS) ** 2
+                        >= 1e3 * ADAMW_EPS * TP_GRAD_TOL * g.max())
+        held += int(sure.sum())
+        if sure.any():
+            worst = max(worst, (float((diff * sure).max()), name))
+    return {"grad_err": grad[0], "grad_leaf": grad[1], "err": worst[0],
+            "leaf": worst[1], "held": held, "near_eps": over, "tol": tol}
+
+
+def tp_replicas_equal(cfg, mesh, params) -> tuple:
+    """(whether every rank of this rank's model line that holds the same
+    box of a leaf holds the same bits, the leaves compared): each leaf that
+    several ranks of a line hold (the KV heads of ``kv_head_pad``, the
+    replicated norms) gathered over the model group."""
+    like = tfm.abstract_params(cfg)
+    shared = sorted({name for c in range(mesh.shape["model"])
+                     for name, h in box_holders(cfg, like, mesh, c).items()
+                     if len(h) > 1})
+    mine = box_holders(cfg, like, mesh)
+    own = dict(leaf_paths(params))
+    same = True
+    for name in shared:
+        parts = mesh.transport.all_gather(own[name], mesh.groups["model"])
+        same &= all(torch.equal(parts[c], own[name]) for c in mine[name])
+    return same, shared
+
+
+def tp_train_rank(rank, world, cell, batch, lr, keep, *, device):
+    """One rank of a ranked train cell (a job of ``run_jobs``: the
+    world's cells run in turn): its shard of the seed-0 weights
+    (``init_shard_params``) and AdamW's state, ``make_train_step(cfg,
+    mesh=)`` on ``batch`` (the global batch) every step; the first step's
+    update against the one-process one where ``keep`` is given; the timed
+    steps between barriers (``rank_window``): the wall, the all-reduce,
+    gather and busy ms, the bytes sent each peer by kind, the kernels
+    launched, the peak; then the replicas compared bit for bit."""
+    name, layers, (data, model), compute, rows, warmup, steps = cell
+    dev = torch.device(device)
+    t_in = time.perf_counter()
+    gc.collect()              # the world's cell before this one
+    torch.cuda.empty_cache()
+    cfg = tp_train_config(layers, compute)
+    mesh = make_dev_mesh(world, model, dev,
+                         group=torch.distributed.group.WORLD)
+    params = init_shard_params(cfg, mesh, seed=0, device=dev)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr=lr, mesh=mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.empty_cache()
+    t_ready = time.perf_counter()
+    losses, norms, update, gate_s = [], [], None, 0.0
+    for s in range(warmup + steps):
+        if s == warmup:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = rank_window(mesh, dev)
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if s == 0 and keep:
+            t_gate = time.perf_counter()
+            update = tp_update_gate(cfg, mesh, params, opt.m, keep, lr)
+            gate_s = time.perf_counter() - t_gate
+    out = rank_window_end(mesh, dev, t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    net = mesh.transport
+    same, shared = tp_replicas_equal(cfg, mesh, params)
+    return {**out, "coords": mesh.coords, "losses": losses, "norms": norms,
+            "steps": steps, "update": update, "peak_gb": peak,
+            "setup_s": t_ready - t_in, "gate_s": gate_s,
+            "warmup_s": t0 - t_ready - gate_s,
+            "job_s": time.perf_counter() - t_in,
+            "reduce_ms": sum(net.ms.get(k, 0.0) for k in (
+                "reduce", "grad", "replica", "scalar")),
+            "gather_ms": net.ms["gather"], "replicas_equal": same,
+            "shared": shared}
+
+
+def tp_train_bytes(cfg, coords: dict, mesh_shape, rows: int, seq: int,
+                   runs) -> dict:
+    """The bytes the rank at ``coords`` sends each peer in one ranked train
+    step, by kind: to each other rank of its model line (``reduce``) the
+    embedding's all-reduce, each layer's two forward all-reduces, the
+    attention's again in the recomputed block (remat full stops
+    recomputing at the last tensor the backward saved, before the FFN's)
+    and the attention's and the FFN's input gradients (Megatron's f), and
+    the head's input gradient, [rows·seq, d_model] f32 each; its logits
+    [rows·seq, V / model] in the compute dtype (``gather``); to the other
+    holders of a KV head its wk and wv gradients in f32 (``replica``); to
+    its data peer every gradient of its shard in f32 (``grad``); |g|² to
+    the model peers and the loss to the data peer (``scalar``)."""
+    data, model = mesh_shape
+    at = {tuple(r["coords"].values()): i for i, r in enumerate(runs)}
+    d, c = coords["data"], coords["model"]
+    t = rows * seq
+    mesh = SimpleNamespace(shape={"data": data, "model": model},
+                           coords=coords)
+    shard = dict(leaf_paths(shard_tree(cfg, tfm.abstract_params(cfg),
+                                       mesh)))
+    want = {k: [0] * len(runs) for k in ("p2p", "reduce", "gather",
+                                         "scalar")}
+    for m in range(model):
+        if m != c:
+            p = at[(d, m)]
+            want["reduce"][p] = (1 + 5 * cfg.n_layers + 1) * t \
+                * cfg.d_model * 4
+            want["gather"][p] = t * cfg.vocab_size // model \
+                * tfm.dtype_of(cfg.compute_dtype).itemsize
+            want["scalar"][p] = 4
+    for name, holders in replica_leaves(cfg, mesh).items():
+        for m in holders:
+            if m != c:
+                want.setdefault("replica", [0] * len(runs))
+                want["replica"][at[(d, m)]] += shard[name].numel() * 4
+    for e in range(data):
+        if e != d:
+            want.setdefault("grad", [0] * len(runs))[at[(e, c)]] = sum(
+                t.numel() * 4 for t in shard.values())
+            want["scalar"][at[(e, c)]] = 4
+    return want
+
+
+def phase_train_ranks(dev, cells=TRAIN_TP_CELLS, seq=2048, lr=3e-4) -> dict:
+    """Training with a model axis on rank processes that share the card
+    (``make_train_step(cfg, mesh=)`` on ``make_dev_mesh(n, model,
+    group=)``; ``dist.tensor_parallel``'s collectives with their backward,
+    through gloo over pinned host buffers). Each cell trains starcoder2-3b
+    at full width (cut in depth where the cell says), f32 parameters and
+    AdamW, remat full, on ``SyntheticLM``'s learnable batch 0 of ``data``
+    x ``rows`` x ``seq`` every step (one batch, so that the loss must
+    fall), each rank drawing only its shard of the seed-0 weights and
+    holding only its shard of AdamW's moments. First every cell's
+    yardstick, the one-process step on the same weights and batch, each
+    freed before the next; then one world of ranks a world size runs the
+    cells in turn: ``warmup`` steps, then ``steps`` timed between
+    barriers. Gates: no B1-B4 launch in a step on any rank; the first
+    step's loss and |g| against one process's (TP_TRAIN_LOSS_TOL,
+    TP_TRAIN_NORM_TOL; in f32 every step's); the loss falling from step to
+    step; the bytes each rank sends each peer by kind equal their formula
+    (``tp_train_bytes``); the ranks that hold the same box of a leaf hold
+    the same bits after the steps (``tp_replicas_equal``); in f32 the
+    first step held to the one-process step's boxes
+    (``tp_update_gate``). Reports per cell ms a step (slowest rank) and
+    tok/s beside one process's, and per rank its all-reduce and gather ms
+    and share of the wall, busy ms and peak."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train-ranks-")
+    ones, worlds = {}, {}
+    try:
+        for cell in cells:
+            name, layers, (data, model), compute, rows, warmup, steps = cell
+            t0 = time.perf_counter()
+            cfg = tp_train_config(layers, compute)
+            batch = tp_train_batch(cfg, data * rows, seq)
+            keep = (os.path.join(tmp, f"{name}.pt") if compute == "float32"
+                    else None)
+            ones[name] = tp_train_one_process(cfg, dev, batch, warmup, steps,
+                                              lr, keep)
+            log(f"[train ranks] {name}: {cfg.name} at full width, "
+                f"{cfg.n_layers} layers, {compute} compute, on a ({data}, "
+                f"{model}) mesh of {data * model} rank processes, "
+                f"kv_head_pad {kv_head_pad(cfg, model)}; the yardstick "
+                f"{time.perf_counter() - t0:.1f} s, peak "
+                f"{ones[name]['peak_gb']:.2f} GB")
+            worlds.setdefault(data * model, []).append(
+                (cell, (tp_train_rank, (cell, batch, lr, keep), {})))
+        log(f"[train ranks] this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB as the ranks "
+            "start")
+        runs = {}
+        for world, jobs in worlds.items():
+            t0 = time.perf_counter()
+            got = spawn_ranks(run_jobs, world, [job for _, job in jobs],
+                              device=dev, timeout=900)
+            runs.update({cell[0]: [r[i] for r in got]
+                         for i, (cell, _) in enumerate(jobs)})
+            wall = time.perf_counter() - t0
+            busy = sum(max(r[i]["job_s"] for r in got)
+                       for i in range(len(jobs)))
+            log(f"[train ranks] {len(jobs)} cells on one world of {world} "
+                f"ranks: {wall:.1f} s, of which the cells {busy:.1f} s "
+                f"(slowest rank each) and the world's start and end "
+                f"{wall - busy:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {}
+    for cell in cells:
+        cfg = tp_train_config(cell[1], cell[3])
+        out[cell[0]] = tp_train_report(cell[0], cfg, cell, runs[cell[0]],
+                                       ones[cell[0]], seq)
+    log(f"[train ranks] phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
+                    ) -> dict:
+    """Print a ranked train cell's numbers and hold its gates
+    (``phase_train_ranks``); returns each rank's launches, ms a step (the
+    slowest rank's) beside one process's, each rank's peak and all-reduce
+    share of its wall."""
+    _, _, (data, model), compute, rows, warmup, steps = cell
+    tokens = data * rows * seq
+    wall = max(r["wall_ms"] for r in runs) / steps
+    log(f"[train ranks] {name}: {wall:.1f} ms a step (host clock between "
+        f"barriers, slowest rank, {steps} steps after {warmup}), "
+        f"{tokens / wall * 1e3:.0f} tok/s; one process {one['ms']:.1f} ms, "
+        f"{tokens / one['ms'] * 1e3:.0f} tok/s; the ranks' peaks "
+        f"{[round(r['peak_gb'], 2) for r in runs]} GB, "
+        f"{sum(r['peak_gb'] for r in runs):.2f} GB in all [{card()}]")
+    log(f"[train ranks]   losses {runs[0]['losses']} vs one process "
+        f"{one['losses']}; |g| {runs[0]['norms']} vs {one['norms']}")
+    slow = max(runs, key=lambda r: r["job_s"])
+    log(f"[train ranks]   slowest rank's {slow['job_s']:.1f} s: set-up "
+        f"(weights, AdamW state) {slow['setup_s']:.1f} s, warm-up "
+        f"{slow['warmup_s']:.1f} s, first-update gate {slow['gate_s']:.1f} "
+        f"s, timed steps {slow['wall_ms'] / 1e3:.1f} s; the yardstick "
+        f"{one['s']:.1f} s (saving its first step {one['save_s']:.1f} s)")
+    failed = []
+    loss_tol, norm_tol = TP_TRAIN_LOSS_TOL[compute], TP_TRAIN_NORM_TOL[compute]
+    gated = len(one["losses"]) if compute == "float32" else 1
+    for r in runs:
+        n = r["steps"]
+        per = {k: [b // n for b in v] for k, v in r["bytes"].items()}
+        want = tp_train_bytes(cfg, r["coords"], (data, model), rows, seq,
+                              runs)
+        log(f"[train ranks]   rank {r['coords']}: peak {r['peak_gb']:.2f} "
+            f"GB; all-reduces {r['reduce_ms'] / n:.1f} ms a step "
+            f"({r['reduce_ms'] / r['wall_ms']:.1%} of its wall), gathers "
+            f"{r['gather_ms'] / n:.1f} ms ({r['gather_ms'] / r['wall_ms']:.1%}"
+            f"), busy {r['busy_ms'] / n:.1f} ms a step (CUDA events between "
+            f"exchanges); bytes a step to each peer {per} (formula {want}); "
+            f"kernel launches {r['launches']}; replicas of "
+            f"{len(r['shared'])} leaves bit for bit: {r['replicas_equal']}")
+        if r["update"] is not None:
+            u = r["update"]
+            log(f"[train ranks]   rank {r['coords']}: first step against "
+                f"one process's boxes: gradients within {u['grad_err']:.3e}"
+                f" of a leaf's max ({u['grad_leaf']}; tol {TP_GRAD_TOL:.0e})"
+                f"; update worst {u['err']:.3e} ({u['leaf']}; tol "
+                f"{u['tol']:.0e}) over the {u['held']} weights it cannot "
+                f"turn; {u['near_eps']} weights the 1e-5-of-max rule alone "
+                f"holds differ by more")
+            if u["err"] > u["tol"] or u["grad_err"] > TP_GRAD_TOL:
+                failed.append(f"{name}: rank {r['coords']} first step {u}")
+        if any(r["launches"].values()):
+            failed.append(f"{name}: rank {r['coords']} launched "
+                          f"{r['launches']} in a step")
+        for i in range(gated):
+            if abs(r["losses"][i] - one["losses"][i]) > loss_tol \
+                    * abs(one["losses"][i]) or abs(
+                        r["norms"][i] - one["norms"][i]) > norm_tol \
+                    * one["norms"][i]:
+                failed.append(f"{name}: rank {r['coords']} step {i} loss "
+                              f"{r['losses'][i]} |g| {r['norms'][i]} vs one "
+                              f"process {one['losses'][i]} "
+                              f"{one['norms'][i]}")
+        if not all(a > b for a, b in zip(r["losses"], r["losses"][1:])):
+            failed.append(f"{name}: rank {r['coords']} losses "
+                          f"{r['losses']} do not fall")
+        if per != want or any(b % n for v in r["bytes"].values()
+                              for b in v):
+            failed.append(f"{name}: rank {r['coords']} bytes {per} a step, "
+                          f"formula {want}")
+        if not r["replicas_equal"]:
+            failed.append(f"{name}: rank {r['coords']} replicas differ")
+    check(not failed, "; ".join(failed))
+    return {"launches": [r["launches"] for r in runs], "ms": wall,
+            "one_ms": one["ms"], "peak_gb": [r["peak_gb"] for r in runs],
+            "reduce_share": [r["reduce_ms"] / r["wall_ms"] for r in runs]}
 
 
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
@@ -5039,6 +5467,14 @@ def phase_time_decode(dev, cell=DECODE_CELL,
                                           "bfloat16"]}
 
 
+def timed(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, its wall time logged (``[time]``)."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5050,59 +5486,62 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build()
-    phase_kernel_vs_plain(dev)
-    phase_attention_vs_plain(dev)
-    phase_ssd_vs_plain(dev)
-    phase_decode_vs_plain(dev)
+    timed(phase_build)
+    timed(phase_kernel_vs_plain, dev)
+    timed(phase_attention_vs_plain, dev)
+    timed(phase_ssd_vs_plain, dev)
+    timed(phase_decode_vs_plain, dev)
     torch.cuda.empty_cache()
-    chol = phase_cholesky(dev)
+    chol = timed(phase_cholesky, dev)
     torch.cuda.empty_cache()
-    host = phase_host_runtime(dev, chol["L"])
+    host = timed(phase_host_runtime, dev, chol["L"])
     torch.cuda.empty_cache()
-    sched = phase_scheduler(dev)
+    sched = timed(phase_scheduler, dev)
     torch.cuda.empty_cache()
-    gemm = phase_gemm(dev)
+    gemm = timed(phase_gemm, dev)
     torch.cuda.empty_cache()
-    chain = phase_attention_chain(dev)
+    chain = timed(phase_attention_chain, dev)
     torch.cuda.empty_cache()
-    ranks = phase_ranks(dev, chol, gemm, chain)
+    ranks = timed(phase_ranks, dev, chol, gemm, chain)
     for phase in (chol, gemm, chain):
         for key in ("L", "L_unrolled", "C", "x"):
             phase.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
-    model = phase_mamba2(dev)
+    model = timed(phase_mamba2, dev)
     torch.cuda.empty_cache()
-    dense = phase_dense(dev)
+    dense = timed(phase_dense, dev)
     torch.cuda.empty_cache()
-    hybrid = phase_hybrid(dev)
+    hybrid = timed(phase_hybrid, dev)
     torch.cuda.empty_cache()
-    encdec = phase_encdec(dev)
+    encdec = timed(phase_encdec, dev)
     torch.cuda.empty_cache()
-    vlm = phase_vlm(dev)
+    vlm = timed(phase_vlm, dev)
     torch.cuda.empty_cache()
-    grok = phase_moe_grok(dev)
+    grok = timed(phase_moe_grok, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    deepseek = phase_moe_deepseek(dev)
+    deepseek = timed(phase_moe_deepseek, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train(dev)
+    train = timed(phase_train, dev)
     torch.cuda.empty_cache()
-    pipe = phase_pipeline(dev, train)
+    pipe = timed(phase_pipeline, dev, train)
     gc.collect()
     torch.cuda.empty_cache()
-    pipe_ranks = phase_pipeline_ranks(dev, pipe)
+    pipe_ranks = timed(phase_pipeline_ranks, dev, pipe)
     ranks["starcoder2-3b-pipe2-r2 forward"] = pipe_ranks["forward_b2"]
     gc.collect()
     torch.cuda.empty_cache()
-    tensor_ranks = phase_tensor_ranks(dev)
+    tensor_ranks = timed(phase_tensor_ranks, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    times = phase_yardstick(dev, chol["max_batch"], gemm["max_batch"])
-    attn_times = phase_time_attention(dev, chain["seq"], chain["dim"])
-    ssd_time = phase_time_ssd(dev, model["shape"])
+    train_ranks = timed(phase_train_ranks, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = timed(phase_yardstick, dev, chol["max_batch"], gemm["max_batch"])
+    attn_times = timed(phase_time_attention, dev, chain["seq"], chain["dim"])
+    ssd_time = timed(phase_time_ssd, dev, model["shape"])
     z = get_config("zamba2-1.2b")
     zamba_ssd = phase_time_ssd(dev, [2, 8192, z.ssm.n_heads(z.d_model),
                                      z.ssm.head_dim, z.ssm.n_groups,
@@ -5111,7 +5550,7 @@ def main() -> int:
     shard_ssd = phase_time_ssd(dev, [1, 2048, m.n_heads(2048) // 4,
                                      m.head_dim, m.n_groups, m.d_state],
                                "mamba2-1.3b tp4 shard", False)
-    decode_time = phase_time_decode(dev)
+    decode_time = timed(phase_time_decode, dev)
     decode_rows = {name: phase_time_decode(dev, cell, name) for name, cell in (
         ("zamba2 ring", (8, 32, 32, 4096, 64)),
         ("seamless cross", (4, 16, 16, 2048, 64)),
@@ -5201,6 +5640,9 @@ def main() -> int:
                 r[name] for r in pipe_ranks["r4_launches"]]},
         "ranks_launches": {cell: ranks[cell]
                            for cell in RANK_CELLS.get(name, ())},
+        "tensor_ranks_train_launches": {
+            cell: [r[name] for r in got["launches"]]
+            for cell, got in train_ranks.items()},
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -4,7 +4,11 @@ registry; ``--pipeline STAGES`` trains the dense family stage-parallel
 (``repro_torch.dist.pipeline``) on a logical ("pipe", "data", "model")
 mesh of the one device, and with ``--ranks N`` on N rank processes (a
 (STAGES, N / STAGES, 1) mesh: one process per stage and data replica,
-each holding and checkpointing its own stage's leaves).
+each holding and checkpointing its own stage's leaves). ``--ranks N``
+without ``--pipeline`` trains the dense or vlm family tensor-parallel on
+a (N / model, model) ("data", "model") mesh of N rank processes, model =
+min(4, N) (``dist.tensor_parallel``: each rank holds, trains and
+checkpoints its shard of the parameters and of the AdamW state).
 
 The port's counterpart of ``examples/train_lm.py``. Defaults train a
 reduced config on a *learnable* synthetic task (arithmetic progressions
@@ -18,6 +22,8 @@ config and --data for a packed uint32 token file. On ``cuda`` unless
       --pipeline 2 --layers 4 --device cpu
   PYTHONPATH=src python examples/torch_train_lm.py --arch starcoder2-3b \
       --pipeline 2 --ranks 4 --layers 4 --device cpu
+  PYTHONPATH=src python examples/torch_train_lm.py --arch starcoder2-3b \
+      --ranks 4 --device cpu
 """
 
 import argparse
@@ -28,8 +34,9 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.ranks import spawn_ranks
-from repro_torch.launch.mesh import make_pipeline_mesh
+from repro_torch.launch.mesh import make_dev_mesh, make_pipeline_mesh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import PackedBinaryDataset, SyntheticLM
 from repro_torch.train.optimizer import make_optimizer
@@ -55,7 +62,8 @@ def main(argv=None):
     ap.add_argument("--d-ff", type=int, default=None)
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES")
     ap.add_argument("--ranks", type=int, default=0, metavar="N",
-                    help="with --pipeline: N rank processes")
+                    help="N rank processes: the pipelined mesh with "
+                         "--pipeline, else a ('data', 'model') mesh")
     ap.add_argument("--data", default=None, help="packed uint32 token file")
     ap.add_argument("--ckpt-dir", default="ckpt/train_lm")
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -83,7 +91,7 @@ def main(argv=None):
           f"(active {cfg.n_active_params() / 1e6:.1f}M) opt={cfg.optimizer} "
           f"on {device}")
     if args.ranks:
-        if args.pipeline < 1 or args.ranks % args.pipeline:
+        if args.pipeline and args.ranks % args.pipeline:
             raise SystemExit("--ranks N needs --pipeline STAGES dividing N")
         spawn_ranks(train, args.ranks, args, cfg, device=device,
                     timeout=24 * 3600.0)
@@ -97,7 +105,10 @@ def train(rank, world, args, cfg, *, device, ranks=True):
     device = torch.device(device)
     lead = rank == 0
     mesh = None
-    if args.pipeline > 1 or ranks:
+    tensor = ranks and args.pipeline < 1     # the model axis on ranks
+    if tensor:
+        mesh = make_dev_mesh(world, device=device, group=dist.group.WORLD)
+    elif args.pipeline > 1 or ranks:
         mesh = make_pipeline_mesh(args.pipeline, world if ranks
                                   else args.pipeline, device,
                                   group=dist.group.WORLD if ranks else None)
@@ -111,11 +122,22 @@ def train(rank, world, args, cfg, *, device, ranks=True):
     init_opt, _ = make_optimizer(cfg.optimizer)
     like = abstract_params(cfg)
     like = {"params": like, "opt": init_opt(like)}
-    own = pipeline_shard(cfg, like, mesh) if ranks else like
-    rows = pipeline_rows(cfg, own, mesh) if ranks else None
+    own, rows, writes = like, None, True
+    if tensor:
+        own, rows = tp.shard_tree(cfg, like, mesh), tp.shard_boxes(
+            cfg, like, mesh)
+        writes = tp.owned(cfg, like, mesh) if mesh.coords["data"] == 0 \
+            else False
+    elif ranks:
+        own = pipeline_shard(cfg, like, mesh)
+        rows = pipeline_rows(cfg, own, mesh)
+        writes = mesh.coords["data"] == 0
     start = 0
     latest = ckpt.latest_step(args.ckpt_dir)
-    if latest is None and ranks:
+    if latest is None and tensor:
+        params = tp.init_shard_params(cfg, mesh, seed=0, device=device)
+        opt_state = init_opt(params)
+    elif latest is None and ranks:
         params = pipeline_shard(cfg, init_params(cfg, seed=0, device=device),
                                 mesh)
         opt_state = init_opt(params)
@@ -129,7 +151,12 @@ def train(rank, world, args, cfg, *, device, ranks=True):
         params, opt_state = state["params"], state["opt"]
         start = latest + 1
 
-    if mesh is not None:
+    if tensor:
+        step_fn = make_train_step(cfg, lr=args.lr, mesh=mesh)
+        if lead:
+            print(f"tensor parallel: mesh {mesh.shape} on {world} rank "
+                  "processes")
+    elif mesh is not None:
         step_fn = make_pipeline_train_step(cfg, mesh, lr=args.lr,
                                            n_micro=2 * args.pipeline)
         if lead:
@@ -140,7 +167,7 @@ def train(rank, world, args, cfg, *, device, ranks=True):
         step_fn = make_train_step(cfg, lr=args.lr)
     saver = (ckpt.RankCheckpointer(args.ckpt_dir, keep=2, like=like,
                                    rows=rows, group=mesh.group,
-                                   writes=mesh.coords["data"] == 0)
+                                   writes=writes)
              if ranks else ckpt.AsyncCheckpointer(args.ckpt_dir, keep=2))
 
     t0 = time.perf_counter()

@@ -35,8 +35,10 @@ one before it, in the backward only on the one after it, and a stage
 enters its backward after its last forward send has been issued. The
 last stage alone holds the outputs (the reference ``psum``s them onto
 every stage). A mesh of ranks with a model axis > 1 refuses
-(``refuse_model_axis``): the tensor-parallel collectives have no backward
-yet (ROADMAP A8d6).
+(``refuse_model_axis``): the reference's pipelined launcher runs with a
+model axis of 1, and its ``pipeline_apply`` replicates a stage over
+"model"; tensor-parallel training on ranks is the non-pipelined step's
+(``train_step.make_train_step(cfg, mesh=)``).
 """
 
 from __future__ import annotations
@@ -160,14 +162,16 @@ def _per_stage(stage_params: Any, n_stages: int) -> List[Any]:
 
 def refuse_model_axis(mesh) -> None:
     """Raise ``ValueError`` on a mesh of ranks whose ``"model"`` axis is
-    > 1: training with a model axis on ranks is ROADMAP A8d6 (the
-    backward of the tensor-parallel collectives)."""
+    > 1: the reference's pipelined launcher builds its ("pipe", "data",
+    "model") mesh with a model axis of 1, so the pipelined trainer runs
+    the pipe and data axes on ranks only (a model axis trains on ranks
+    without the pipeline: ``make_train_step(cfg, mesh=)``)."""
     if mesh.group is not None and mesh.shape.get("model", 1) > 1:
         raise ValueError(
             f"model axis {mesh.shape['model']} on ranks: the pipelined "
-            "trainer runs the pipe and data axes on ranks; training with a "
-            "model axis (the backward of the tensor-parallel collectives) "
-            "is ROADMAP A8d6")
+            "trainer runs the pipe and data axes on ranks, as the "
+            "reference's pipelined launcher runs with model axis 1; train "
+            "a model axis on ranks without --pipeline")
 
 
 def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],

@@ -217,9 +217,11 @@ class _Staged:
         self.stage_ms = 0.0
 
     def _count(self, kind: str, peers, nbytes: int) -> None:
+        sent = self.bytes.setdefault(kind, [0] * self.world)
+        msgs = self.msgs.setdefault(kind, [0] * self.world)
         for p in peers:
-            self.bytes[kind][p] += nbytes
-            self.msgs[kind][p] += 1
+            sent[p] += nbytes
+            msgs[p] += 1
 
     def _drain(self) -> float:
         """Wait for the rank's stream; returns the host clock."""
@@ -354,7 +356,9 @@ class TensorTransport(_Staged):
     member: what a pair exchanges; broadcasts count as ``"p2p"`` from
     their source); ``"gather"``, the all-gathers (the rank's own tensor's
     bytes to each other member); ``"scalar"``, any message of one
-    element. ``ms[kind]``
+    element. An all-reduce may name a kind of its own (the ranked train
+    step's ``"grad"`` and ``"replica"``), counted from its first use.
+    ``ms[kind]``
     is the host time spent in each kind, waits for the peers included,
     after the stream has drained. :meth:`busy_ms` is the time the rank's
     stream spent between exchanges (CUDA events; the host clock on the
@@ -388,7 +392,8 @@ class TensorTransport(_Staged):
         return self._drain()
 
     def _leave(self, kind: str, t0: float) -> None:
-        self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+        self.ms[kind] = self.ms.get(kind, 0.0) \
+            + 1e3 * (time.perf_counter() - t0)
         self._mark = self._now()
 
     def busy_ms(self) -> float:
@@ -438,8 +443,10 @@ class TensorTransport(_Staged):
         self._leave(self._kind(host, "p2p"), t0)
         return out
 
-    def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
-        """Sum the f32 tensor ``t`` over ``group``, in place; returns it."""
+    def all_reduce(self, t: torch.Tensor, group, kind: str = "reduce"
+                   ) -> torch.Tensor:
+        """Sum the f32 tensor ``t`` over ``group``, in place; returns it.
+        Its bytes count under ``kind`` (one element: ``"scalar"``)."""
         if t.dtype != torch.float32:
             raise TypeError(f"all_reduce takes f32 only (every reduction "
                             f"stays in f32), got {t.dtype}")
@@ -450,7 +457,7 @@ class TensorTransport(_Staged):
         host = self.stage_out(t)
         dist.all_reduce(host, group=group)
         self.stage_in(host, into=t)
-        kind = self._kind(t, "reduce")
+        kind = self._kind(t, kind)
         self._count(kind, [p for p in members if p != dist.get_rank()],
                     host.nbytes)
         self._leave(kind, t0)

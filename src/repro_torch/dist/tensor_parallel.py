@@ -1,7 +1,8 @@
 """Tensor parallelism on rank processes: the ``"model"`` axis of a mesh of
 ranks (``launch.mesh.Mesh(..., group=)``) for serving every family: dense,
 vlm and moe (GQA or MLA attention), ssm (Mamba-2), hybrid (Mamba-2 with
-the shared attention block) and encdec (cross-attention).
+the shared attention block) and encdec (cross-attention); and for training
+the dense and vlm families.
 
 The JAX package has no counterpart: its launchers place the weights and
 the decode cache by ``param_specs``/``cache_specs`` on a mesh of devices
@@ -14,10 +15,13 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
   ``wkv_b``, ``w_gate``, ``w_in``, the shared experts' ``shared_w_gate``
   and ``shared_w_in``, Mamba-2's ``w_in``, and ``lm_head`` or a tied
   ``embed.T`` on the vocabulary) take their replicated input as it is:
-  the identity;
+  the identity in the forward, and where training reaches them
+  (attention, the dense FFN, the head) through :func:`copy_to_model`,
+  whose backward sums the input's gradient over the group (Megatron's f);
 - a row-parallel product (``wo``, the cross-attention's ``wo``,
   ``w_out``, ``shared_w_out``, Mamba-2's ``w_out``) gives each rank a
-  partial sum, all-reduced by :func:`row_product`;
+  partial sum, all-reduced by :func:`row_product` (Megatron's g: its
+  backward is the identity);
 - Mamba-2's gated RMSNorm normalises over the whole d_inner, which the
   heads split: :func:`group_rms_norm` sums each rank's f32 squares over
   the model group (one [T, 1] all-reduce) and divides by the whole width;
@@ -30,9 +34,11 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
   experts' partial in the same collective;
 - the vocab-sharded ``embed`` is looked up by :func:`vocab_embed`: each
   rank takes the rows of the tokens in its range, zeros elsewhere, and an
-  all-reduce sums them (exact: one term is nonzero);
+  all-reduce sums them (exact: one term is nonzero); under grad each
+  token's gradient lands in the rank's own rows;
 - the vocab-sharded logits are gathered by :func:`vocab_gather` (greedy
-  argmax and the returned ``[B, V]`` read all of them).
+  argmax, the returned ``[B, V]`` and the loss read all of them); under
+  grad each rank takes its own slice of the gathered gradient.
 
 With no mesh of ranks with a model axis > 1 in the context every one of
 them is the identity (the group norm the plain ``rms_norm``), so the
@@ -94,26 +100,41 @@ of column boxes for Mamba-2's packed leaves) from the one seeded generator
 grok-1-314b is 25.8 GB in bf16): the values are bit for bit the slices of
 ``init_params(cfg, seed=seed)``.
 
+Training. Every rank computes the whole loss from the gathered logits,
+so the gradient of every replicated activation is whole on every rank,
+and each sharded weight's gradient is its own slice of the one-process
+gradient. A leaf that several ranks of a model line hold and that the
+sharded region reads (:func:`box_holders`; qwen3's ``q_norm``/``k_norm``
+on head-sharded q and k, a KV head replicated ``kv_head_pad`` times) gets
+on each rank the gradient of that rank's heads only: the trainer
+(``train.train_step``) sums it over its holders. All sums stay in f32 (or
+wider), in the backward as in the forward. Under ``remat`` the
+checkpointed blocks run their forward collectives again in the backward,
+on every rank in the same order.
+
 What a model axis on ranks does not run raises ``ValueError`` naming its
 ROADMAP item (:func:`check_tp`): a vocabulary the axis does not divide
-(the d_model-sharded embedding and head, A8d5b); under grad the
-collectives raise (training with a model axis, A8d6).
+(the d_model-sharded embedding and head, A8d5b). Under grad
+:func:`group_rms_norm` (ssm, hybrid: A8d6c) and :func:`sum_partials` (moe:
+A8d6b) raise: they have no backward yet.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, List, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..models.layers import rms_norm, take_box
+from ..train.tree import leaf_paths, unflatten
 from .ctx import get_mesh
 from .sharding import (P, cache_specs, kv_head_pad, map_tree, param_specs,
                        sanitize_specs)
 
-TRAINING = ("training with a model axis on ranks (the backward of the "
-            "tensor-parallel collectives) is ROADMAP A8d6")
+TRAINING = ("training {families} with a model axis on ranks (the backward "
+            "of {what}) is ROADMAP {item}")
 
 
 def check_tp(cfg: ModelConfig, model: int) -> None:
@@ -180,17 +201,81 @@ def require(cfg: ModelConfig) -> None:
         check_tp(cfg, mesh.shape["model"])
 
 
-def _no_grad(t: torch.Tensor) -> None:
+def _no_grad(t: torch.Tensor, families: str, what: str, item: str) -> None:
     if t.requires_grad:
-        raise RuntimeError(TRAINING)
+        raise RuntimeError(TRAINING.format(families=families, what=what,
+                                           item=item))
 
 
-def _sum_f32(mesh, t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the model group in f32, in ``t``'s dtype."""
-    _no_grad(t)
-    f = t.float() if t.dtype != torch.float32 else t
-    mesh.transport.all_reduce(f, mesh.groups["model"])
-    return f if f is t else f.to(t.dtype)
+def _wide(t: torch.Tensor) -> torch.dtype:
+    """The dtype a sum of ``t`` runs in: f32, or ``t``'s if wider."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+class _Sum(torch.autograd.Function):
+    """Megatron's g: ``t`` summed over the model group, in place; the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mark_dirty(t)
+        mesh.transport.all_reduce(t, mesh.groups["model"])
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _sum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the model group in f32 (or wider), in ``t``'s
+    dtype: in place where ``t`` is already that wide. Under grad the
+    sum's backward is the identity (:class:`_Sum`)."""
+    f = t if t.dtype == _wide(t) else t.to(_wide(t))
+    f = _Sum.apply(f, mesh)
+    return f if f.dtype == t.dtype else f.to(t.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's f: the identity; the backward sums a copy of the input's
+    gradient over the model group (:func:`_sum`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(ctx.mesh, g.to(_wide(g), copy=True)).to(g.dtype), None
+
+
+class _Gather(torch.autograd.Function):
+    """The logits [..., V / model] of every rank, concatenated; the
+    backward takes this rank's slice of the gradient, with no sum."""
+
+    @staticmethod
+    def forward(ctx, logits, mesh):
+        ctx.lo, ctx.n = mesh.coords["model"] * logits.shape[-1], \
+            logits.shape[-1]
+        return torch.cat(mesh.transport.all_gather(logits,
+                                                   mesh.groups["model"]),
+                         dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.n], None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a replicated activation entering column-parallel products
+    (the attention's input and the cross-attention's source, the FFN's
+    input, the head's input). Under tensor parallelism, Megatron's f: the
+    identity, whose backward sums the gradient of ``x`` over the model
+    group, each rank holding the part that flowed through its own
+    columns. ``x`` itself otherwise."""
+    mesh = tp_mesh()
+    return x if mesh is None else _Copy.apply(x, mesh)
 
 
 def group_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -203,9 +288,9 @@ def group_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     mesh = tp_mesh()
     if mesh is None:
         return rms_norm(x, w, eps)
-    _no_grad(x)
+    _no_grad(x, "the ssm and hybrid families", "group_rms_norm", "A8d6c")
     f = x.float()
-    squares = _sum_f32(mesh, (f * f).sum(dim=-1, keepdim=True))
+    squares = _sum(mesh, (f * f).sum(dim=-1, keepdim=True))
     f = f * torch.rsqrt(squares / (x.shape[-1] * mesh.shape["model"]) + eps)
     return (f * w.float()).to(x.dtype)
 
@@ -215,12 +300,12 @@ def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     itself on one process; under tensor parallelism this rank's partial
     over its slice of the contraction, formed in f32 from ``x``'s and
     ``w``'s values, summed over the model group in f32 and rounded to
-    ``x``'s dtype once."""
+    ``x``'s dtype once. Under grad the sum's backward is the identity
+    (Megatron's g): the output's gradient reaches each rank's partial."""
     mesh = tp_mesh()
     if mesh is None:
         return x @ w
-    _no_grad(x)
-    return _sum_f32(mesh, x.float() @ w.float()).to(x.dtype)
+    return _sum(mesh, x.float() @ w.float()).to(x.dtype)
 
 
 def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
@@ -232,8 +317,8 @@ def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
     if mesh is None:
         return list(parts)
     for t in parts:
-        _no_grad(t)
-    both = _sum_f32(mesh, torch.stack(parts) if len(parts) > 1
+        _no_grad(t, "the moe family", "sum_partials", "A8d6b")
+    both = _sum(mesh, torch.stack(parts) if len(parts) > 1
                     else parts[0][None])
     return list(both.unbind(0))
 
@@ -241,7 +326,9 @@ def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
 def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``embed[tokens]`` of a vocab-sharded ``embed`` (this rank's rows):
     the tokens in the rank's range looked up, zeros elsewhere, summed over
-    the model group."""
+    the model group. Under grad the sum's backward is the identity, and
+    the masked lookup's own backward puts each token's gradient into the
+    rank's rows (none where the token lies in another rank's range)."""
     mesh = tp_mesh()
     if mesh is None:
         return embed[tokens]
@@ -250,18 +337,20 @@ def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     hit = (local >= 0) & (local < rows)
     x = torch.where(hit[..., None], embed[local.clamp(0, rows - 1)],
                     torch.zeros((), dtype=embed.dtype, device=embed.device))
-    return _sum_f32(mesh, x)
+    return _sum(mesh, x)
 
 
 def vocab_gather(logits: torch.Tensor) -> torch.Tensor:
     """The logits of every rank's vocabulary slice [..., V / model],
-    concatenated in the model axis's order: [..., V]."""
+    concatenated in the model axis's order: [..., V].
+
+    Under grad the backward takes this rank's slice of the incoming
+    gradient and sums nothing: every rank of the model group computes the
+    whole loss from the same gathered logits, so each already holds the
+    whole gradient of the logits, and the loss the ranks train is that one
+    loss, not its sum over the ranks."""
     mesh = tp_mesh()
-    if mesh is None:
-        return logits
-    _no_grad(logits)
-    return torch.cat(mesh.transport.all_gather(logits, mesh.groups["model"]),
-                     dim=-1)
+    return logits if mesh is None else _Gather.apply(logits, mesh)
 
 
 # ------------------------------------------------------------------ shards
@@ -368,6 +457,73 @@ def shard_params(cfg: ModelConfig, params: Any, mesh) -> Any:
                      cfg, path, spec, leaf.shape, mesh)))
 
 
+def _at(mesh, model: int):
+    """``mesh`` seen from model coordinate ``model`` of this rank's line:
+    what the index functions read (``shape``, ``coords``)."""
+    return SimpleNamespace(shape=mesh.shape,
+                           coords={**mesh.coords, "model": model})
+
+
+def shard_boxes(cfg: ModelConfig, tree: Any, mesh, model: int = None
+                ) -> dict:
+    """``{leaf name: box}`` of ``tree``, a whole parameter tree or a tree
+    that holds whole parameter trees (the optimizer's state, ``{"params",
+    "opt"}``; any device, ``meta`` included): each parameter leaf's box is
+    this rank's (or model coordinate ``model``'s) box of the whole leaf
+    (``shard_params``' index: a tuple of slices, the dense and vlm
+    families); every other leaf (the optimizer's step) is whole. The
+    ranked checkpoint writes and reads these boxes."""
+    check_tp(cfg, mesh.shape["model"])
+    specs = param_shard_specs(cfg, mesh)
+    at = mesh if model is None else _at(mesh, model)
+    out = {}
+    for name, leaf in leaf_paths(tree):
+        keys = tuple(name.split("/"))
+        for i in range(len(keys)):     # a parameter's path ends its name
+            spec = specs
+            for k in keys[i:]:
+                spec = spec.get(k) if isinstance(spec, dict) else None
+            if spec is not None and not isinstance(spec, dict):
+                out[name] = _param_index(cfg, keys[i:], spec,
+                                         tuple(leaf.shape), at)
+                break
+        else:
+            out[name] = (slice(None),) * leaf.dim()
+    return out
+
+
+def box_holders(cfg: ModelConfig, tree: Any, mesh, model: int = None
+                ) -> dict:
+    """``{leaf name: the model coordinates of the rank's line that hold the
+    same box of it}`` (``shard_boxes``), seen from this rank or from model
+    coordinate ``model``: every coordinate for a leaf the model axis
+    replicates, the ``kv_head_pad`` ranks of one KV head for ``wk``/``wv``
+    where it is > 1, this coordinate alone for a leaf it shards."""
+    n = mesh.shape["model"]
+    boxes = [shard_boxes(cfg, tree, mesh, c) for c in range(n)]
+    mine = boxes[mesh.coords["model"] if model is None else model]
+    return {name: tuple(c for c in range(n) if boxes[c][name] == box)
+            for name, box in mine.items()}
+
+
+def owned(cfg: ModelConfig, tree: Any, mesh) -> set:
+    """The names of the leaves of ``tree`` of which this rank is the first
+    of its model line to hold its box (``box_holders``): each leaf has one
+    owner a model line, where the ranked step's |g| counts it and, on data
+    rank 0, the ranked checkpoint writes it."""
+    me = mesh.coords["model"]
+    return {name for name, h in box_holders(cfg, tree, mesh).items()
+            if h[0] == me}
+
+
+def shard_tree(cfg: ModelConfig, tree: Any, mesh) -> Any:
+    """This rank's part of ``tree`` (as ``shard_boxes`` reads it): each
+    leaf's box, a view (on ``meta``, its shape)."""
+    boxes = shard_boxes(cfg, tree, mesh)
+    return unflatten(tree, [take_box(leaf, boxes[name])
+                            for name, leaf in leaf_paths(tree)])
+
+
 def init_shard_params(cfg: ModelConfig, mesh, *, seed: int = 0,
                       device="cuda") -> Any:
     """This rank's shard of ``init_params(cfg, seed=seed, device=device)``,
@@ -466,8 +622,9 @@ def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
             take_box(leaf, index).shape, dtype=dtype, device=device)))
 
 
-__all__ = ["TRAINING", "cache_shard_specs", "check_tp",
-           "group_rms_norm", "init_shard_cache", "init_shard_params",
-           "param_shard_specs", "require", "row_product", "shard_cache",
-           "shard_index", "shard_params", "sum_partials",
-           "tp_mesh", "vocab_embed", "vocab_gather"]
+__all__ = ["TRAINING", "box_holders", "cache_shard_specs", "check_tp",
+           "copy_to_model", "group_rms_norm", "init_shard_cache",
+           "init_shard_params", "owned", "param_shard_specs", "require",
+           "row_product", "shard_boxes", "shard_cache", "shard_index",
+           "shard_params", "shard_tree", "sum_partials", "tp_mesh",
+           "vocab_embed", "vocab_gather"]

@@ -35,17 +35,24 @@ Under a mesh the batch axes and sequence sharding are set as the reference
 sets them, and the MoE dispatches ``data_rows()`` rows. With none of these
 flags the run has no mesh.
 
-``--ranks`` runs the pipelined mesh's pipe and data axes as rank
-processes, as the reference runs them as devices: with ``--pipeline S
---host-devices N`` (N defaults to S), ``dist.ranks.spawn_ranks`` starts N
-processes on the (S, N / S, 1) mesh (they share the card on ``cuda``, or
-the CPU), each holding, training and checkpointing only its own stage's
-leaves (``make_pipeline_train_step`` on a ``Mesh(..., group=)``,
-``checkpoint.RankCheckpointer``: the reference's layout, byte for byte).
-Rank 0 prints the step lines. ``--ranks`` without ``--pipeline``
-(training with a model axis > 1 on ranks: ROADMAP A8d6; serving with one
-is ``launch.serve --ranks``) or with ``--elastic`` (A8e) exits with a
-message.
+``--ranks`` runs the mesh's axes as rank processes, as the reference
+runs them as devices (``dist.ranks.spawn_ranks``: they share the card on
+``cuda``, or the CPU). With ``--host-devices N`` it starts N processes
+on the launcher's ("data", "model") mesh, ``make_dev_mesh(N,
+group=)``: (N / model, model), model = min(4, N). Each rank draws,
+trains and checkpoints only its tensor-parallel shard of the parameters
+and of the AdamW state (``tensor_parallel.init_shard_params``,
+``make_train_step(cfg, mesh=)``, ``checkpoint.RankCheckpointer`` with
+each leaf's box): the dense and vlm families. With ``--pipeline S
+--host-devices N`` (N defaults to S) it starts N processes on the (S, N /
+S, 1) pipelined mesh, each holding, training and checkpointing its own
+stage's leaves (``make_pipeline_train_step`` on a ``Mesh(..., group=)``).
+Either way the checkpoint is the reference's layout, byte for byte, and
+restores onto any mesh; rank 0 prints the step lines. Before any rank
+starts the launcher exits naming its ROADMAP item for what the ranks do
+not train: the moe family (A8d6b), the ssm, hybrid and encdec families
+(A8d6c), Adafactor and ``--elastic`` (A8e), a vocabulary the model axis
+does not divide (A8d5b).
 """
 
 import argparse
@@ -94,16 +101,17 @@ def main(argv=None) -> None:
                     help="with --elastic: comm backend of the cross-host "
                          "control-plane preflight")
     ap.add_argument("--ranks", action="store_true",
-                    help="with --pipeline: one process per device of the "
-                         "('pipe', 'data', 'model') mesh, exchanging "
-                         "through torch.distributed (gloo)")
+                    help="with --host-devices N or --pipeline: one process "
+                         "per device of the mesh, exchanging through "
+                         "torch.distributed (gloo)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ranks and args.pipeline < 1:
-        sys.exit("--ranks runs the pipelined mesh's pipe and data axes on "
-                 "ranks; pass --pipeline STAGES (training with a model axis "
-                 "and non-pipelined meshes on ranks is ROADMAP A8d6)")
+    if args.ranks and args.pipeline < 1 and args.host_devices < 1:
+        sys.exit("--ranks lays the ('data', 'model') mesh of --host-devices "
+                 "N on N rank processes (tensor-parallel training, ROADMAP "
+                 "A8d6), or the pipelined one of --pipeline STAGES; pass "
+                 "--host-devices N")
     if args.ranks and args.elastic:
         sys.exit("--elastic does not run on ranks yet (ROADMAP A8e)")
 
@@ -130,8 +138,11 @@ def main(argv=None) -> None:
         from repro_torch.dist.ranks import spawn_ranks
 
         # the checks a rank would exit on, once, before any process starts
-        _n_micro(args, _pick_mesh(args, cfg, n_dev, None, None, device),
-                 global_batch)
+        mesh = _pick_mesh(args, cfg, n_dev, None, None, device)
+        if args.pipeline > 1:
+            _n_micro(args, mesh, global_batch)
+        else:
+            _check_ranked(args, cfg, mesh, global_batch)
         spawn_ranks(_rank_main, n_dev, args, cfg, seq, global_batch,
                     device=device, timeout=_RANK_TIMEOUT)
         return
@@ -177,7 +188,7 @@ _RANK_TIMEOUT = 24 * 3600.0
 
 def _rank_main(rank, world, args, cfg, seq, global_batch, *, device):
     """One rank of a ``--ranks`` run: the step loop on its own place of the
-    pipelined mesh."""
+    mesh."""
     import torch
     import torch.distributed as dist
 
@@ -199,6 +210,12 @@ def _pick_mesh(args, cfg, n_dev, shape_override, controller, device,
 
     if not n_dev:
         return None
+    if args.ranks and args.pipeline <= 1:
+        try:
+            return make_dev_mesh(n_dev, max(1, min(4, n_dev)), device,
+                                 group=group)
+        except ValueError as exc:
+            sys.exit(str(exc))
     if shape_override is not None:
         return Mesh(shape_override, ("data", "model"), device)
     if args.pipeline > 1:
@@ -230,6 +247,23 @@ def _n_micro(args, mesh, global_batch: int) -> int:
                  "microbatches" + (f" on each of {mesh.shape['data']} data "
                                    "ranks" if args.ranks else ""))
     return n_micro
+
+
+def _check_ranked(args, cfg, mesh, global_batch: int) -> None:
+    """Exit unless the ranks of ``mesh`` train ``cfg`` without the pipeline
+    (``check_ranked_training``) and each microbatch of the global batch
+    splits over the data axis."""
+    from repro_torch.train.train_step import check_ranked_training
+
+    try:
+        check_ranked_training(cfg, mesh.shape["model"])
+    except ValueError as exc:
+        sys.exit(str(exc))
+    rows = mesh.shape["data"] * max(args.microbatch, 1)
+    if global_batch % rows:
+        sys.exit(f"batch {global_batch} does not split into "
+                 f"{max(args.microbatch, 1)} microbatches over "
+                 f"{mesh.shape['data']} data ranks")
 
 
 def _preflight_main(ctx):
@@ -276,6 +310,7 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
                kill_host, kill_at, end):
     import torch
 
+    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.models.transformer import abstract_params, init_params
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.data import PackedBinaryDataset, SyntheticLM
@@ -287,6 +322,7 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
                                               pipeline_rows, pipeline_shard)
 
     ranked = mesh is not None and mesh.group is not None
+    tensor = ranked and args.pipeline <= 1     # the model axis on ranks
     lead = not ranked or torch.distributed.get_rank() == 0
 
     def say(msg: str) -> None:
@@ -305,12 +341,22 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
     init_opt, _ = make_optimizer(cfg.optimizer)
     like = abstract_params(cfg)
     like = {"params": like, "opt": init_opt(like)}
-    # a rank holds, trains and checkpoints only its own stage's leaves
-    own = pipeline_shard(cfg, like, mesh) if ranked else like
-    rows = pipeline_rows(cfg, own, mesh) if ranked else None
+    # a rank holds, trains and checkpoints only its own shard (the model
+    # axis) or its own stage's leaves (the pipe axis)
+    own, rows = like, None
+    if tensor:
+        own, rows = tp.shard_tree(cfg, like, mesh), tp.shard_boxes(
+            cfg, like, mesh)
+    elif ranked:
+        own = pipeline_shard(cfg, like, mesh)
+        rows = pipeline_rows(cfg, own, mesh)
     start = 0
     latest = ckpt.latest_step(args.ckpt_dir)
-    if latest is None and ranked:
+    if latest is None and tensor:
+        params = tp.init_shard_params(cfg, mesh, seed=args.seed,
+                                      device=device)
+        opt_state = init_opt(params)
+    elif latest is None and ranked:
         params = pipeline_shard(cfg, init_params(cfg, seed=args.seed,
                                                  device=device), mesh)
         opt_state = init_opt(params)
@@ -337,10 +383,16 @@ def _step_loop(args, cfg, seq, global_batch, device, mesh, controller,
             cfg, mesh, lr=args.lr, n_micro=_n_micro(args, mesh, global_batch))
     else:
         step_fn = make_train_step(cfg, lr=args.lr,
-                                  microbatches=args.microbatch)
+                                  microbatches=args.microbatch,
+                                  mesh=mesh if tensor else None)
+    # a part several ranks hold is written by one of them: data rank 0,
+    # and of a model line the first rank that holds the box
+    writes = mesh.coords["data"] == 0 if ranked else True
+    if tensor and writes:
+        writes = tp.owned(cfg, like, mesh)
     saver = (ckpt.RankCheckpointer(args.ckpt_dir, keep=3, like=like,
                                    rows=rows, group=mesh.group,
-                                   writes=mesh.coords["data"] == 0)
+                                   writes=writes)
              if ranked else ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3))
     monitor = StragglerDetector()
     if end is None:

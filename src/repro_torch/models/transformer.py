@@ -40,7 +40,10 @@ vocab-sharded embedding is looked up with a mask (``vocab_embed``) and the
 logits gathered (``vocab_gather``); MLA's latent cache is whole on every
 rank, and the hybrid's ring, the encdec's self and cross caches and the
 SSM states are the rank's heads. Without one those calls are the
-identity.
+identity. For training (the dense and vlm families) the replicated
+activations enter the column-parallel products of the attention, the FFN
+and the head through ``copy_to_model`` (Megatron's f), and a data rank's
+``lm_loss`` divides by the global batch's label count it is given.
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..dist.ctx import act_spec, annotate
 from ..dist.sharding import P
-from ..dist.tensor_parallel import (require, row_product, vocab_embed,
-                                    vocab_gather)
+from ..dist.tensor_parallel import (copy_to_model, require, row_product,
+                                    vocab_embed, vocab_gather)
 from ..kernels._build import needs_grad
 from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
@@ -71,6 +74,15 @@ from .moe import moe_ffn, moe_params_shapes
 def dtype_of(name: str) -> torch.dtype:
     """The torch dtype of a config's dtype name ("float32", "bfloat16")."""
     return getattr(torch, name)
+
+
+# The parameter subtrees whose products run between ``copy_to_model`` and
+# a ``row_product`` under tensor parallelism: a leaf of them that several
+# ranks of a model line hold (``tensor_parallel.box_holders``: qwen3's
+# replicated q_norm and k_norm, a KV head replicated kv_head_pad times)
+# acts on the rank's own heads only, so its gradient on a rank is that
+# rank's part of the whole.
+TP_REGIONS = frozenset({"attn", "ffn"})
 
 
 # =============================================================== parameters
@@ -240,7 +252,8 @@ def _gqa_full(cfg: ModelConfig, p, x, *, causal=True, window=0, kv_x=None):
     b, s, _ = x.shape
     hd = cfg.head_dim
     hq, hkv = _heads(p, hd)
-    kv_src = x if kv_x is None else kv_x
+    x = copy_to_model(x)
+    kv_src = x if kv_x is None else copy_to_model(kv_x)
     sk = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
     k = (kv_src @ p["wk"]).reshape(b, sk, hkv, hd)
@@ -405,6 +418,7 @@ def _cast_params(cfg: ModelConfig, p):
 
 
 def _ffn_apply(cfg: ModelConfig, p, x):
+    x = copy_to_model(x)
     if cfg.ffn == "swiglu":
         return swiglu(x, p["w_gate"], p["w_in"], p["w_out"], row_product)
     return gelu_mlp(x, p["w_in"], p["w_out"], row_product)
@@ -453,7 +467,7 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     tensor parallelism)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return copy_to_model(x) @ head.to(x.dtype)
 
 
 # ============================================================ full forward
@@ -637,15 +651,17 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
     return vocab_gather(logits[:, -1])
 
 
-def lm_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
+def lm_loss(cfg: ModelConfig, params, batch, count=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` over ``batch`` (tokens
     or embeds, enc_tokens or enc_embeds, labels): log-softmax in f32,
-    labels < 0 masked out, the mean over the labels kept."""
+    labels < 0 masked out, the masked sum over ``count`` (``batch``'s kept
+    labels unless given: a data rank passes its global batch's, so that
+    the ranks' losses sum to the global one)."""
     logits, _ = forward(cfg, params, tokens=batch.get("tokens"),
                         embeds=batch.get("embeds"),
                         enc_tokens=batch.get("enc_tokens"),
                         enc_embeds=batch.get("enc_embeds"))
-    return next_token_loss(logits, batch["labels"])
+    return next_token_loss(logits, batch["labels"], count)
 
 
 def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -21,15 +21,17 @@ place, so the next step cannot change a snapshot being written.
 shutdown, the completion protocol's rule). ``restore`` places every leaf
 on the device it is given.
 
-From rank processes that each hold some rows of the tree (the pipelined
-trainer's stages, ``train_step.pipeline_shard``), ``save_from_ranks``
-writes the same directory, byte for byte, with no tensor on the wire:
-rank 0 writes the manifest and every leaf's file, sized, as a memory
-map; after a barrier each rank writes its own rows into those files;
+From rank processes that each hold a part of each leaf of the tree (the
+pipelined trainer's stages, ``train_step.pipeline_shard``: rows; the
+tensor-parallel shards, ``tensor_parallel.shard_boxes``: a box, one slice
+per dim), ``save_from_ranks`` writes the same directory, byte for byte,
+with no tensor on the wire: rank 0 writes the manifest and every leaf's
+file, sized, as a memory map; after a barrier each rank writes its own
+parts into those files (a part several ranks hold, by one of them);
 after another rank 0 publishes the directory. ``restore(..., rows=)``
-reads only a rank's own rows. ``RankCheckpointer`` is
-``AsyncCheckpointer``'s interface over it (blocking: the ranks meet in
-its barriers).
+reads only a rank's own parts, so a checkpoint restores onto any mesh.
+``RankCheckpointer`` is ``AsyncCheckpointer``'s interface over it
+(blocking: the ranks meet in its barriers).
 """
 
 from __future__ import annotations
@@ -112,20 +114,41 @@ def _stored(leaf: torch.Tensor) -> Tuple[np.dtype, tuple, str]:
     return dtype, tuple(leaf.shape), str(dtype)
 
 
+def _box(place, leaf, bf16: bool) -> tuple:
+    """The index of a rank's ``leaf`` in its whole leaf's stored array:
+    ``place`` is a row along dim 0 (an int: the leaf's length of rows from
+    there) or a box (a tuple of slices, one per dim); a bfloat16 leaf's
+    last dim is stored as twice as many bytes."""
+    if isinstance(place, int):
+        place = (slice(place, place + leaf.shape[0]),) if leaf.dim() else ()
+    if bf16 and len(place) == max(leaf.dim(), 1):
+        last = place[-1]
+        if last.start is not None or last.stop is not None:
+            place = (*place[:-1], slice(2 * (last.start or 0),
+                                        None if last.stop is None
+                                        else 2 * last.stop))
+    return place
+
+
 def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
-                    rows: dict, group=None) -> None:
+                    rows: dict, group=None, writes=None) -> None:
     """Write a checkpoint of the whole tree ``like`` (its names, shapes and
     dtypes; any device, ``meta`` included) from the ranks of ``group``,
     each writing the leaves of its ``tree`` (a part of ``like``'s, the
-    same names; None writes nothing) at ``rows[name]``, the row along dim
-    0 where the leaf starts in the whole one. Every rank of ``group``
-    calls it; it returns once the checkpoint is published. Ranks that
-    hold the same rows may both write them (the same bytes)."""
+    same names; None writes nothing) at ``rows[name]``, where the leaf
+    lies in the whole one: the row along dim 0 where it starts, or its box
+    (a tuple of slices). With ``writes`` (a set of leaf names) the rank
+    writes those leaves only: a part several ranks hold is written by one
+    of them. Every rank of ``group`` calls it; it returns once the
+    checkpoint is published. Ranks that hold the same part may both write
+    it (the same bytes)."""
     group = dist.group.WORLD if group is None else group
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     lead = dist.get_rank(group) == 0
-    host = {} if tree is None else dict(leaf_paths(_snapshot(tree)))
+    host = {} if tree is None else {
+        name: leaf.detach().to("cpu", copy=True)
+        for name, leaf in leaf_paths(tree) if writes is None or name in writes}
     manifest = {"step": step, "leaves": {}}
     for name, leaf in leaf_paths(like):
         dtype, shape, dname = _stored(leaf)
@@ -140,14 +163,11 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
                                     "dtype": dname}
     dist.barrier(group)
     for name, leaf in host.items():
-        arr, _ = _as_numpy(leaf)
+        arr, dname = _as_numpy(leaf)
         out = np.load(os.path.join(tmp, "arrays",
                                    manifest["leaves"][name]["file"]),
                       mmap_mode="r+")
-        if out.ndim:
-            out[rows[name]:rows[name] + arr.shape[0]] = arr
-        else:
-            out[...] = arr
+        out[_box(rows[name], leaf, dname == "bfloat16")] = arr
         out.flush()
         del out
     dist.barrier(group)
@@ -161,17 +181,20 @@ class RankCheckpointer:
     processes: ``save`` is ``save_from_ranks`` (blocking), after which
     rank 0 keeps the ``keep`` latest steps; ``wait`` has nothing to
     drain. ``writes`` False: this rank holds a copy another rank writes
-    (it still meets the others in the barriers)."""
+    (it still meets the others in the barriers); a set of leaf names: it
+    writes those leaves only."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3, *, like: Any,
-                 rows: dict, group=None, writes: bool = True):
+                 rows: dict, group=None, writes=True):
         self.ckpt_dir, self.keep = ckpt_dir, keep
         self.like, self.rows, self.group = like, rows, group
         self.writes = writes
 
     def save(self, step: int, tree: Any) -> None:
-        save_from_ranks(self.ckpt_dir, step, tree if self.writes else None,
-                        like=self.like, rows=self.rows, group=self.group)
+        save_from_ranks(self.ckpt_dir, step,
+                        tree if self.writes is not False else None,
+                        like=self.like, rows=self.rows, group=self.group,
+                        writes=None if self.writes is True else self.writes)
         group = dist.group.WORLD if self.group is None else self.group
         if dist.get_rank(group) == 0:
             _prune(self.ckpt_dir, self.keep)
@@ -188,18 +211,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load_leaf(final: str, meta: dict, row: Optional[int] = None,
-               n: int = 0) -> torch.Tensor:
-    """The leaf's array, or its rows [row, row + n) (read from a memory
-    map)."""
+def _load_leaf(final: str, meta: dict, place=None,
+               ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The leaf's array, or the part of it at ``place`` (``_box``'s, of
+    ``ref``'s shape; read from a memory map)."""
     path = os.path.join(final, "arrays", meta["file"])
     shape = list(meta["shape"])
-    if row is None:
+    bf16 = meta["dtype"] == "bfloat16"
+    if place is None:
         arr = np.load(path)
     else:
-        arr = np.array(np.load(path, mmap_mode="r")[row:row + n])
-        shape[0] = n
-    if meta["dtype"] == "bfloat16" and arr.dtype == np.uint8:
+        arr = np.array(np.load(path, mmap_mode="r")[_box(place, ref, bf16)])
+        shape = list(ref.shape)
+    if bf16 and arr.dtype == np.uint8:
         return torch.from_numpy(arr).view(torch.bfloat16).reshape(shape)
     return torch.from_numpy(arr)
 
@@ -209,9 +233,10 @@ def restore(ckpt_dir: str, step: int, like: Any, device=None,
     """The checkpoint in the structure of ``like`` (a tree of tensors, on
     any device, ``meta`` included), each leaf cast to its ``like`` leaf's
     dtype and placed on ``device`` (default: that leaf's device). With
-    ``rows`` (``{leaf name: row}``, as ``save_from_ranks`` takes them),
-    ``like`` is a rank's part of the tree and each leaf of it with a
-    shape reads only its ``like`` leaf's length of rows from there."""
+    ``rows`` (``{leaf name: row or box}``, as ``save_from_ranks`` takes
+    them), ``like`` is a rank's part of the tree and each leaf of it with
+    a shape reads only its part from there: a checkpoint restores onto
+    any mesh."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -219,8 +244,7 @@ def restore(ckpt_dir: str, step: int, like: Any, device=None,
     for name, ref in leaf_paths(like):
         meta = manifest["leaves"][name]
         part = rows is not None and ref.dim() > 0
-        t = _load_leaf(final, meta, rows[name] if part else None,
-                       ref.shape[0] if part else 0)
+        t = _load_leaf(final, meta, rows[name] if part else None, ref)
         leaves.append(t.to(device=ref.device if device is None else device,
                            dtype=ref.dtype))
     return unflatten(like, leaves)

@@ -10,6 +10,16 @@ activations shrink ~k x for one f32 params-sized accumulator; compute is
 unchanged. The losses are averaged and the f32 sum of the gradients
 divided by k, as the reference's scan does.
 
+On a ("data", "model") mesh of ranks (``make_train_step(cfg, mesh=)``,
+``launch.mesh.make_dev_mesh(n, group=)``) the model axis is tensor
+parallel (``dist/tensor_parallel.py``) and the data axis data parallel:
+each rank holds, differentiates and updates only its shard of the
+parameters and of the optimizer state (``tensor_parallel.shard_boxes``),
+takes its rows of the global batch, and after the backward sums every
+gradient over its data group and each leaf that several ranks of its
+model line hold and the sharded region reads over those holders; |g|
+counts each leaf once. The dense and vlm families, with AdamW.
+
 ``make_pipeline_train_step`` trains the dense family stage-parallel on a
 mesh's ``"pipe"`` axis (``dist/pipeline.py``): the same loss, its layer
 stack run as stages over microbatches. On a mesh of ranks
@@ -30,21 +40,25 @@ import os
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.ctx import suspend_annotations
+from ..dist.ctx import suspend_annotations, use_mesh
 from ..dist.pipeline import (pipeline_apply, refuse_model_axis,
                              split_microbatches)
-from ..models.transformer import (_head, _scan_segment, dtype_of,
-                                  init_params, layer_kinds, lm_loss,
-                                  next_token_loss, unstack)
+from ..dist.tensor_parallel import box_holders, check_tp, owned
+from ..models.transformer import (TP_REGIONS, _head, _scan_segment,
+                                  abstract_params, dtype_of, init_params,
+                                  layer_kinds, lm_loss, next_token_loss,
+                                  unstack)
 from .optimizer import make_optimizer
 from .tree import leaf_paths, leaves, tree_map, unflatten
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch):
-    """(loss, grads): ``lm_loss`` and its gradient with respect to every
-    parameter, a tree like ``params`` (the parameters' dtypes). The
-    parameters themselves are left as they are (no ``.grad``)."""
-    return value_and_grads(functools.partial(lm_loss, cfg), params, batch)
+def loss_and_grads(cfg: ModelConfig, params, batch, count=None):
+    """(loss, grads): ``lm_loss`` (over ``count`` labels where given) and
+    its gradient with respect to every parameter, a tree like ``params``
+    (the parameters' dtypes). The parameters themselves are left as they
+    are (no ``.grad``)."""
+    return value_and_grads(functools.partial(lm_loss, cfg, count=count),
+                           params, batch)
 
 
 def value_and_grads(loss_fn, params, batch):
@@ -70,29 +84,171 @@ def grad_norm(grads) -> torch.Tensor:
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
-                    microbatches: int | None = None):
+                    microbatches: int | None = None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``; ``batch`` is a dict of tensors on the
     parameters' device, split along its first axis into the microbatches.
-    The parameters and optimizer state are updated in place."""
+    The parameters and optimizer state are updated in place.
+
+    On a ("data", "model") mesh of ranks (``mesh.group`` set), the ranked
+    step: ``params`` and ``opt_state`` are this rank's shards, ``batch``
+    the global batch, of which each microbatch's rows split over the data
+    axis (``ranked_grads``); every rank returns the global loss and |g|.
+    A config the model axis cannot train raises ``ValueError``
+    (``check_ranked_training``)."""
     mb = microbatches or int(os.environ.get("REPRO_MICROBATCH", "1"))
+    if mesh is not None and mesh.group is not None:
+        return ranked_train_step(cfg, mesh, lr=lr, microbatches=mb)
 
     def grads_of(params, batch):
         if mb <= 1:
             return loss_and_grads(cfg, params, batch)
-        split = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
-                 for k, v in batch.items()}
-        acc, losses = None, []
-        for i in range(mb):
-            loss, g = loss_and_grads(cfg, params,
-                                     {k: v[i] for k, v in split.items()})
-            losses.append(loss)
-            g = [t.float() for t in leaves(g)]
-            acc = g if acc is None else [a + b for a, b in zip(acc, g)]
-        return (torch.stack(losses).mean(),
-                unflatten(params, [t / mb for t in acc]))
+        return _accumulate(cfg, params, _split(batch, mb), lambda b: b)
 
     return _train_step(cfg, grads_of, lr)
+
+
+def _split(batch, mb: int) -> list:
+    """The ``mb`` microbatches of ``batch``: consecutive runs of its rows."""
+    split = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(mb)]
+
+
+def _accumulate(cfg: ModelConfig, params, parts: list, rows,
+                count=lambda part: None):
+    """(the mean loss, the f32 mean gradient) over the microbatches
+    ``parts``, each taken at ``rows(part)`` over ``count(part)`` labels."""
+    acc, losses = None, []
+    for part in parts:
+        loss, g = loss_and_grads(cfg, params, rows(part), count(part))
+        losses.append(loss)
+        g = [t.float() for t in leaves(g)]
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+    return (torch.stack(losses).mean(),
+            unflatten(params, [t / len(parts) for t in acc]))
+
+
+def check_ranked_training(cfg: ModelConfig, model: int) -> None:
+    """Raise ``ValueError``, naming its ROADMAP item, unless a model axis
+    of ``model`` ranks trains ``cfg``: the dense and vlm families with
+    AdamW, on an axis ``check_tp`` passes (a vocabulary it does not divide:
+    A8d5b). Without a model axis there is nothing to check."""
+    if model == 1:
+        return
+    where = f"{cfg.name} on a model axis of {model} ranks"
+    if cfg.family == "moe":
+        raise ValueError(f"{where}: training the moe family there (the "
+                         "backward of sum_partials, the router's partial "
+                         "gradient summed over the group) is ROADMAP A8d6b")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{where}: training the {cfg.family} family there "
+                         "(the backward of group_rms_norm, the tied "
+                         "embedding) is ROADMAP A8d6c")
+    if cfg.optimizer != "adamw":
+        raise ValueError(f"{where}: {cfg.optimizer} on ranks (its factored "
+                         "second moments span the shards) is ROADMAP A8e; "
+                         "the ranked step trains with adamw")
+    check_tp(cfg, model)
+
+
+def replica_leaves(cfg: ModelConfig, mesh, model: int = None) -> dict:
+    """``{parameter name: holders}`` of the parameters of the sharded
+    region (``TP_REGIONS``: read between ``copy_to_model`` and a
+    ``row_product``) that several ranks of a model line hold
+    (``box_holders``, seen from this rank or model coordinate ``model``):
+    a KV head that ``kv_head_pad`` replicates, qwen3's ``q_norm`` and
+    ``k_norm``. A holder's gradient of such a leaf is its own heads'
+    part."""
+    return {name: h for name, h in box_holders(
+        cfg, abstract_params(cfg), mesh, model).items()
+        if len(h) > 1 and TP_REGIONS & set(name.split("/"))}
+
+
+def _replica_groups(cfg: ModelConfig, mesh) -> dict:
+    """``{parameter name: process group}``: each of ``replica_leaves``
+    with the group of its holders. One ``new_group`` per holder set and
+    data coordinate, made on every rank in the same order."""
+    every = [replica_leaves(cfg, mesh, c) for c in range(mesh.shape["model"])]
+    sets = sorted({h for held in every for h in held.values()})
+    mine = every[mesh.coords["model"]]
+    groups = {}
+    for d in range(mesh.shape["data"]):
+        for h in sets:
+            pg = torch.distributed.new_group(
+                [mesh.rank_of(data=d, model=c) for c in h])
+            if d == mesh.coords["data"] and mesh.coords["model"] in h:
+                groups[h] = pg
+    return {name: groups[h] for name, h in mine.items()}
+
+
+def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
+    """``grads_of(params, batch) -> (loss, grads)`` on a ("data", "model")
+    mesh of ranks: ``params`` is this rank's shard, ``batch`` the global
+    batch. Each of the ``microbatches`` consecutive runs of its rows (the
+    one-process step's microbatches) splits over the data axis
+    (``_data_rows``); the rank's loss on its rows divides by the
+    microbatch's global label count (``lm_loss``'s ``count``, read off the
+    global batch every rank holds), and the mean over microbatches of the
+    losses, summed over the data group, is the global loss. After the
+    backward each gradient (f32 when accumulated) is summed over the data
+    group (kind ``"grad"``), then each leaf of the sharded region that
+    several ranks of the model line hold over its holders (kind
+    ``"replica"``: the KV heads ``kv_head_pad`` replicates, qwen3's
+    ``q_norm``/``k_norm``), all in f32, each in its dtype after: every
+    holder then has the same bits."""
+    net = mesh.transport
+    replicas = _replica_groups(cfg, mesh)
+
+    def reduce(g, pg, kind):
+        if g.dtype == torch.float32:
+            return net.all_reduce(g, pg, kind)
+        return net.all_reduce(g.float(), pg, kind).to(g.dtype)
+
+    def kept(part):
+        return (part["labels"] >= 0).float().sum()
+
+    def grads_of(params, batch):
+        with use_mesh(mesh):
+            loss, grads = _accumulate(
+                cfg, params, _split(batch, microbatches),
+                lambda part: _data_rows(mesh, part), kept) \
+                if microbatches > 1 else \
+                loss_and_grads(cfg, params, _data_rows(mesh, batch),
+                               kept(batch))
+        grads = tree_map(lambda g: reduce(g, mesh.groups["data"], "grad"),
+                         grads)
+        grads = unflatten(grads, [
+            reduce(g, replicas[name], "replica") if name in replicas else g
+            for name, g in leaf_paths(grads)])
+        return net.all_reduce(loss.float(), mesh.groups["data"]), grads
+
+    return grads_of
+
+
+def ranked_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
+                      microbatches: int = 1):
+    """``make_train_step``'s step on a ("data", "model") mesh of ranks:
+    ``ranked_grads``' loss and gradients, |g| global (each leaf's sum of
+    squares counted on the first rank of its model line that holds its
+    box, then summed over the model group), and AdamW on each rank's own
+    shards. Raises ``ValueError`` for what the model axis does not train
+    (``check_ranked_training``) or another mesh than ("data", "model")."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"the ranked step trains on a ('data', 'model') "
+                         f"mesh, got {mesh.shape}")
+    check_ranked_training(cfg, mesh.shape["model"])
+    once = owned(cfg, abstract_params(cfg), mesh)
+
+    def norm(grads):
+        sq = sum((torch.sum(torch.square(g.float()))
+                  for name, g in leaf_paths(grads) if name in once),
+                 torch.zeros((), device=mesh.device))
+        return torch.sqrt(mesh.transport.all_reduce(sq,
+                                                    mesh.groups["model"]))
+
+    return _train_step(cfg, ranked_grads(cfg, mesh,
+                                         microbatches=microbatches), lr, norm)
 
 
 def _train_step(cfg: ModelConfig, grads_of, lr: float, norm=grad_norm):
@@ -355,7 +511,8 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return params, init_opt(params)
 
 
-__all__ = ["grad_norm", "init_train_state", "loss_and_grads",
-           "make_pipeline_loss", "make_pipeline_train_step",
-           "make_train_step", "pipeline_grads", "pipeline_rows",
-           "pipeline_shard", "value_and_grads"]
+__all__ = ["check_ranked_training", "grad_norm", "init_train_state",
+           "loss_and_grads", "make_pipeline_loss",
+           "make_pipeline_train_step", "make_train_step", "pipeline_grads",
+           "pipeline_rows", "pipeline_shard", "ranked_grads",
+           "ranked_train_step", "replica_leaves", "value_and_grads"]

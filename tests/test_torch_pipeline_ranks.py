@@ -24,8 +24,9 @@ one spawned process per mesh coordinate, joined into a gloo group
 - under ``launch_mesh`` a rank's context is its own mesh, its batch one
   dispatch row;
 - a mesh off the world's size refuses to go on ranks; on a mesh of ranks
-  with a model axis > 1 the pipelined trainer refuses (ROADMAP A8d6) and
-  so does serving what that axis does not run yet (full-size
+  with a model axis > 1 the pipelined trainer refuses (the reference's
+  pipelined launcher runs with model axis 1) and so does serving what
+  that axis does not run yet (full-size
   seamless-m4t-large-v2 on 4, its vocabulary not dividing, A8d5b);
   ``launch.train --pipeline 2 --host-devices 2 --ranks --device cpu``
   lowers the loss, and refuses ``--ranks`` without ``--pipeline`` and
@@ -281,16 +282,18 @@ def test_ranked_pipeline_sends_only_to_its_pair(worlds):
 
 def test_a_mesh_off_the_world_or_with_a_model_axis_refuses_ranks(worlds):
     """A mesh off the world's size refuses to go on ranks. A model axis of
-    4 goes on them, and what does not run on it yet refuses, naming its
-    ROADMAP item: the pipelined train step and ``pipeline_apply``
-    (training with a model axis, A8d6), and serving full-size
-    seamless-m4t-large-v2, whose vocabulary of 256 206 does not divide
-    over 4 (the d_model-sharded embedding and head, A8d5b)."""
+    4 goes on them, and what does not run on it refuses: the pipelined
+    train step and ``pipeline_apply`` (the reference's pipelined launcher
+    runs with model axis 1; a model axis trains on ranks without the
+    pipeline), and serving full-size seamless-m4t-large-v2, whose
+    vocabulary of 256 206 does not divide over 4 (the d_model-sharded
+    embedding and head, ROADMAP A8d5b)."""
     for run in worlds["apply"]:
         off, step, apply, vocab = run["refused"]
         assert "whole world of 2 processes, got 4" in off
         for msg in (step, apply):
-            assert "model axis 4 on ranks" in msg and "A8d6" in msg
+            assert "model axis 4 on ranks" in msg
+            assert "pipelined launcher runs with model axis 1" in msg
         assert ("seamless-m4t-large-v2 on a model axis of 4 ranks: its "
                 "vocabulary of 256206") in vocab
         assert "A8d5b" in vocab
