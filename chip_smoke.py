@@ -161,16 +161,19 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    processes that share the card (``phase_tensor_ranks``,
    ``make_dev_mesh(n, model=, group=)``, ``dist.tensor_parallel``):
    yi-6b-tp2-r2 (yi-6b at full width and depth on a (1, 2) mesh of 2
-   ranks), starcoder2-3b-tp4-r4 (on (1, 4), ``kv_head_pad`` 2: each rank
-   holds the whole KV head its query heads read), grok-1-314b-d8-tp4-r4
-   (8 of 64 layers on (1, 4): 2 of the 8 experts, 12 q heads over 2 KV
-   heads a rank), deepseek-v3-671b-d5-tp4-r4 (3 dense + 2 MoE layers on
-   (1, 4): 64 of 256 experts, 32 MLA heads a rank, the latent cache whole)
+   ranks), starcoder2-3b-d10-tp4-r4 (10 of 30 layers on (1, 4),
+   ``kv_head_pad`` 2: each rank holds the whole KV head its query heads
+   read), grok-1-314b-d4-tp4-r4
+   (4 of 64 layers on (1, 4), 8 until the moe train cells came: 2 of the 8
+   experts, 12 q heads over 2 KV heads a rank),
+   deepseek-v3-671b-d5-tp4-r4 (3 dense + 2 MoE layers on (1, 4): 64 of
+   256 experts, 32 MLA heads a rank, the latent cache whole)
    and grok-1-314b-d2-dp2-tp2-r4 (2 layers on (2, 2): a data axis of
    ranks, held to the one-process run under a logical (2, 2) mesh), bf16
    compute, each rank drawing only its shard of the seed-0 weights:
    prefill of a 2 048-token row a data rank with n_layers B2 launches per
-   rank (none with MLA), 16 serve steps at batch 8 over a seeded cache
+   rank (none with MLA), 8 serve steps (16 until the moe train cells
+   came) at batch 8 over a seeded cache
    (32 768 and 4 096 positions) with n_layers B4 launches a step per rank
    (none with MLA), every B2 and B4 call of a further prefill and step
    held to its plain version on its own operands, the bytes each rank
@@ -188,19 +191,25 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    then training with that model axis on rank processes that share the
    card (``phase_train_ranks``, ``make_train_step(cfg, mesh=)`` on
    ``make_dev_mesh(n, model, group=)``; the collectives' backward is
-   Megatron's f and g): starcoder2-3b-train-tp4-r4 (full width and depth,
-   f32 params and AdamW, bf16 compute, remat full, 1 x 2 048 tokens on a
-   (1, 4) mesh: each rank 807 M parameters and their moments, a whole KV
-   head shared with one other rank) and starcoder2-3b-d4-train-dp2-tp2-r4
-   (4 of 30 layers in f32 on (2, 2), 2 x 2 048), each from seed 0 against
-   the one-process step on the same weights and batch (1 warm-up and 2
-   timed steps, or 1 and 1): no B1-B4 launch, the loss falling, the first
+   Megatron's f and g): starcoder2-3b-d10-train-tp4-r4 (full width, 10 of
+   30 layers since the moe cells came, f32 params and AdamW, bf16 compute,
+   remat full, 1 x 2 048 tokens on a (1, 4) mesh: a whole KV head shared
+   with one other rank) and starcoder2-3b-d4-train-dp2-tp2-r4
+   (4 of 30 layers in f32 on (2, 2), 2 x 2 048), and the moe family with
+   the configs' bf16 parameters and Adafactor: grok-1-314b-d2-train-tp4-r4
+   (2 of 64 MoE layers at full width, bf16 compute, 2 experts and 2 KV
+   heads a rank) and deepseek-v3-671b-d3-train-tp4-r4 (its 3 dense layers,
+   MLA with 32 heads a rank, f32 compute), each from seed 0 against the
+   one-process step on the same weights and batch (1 warm-up and 1 timed
+   step): no B1-B4 launch, the loss falling, the first
    step's loss and |g| within 1e-2 and 5e-2 (bf16) or every step's within
-   1e-5 and 1e-4 (f32) and the first update held to the one-process
-   update's boxes, the bytes each rank sends each peer by kind against
-   their formula, the ranks that hold one box (KV heads, norms) bit for
-   bit; ms a step and tok/s beside one process, per rank all-reduce and
-   gather ms, busy ms and peak memory;
+   1e-5 and 1e-4 (f32) and the first step's gradients and update held to
+   the one-process step's boxes, the bytes each rank sends each peer by
+   kind against their formula, the ranks that hold one box (KV heads,
+   norms, the router, MLA's down-projections) bit for bit; grok's MoE
+   slots routed otherwise than on one process counted; ms a step and
+   tok/s beside one process, per rank all-reduce and gather ms, busy ms
+   and peak memory;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -210,7 +219,7 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    ``ranks_launches``: each rank's launches in the ranked cells and the
    ranked pipelined forward; ``pipeline_ranks_train_launches``: each
    rank's in the ranked train steps, 0; ``tensor_ranks_launches``: each
-   rank's B2 launches a prefill and B4 launches in 16 steps of the ranked
+   rank's B2 launches a prefill and B4 launches in 8 steps of the ranked
    tensor-parallel cells, the moe cells' included;
    ``tensor_ranks_train_launches``: each rank's in the timed steps of the
    ranked tensor-parallel train cells, 0)
@@ -292,14 +301,17 @@ from repro_torch.dist.ranks import (owned_blocks, run_jobs,  # noqa: E402
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optimizer as optimizer_mod  # noqa: E402
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
 from repro_torch.train.data import SyntheticLM  # noqa: E402
-from repro_torch.train.optimizer import adamw_init  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    adafactor_init, adamw_init, make_optimizer, ranked_adafactor_update)
 from repro_torch.train.train_step import (  # noqa: E402
-    init_train_state, loss_and_grads, make_pipeline_loss,
+    adafactor_shards, init_train_state, loss_and_grads, make_pipeline_loss,
     make_pipeline_train_step, make_train_step, pipeline_rows, pipeline_shard,
     replica_leaves, value_and_grads)
 from repro_torch.train.tree import (leaf_paths, leaves as tree_leaves,  # noqa: E402,E501
-                                    tree_map)
+                                    tree_map, unflatten)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): f32 on the
 # CUDA cores, bf16 on the tensor cores, and device memory bandwidth.
@@ -2959,7 +2971,7 @@ def time_train_attention(cfg, dev, batch: int, seq: int) -> dict:
             "bound_ms": bnd, "step_ms": cfg.n_layers * plain_ms}
 
 
-def phase_train(dev, batch=4, seq=2048, warmup=2, steps=8, lr=3e-4,
+def phase_train(dev, batch=4, seq=2048, warmup=2, steps=4, lr=3e-4,
                 cut_layers=2) -> dict:
     """Training on the card: the reduced card-vs-CPU gradient gates of every
     family; starcoder2-3b at full width cut to ``cut_layers`` layers (remat
@@ -3648,7 +3660,7 @@ def same_small_leaves(ranked: str, step: int, cfg,
 
 
 def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
-                         warmup=1, steps=3, lr=3e-4, layers=8, d8_steps=2,
+                         warmup=1, steps=2, lr=3e-4, layers=8, d8_steps=1,
                          ckpt_layers=2) -> dict:
     """The pipelined mesh's pipe and data axes as rank processes that
     share the card (``make_pipeline_train_step`` on a
@@ -3830,13 +3842,16 @@ STREAM_FAMILIES = MIXER_FAMILIES + ("encdec",)
 # dense + 2 MoE). zamba2's prompt of 4 608 passes its 4 096-token window
 # by 512 queries, and its steps start at 13 522 (3 x 4 096 + 1 234) with
 # every slot of its rings seeded.
-# Two cells run cut in depth, so that the whole smoke keeps a margin under
-# its time limit (their full-depth cells were the longest: PERF.md keeps
-# their runs): mamba2-1.3b to 12 of 48 layers and zamba2-1.2b to 14 of 38
-# (two shared attention sites).
+# Three cells run cut in depth, so that the whole smoke keeps a margin
+# under its time limit (their full-depth cells were the longest: PERF.md
+# keeps their runs): mamba2-1.3b to 12 of 48 layers, zamba2-1.2b to 14 of
+# 38 (two shared attention sites) and, since the moe train cells came,
+# starcoder2-3b to 10 of 30 (still ``kv_head_pad`` 2; yi-6b serves at full
+# depth).
 TP_CELLS = (("yi-6b-tp2-r2", "yi-6b", 0, (1, 2), 32768, {}),
-            ("starcoder2-3b-tp4-r4", "starcoder2-3b", 0, (1, 4), 4096, {}),
-            ("grok-1-314b-d8-tp4-r4", "grok-1-314b", 8, (1, 4), 4096, {}),
+            ("starcoder2-3b-d10-tp4-r4", "starcoder2-3b", 10, (1, 4), 4096,
+             {}),
+            ("grok-1-314b-d4-tp4-r4", "grok-1-314b", 4, (1, 4), 4096, {}),
             ("deepseek-v3-671b-d5-tp4-r4", "deepseek-v3-671b", 5, (1, 4),
              4096, {}),
             ("grok-1-314b-d2-dp2-tp2-r4", "grok-1-314b", 2, (2, 2), 4096,
@@ -4778,7 +4793,7 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
             "prefill_ms": pre, "step_ms": wall, "kept": kept}
 
 
-def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
+def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=8, gate_batch=2,
                        cells=TP_CELLS) -> dict:
     """The model axis as rank processes that share the card
     (``make_dev_mesh(n, model=, group=)``, ``dist.tensor_parallel``;
@@ -4884,27 +4899,34 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=16, gate_batch=2,
 
 # ------------------------------------- training on a model axis of ranks
 
-# (name, layers (0: all), (data, model), compute dtype, rows a data rank,
-# warm-up steps, timed steps)
+# (name, arch, layers (0: all), (data, model), compute dtype, rows a data
+# rank, warm-up steps, timed steps)
 TRAIN_TP_CELLS = (
-    ("starcoder2-3b-train-tp4-r4", 0, (1, 4), "bfloat16", 1, 1, 2),
-    ("starcoder2-3b-d4-train-dp2-tp2-r4", 4, (2, 2), "float32", 1, 1, 1))
+    ("starcoder2-3b-d10-train-tp4-r4", "starcoder2-3b", 10, (1, 4),
+     "bfloat16", 1, 1, 1),
+    ("starcoder2-3b-d4-train-dp2-tp2-r4", "starcoder2-3b", 4, (2, 2),
+     "float32", 1, 1, 1),
+    ("grok-1-314b-d2-train-tp4-r4", "grok-1-314b", 2, (1, 4), "bfloat16",
+     1, 1, 1),
+    ("deepseek-v3-671b-d3-train-tp4-r4", "deepseek-v3-671b", 3, (1, 4),
+     "float32", 1, 1, 1))
 # The ranked step against one process on the same weights and batch. In
 # f32 the ranks change only the order of f32 sums (partials over ranks,
-# the data group's gradient sum, |g|² per rank): the losses to 1e-5 and
-# |g| to 1e-4 relative, the chip's counterparts of the CPU test's 1e-6 and
-# 1e-5 at full width and 64x the tokens. In bf16 compute each rank
-# rounds its own products to bf16 (its columns, its partial input
-# gradients before their f32 sum), which one process rounds once over all
-# columns: the first step's loss to 1e-2 and |g| to 5e-2 relative.
+# the data group's gradient sum, |g|² per rank, Adafactor's statistics):
+# the losses to 1e-5 and |g| to 1e-4 relative, the chip's counterparts of
+# the CPU tests' 1e-6 and 1e-5 at full width and 64x the tokens. In bf16
+# compute each rank rounds its own products to bf16 (its columns, its
+# partial input gradients before their f32 sum), which one process rounds
+# once over all columns: the first step's loss to 1e-2 and |g| to 5e-2
+# relative.
 TP_TRAIN_LOSS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 TP_TRAIN_NORM_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 
 
-def tp_train_config(layers: int, compute: str):
-    """starcoder2-3b at full width, its first ``layers`` layers (0: all 30),
-    in ``compute``."""
-    cfg = get_config("starcoder2-3b")
+def tp_train_config(arch: str, layers: int, compute: str):
+    """``arch`` at full width, its first ``layers`` layers (0: all), in
+    ``compute``; its own parameter dtype and optimizer."""
+    cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
                                compute_dtype=compute)
 
@@ -4916,37 +4938,95 @@ def tp_train_batch(cfg, rows: int, seq: int) -> dict:
     return train_batch(cfg, 0, seq, rows, "cpu", seed=0, learnable=True)
 
 
+def moe_layer_routes(routes: list, cfg) -> list:
+    """The forward's recorded dispatch of each MoE layer (one dispatch row:
+    the first calls; remat recomputes them in the backward) as (experts,
+    kept mask) [T, k] on the host."""
+    n = tfm.layer_kinds(cfg).get("moe", 0)
+    return [(e.cpu(), k.cpu()) for e, _, k in routes[:n]]
+
+
+@contextlib.contextmanager
+def first_grads(out: dict, module, name: str):
+    """The gradients the first call of ``module.name`` (an optimizer update:
+    ``optimizer.adafactor_update``, which one process's step takes, or
+    ``train_step.ranked_adafactor_update``, the ranked step's) is given
+    in the block, copied into ``out["grads"]`` (a tree set aside for
+    them, or a clone). A step made in the block binds the wrapper."""
+    update = getattr(module, name)
+
+    def keeping(params, grads, state, **kw):
+        if not out.get("taken"):
+            out["taken"] = True
+            if "grads" in out:         # room set aside for them
+                for room, g in zip(tree_leaves(out["grads"]),
+                                   tree_leaves(grads)):
+                    room.copy_(g)
+            else:
+                out["grads"] = tree_map(torch.clone, grads)
+        return update(params, grads, state, **kw)
+
+    setattr(module, name, keeping)
+    try:
+        yield out
+    finally:
+        setattr(module, name, update)
+
+
+def held_room(cfg, dev) -> dict:
+    """Room on the card for one process's first-step gradients and its
+    parameters after that step (``"grads"``, ``"after"``: trees of views
+    of one buffer of the parameters' dtype), allocated before anything
+    else: one segment of its own, so that freeing the rest of the step
+    gives its memory back to the card while the ranks read the room."""
+    like = tfm.abstract_params(cfg)
+    sizes = [t.numel() for t in tree_leaves(like)]
+    flat = torch.empty(2 * sum(sizes), dtype=tfm.dtype_of(cfg.param_dtype),
+                       device=dev)
+    parts = iter(flat.split(sizes * 2))
+    trees = [unflatten(like, [next(parts).view(t.shape)
+                              for t in tree_leaves(like)])
+             for _ in range(2)]
+    return {"grads": trees[0], "after": trees[1]}
+
+
 def tp_train_one_process(cfg, dev, batch: dict, warmup: int, steps: int,
-                         lr: float, keep: str = None) -> dict:
+                         lr: float, hold: bool = False) -> dict:
     """The one-process ``make_train_step`` from seed 0 on ``batch`` every
     step: losses, |g|, ms a step after ``warmup`` (host clock, synchronised)
-    and the peak; with ``keep``, the parameters and AdamW's m (0.1 g) after
-    the first step saved there (on the host) for the ranks to read their
-    boxes of."""
-    t_in, save_s = time.perf_counter(), 0.0
+    and the peak, and each MoE layer's dispatch in the first step. With
+    ``hold``, the first step's gradients (those its optimizer took,
+    ``first_grads``) and parameters after it kept on the card under
+    ``"held"``, for the ranks to read their boxes of in place (CUDA IPC:
+    no copy)."""
+    t_in = time.perf_counter()
+    held = held_room(cfg, dev) if hold else None
     params = tfm.init_params(cfg, seed=0, device=dev)
-    opt = adamw_init(params)
-    step_fn = make_train_step(cfg, lr=lr)
+    opt = make_optimizer(cfg.optimizer)[0](params)
+    with first_grads(held, optimizer_mod, f"{cfg.optimizer}_update") \
+            if hold else contextlib.nullcontext():
+        step_fn = make_train_step(cfg, lr=lr)
     batch = {k: v.to(dev) for k, v in batch.items()}
-    losses, norms = [], []
+    losses, norms, routes = [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
     for s in range(warmup + steps):
         if s == warmup:
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
+        with recorded_routes(routes) if s == 0 else contextlib.nullcontext():
+            params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-        if s == 0 and keep:
-            t_save = time.perf_counter()
-            torch.save({"after": tree_map(lambda t: t.cpu(), params),
-                        "m": tree_map(lambda t: t.cpu(), opt.m)}, keep)
-            save_s = time.perf_counter() - t_save
+        if s == 0 and hold:
+            for room, p in zip(tree_leaves(held["after"]),
+                               tree_leaves(params)):
+                room.copy_(p)
     torch.cuda.synchronize(dev)
     out = {"losses": losses, "norms": norms,
            "ms": 1e3 * (time.perf_counter() - t0) / steps,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "s": time.perf_counter() - t_in, "save_s": save_s}
+           "s": time.perf_counter() - t_in,
+           "routes": moe_layer_routes(routes, cfg), "held": held}
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -4954,56 +5034,147 @@ def tp_train_one_process(cfg, dev, batch: dict, warmup: int, steps: int,
 
 
 ADAMW_EPS = 1e-8           # train/optimizer.py's adamw_update
-# The f32 cell's gradient boxes against one process's, of the leaf's max.
-# On an H100 a sound step reads 7.351e-6 at most (embed), the same to the
-# last digit in each of three runs (fixed shapes, seeds, sum orders); the
-# subtlest fault planted by ``scripts/torch_train_ranks.py --plant``
-# (f's sum taken on bf16-rounded gradients) reads 2.9e-3.
+# The f32 cells' gradient boxes against one process's, of the leaf's max.
+# On an H100 a sound step of starcoder2-3b-d4 read 7.351e-6 at most
+# (embed; read off AdamW's m, 0.1 g), the same to the last digit in each
+# of six runs (fixed shapes, seeds, sum orders); the subtlest fault
+# planted by ``scripts/torch_train_ranks.py --plant`` (f's sum taken on
+# bf16-rounded gradients) reads 2.9e-3.
 TP_GRAD_TOL = 1e-5
 
 
-def tp_update_gate(cfg, mesh, params, m, keep: str, lr: float) -> dict:
-    """This rank's first step against its boxes of the one-process step
-    saved in ``keep``. (a) Its gradient of every leaf (AdamW's m after the
-    first step, 0.1 g) within TP_GRAD_TOL of the box's max|m|. (b) Its
-    parameters after the step within lr / 1000 of the one-process ones for
-    every weight whose update a gradient error within (a) cannot turn by
-    more: AdamW's first step moves a weight by lr·g/(|g| + eps), which an
-    error δ turns by up to lr·eps·δ/(|g| + eps)², so (b) holds the weights
-    with (|g| + eps)² >= 1e3·eps·δ, δ = TP_GRAD_TOL·max|g| (and |g| > 1e-5
-    max|g|, the rule of ``tests/test_torch_pipeline_ranks.py``). The
-    weights that rule alone would hold that differ by more than lr / 1000
-    are counted (``near_eps``)."""
-    whole = torch.load(keep, mmap=True)
-    after, m1 = dict(leaf_paths(whole["after"])), dict(leaf_paths(whole["m"]))
+def tp_update_gate(cfg, mesh, grads, params, held: dict, lr: float
+                   ) -> dict:
+    """This rank's first AdamW step against its boxes of the one-process
+    step held on the card (``tp_train_one_process(..., hold=True)``). (a)
+    Its gradient of every leaf (``grads``: those the step took) within
+    TP_GRAD_TOL of the box's max|g|. (b) Its parameters after the step
+    within lr / 1000 of the one-process ones for every weight whose update
+    a gradient error within (a) cannot turn by more: AdamW's first step
+    moves a weight by lr·g/(|g| + eps), which an error δ turns by up to
+    lr·eps·δ/(|g| + eps)², so (b) holds the weights with (|g| + eps)² >=
+    1e3·eps·δ, δ = TP_GRAD_TOL·max|g| (and |g| > 1e-5 max|g|, the rule of
+    ``tests/test_torch_pipeline_ranks.py``). The weights that rule alone
+    would hold that differ by more than lr / 1000 are counted
+    (``near_eps``)."""
     boxes = shard_boxes(cfg, tfm.abstract_params(cfg), mesh)
-    mine = dict(leaf_paths(m))
+    g1, p1 = dict(leaf_paths(held["grads"])), dict(leaf_paths(held["after"]))
+    mine = dict(leaf_paths(grads))
     tol = lr * 1e-3
-    grad, worst, held, over = (0.0, ""), (0.0, ""), 0, 0
+    grad, worst, holds, over = (0.0, ""), (0.0, ""), 0, 0
     for name, p in leaf_paths(params):
-        w = after[name][boxes[name]].to(p.device)
-        want = m1[name][boxes[name]].to(p.device)
+        w, want = p1[name][boxes[name]], g1[name][boxes[name]]
         top = float(want.abs().max())
         grad = max(grad, (float((mine[name] - want).abs().max())
                           / max(top, 1e-30), name))
-        g = want.abs() / 0.1
+        g = want.abs()
         moved = g > 1e-5 * g.max()
         diff = (p - w).abs()
         over += int(((diff > tol) & moved).sum())
         sure = moved & ((g + ADAMW_EPS) ** 2
                         >= 1e3 * ADAMW_EPS * TP_GRAD_TOL * g.max())
-        held += int(sure.sum())
+        holds += int(sure.sum())
         if sure.any():
             worst = max(worst, (float((diff * sure).max()), name))
     return {"grad_err": grad[0], "grad_leaf": grad[1], "err": worst[0],
-            "leaf": worst[1], "held": held, "near_eps": over, "tol": tol}
+            "leaf": worst[1], "held": holds, "near_eps": over, "tol": tol}
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 above |t| (t in bf16; 8 significant bits), in
+    f32: 2^(e - 8) for |t| = m·2^e, m in [0.5, 1); bf16's least
+    subnormal for 0."""
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, torch.tensor(2.0 ** -133, device=t.device),
+                       torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                   e - 8))
+
+
+# The ranked Adafactor fed one process's gradient boxes, against one
+# process's update, bf16 parameters: one bf16 rounding of the result, plus
+# TP_STATS_TOL of the step's size |p1 - p0| for the f32 statistics (rows'
+# and columns' means of g², the clip) that the ranks sum in another
+# order. One ulp alone does not hold where p0 ≈ lr·u: p1 is tiny, and so
+# is its ulp. The step's own update, from the ranks' own bf16 gradients
+# (of which some lie one ulp off, gate (a)), moves each weight's u by its
+# gradient's change and every weight's by the statistics over those: it
+# is reported, not gated.
+TP_STATS_TOL = 1e-5
+
+
+def tp_bf16_gate(cfg, mesh, grads, before, params, held: dict,
+                 lr: float) -> dict:
+    """This rank's first step against its boxes of the one-process step
+    held on the card (``tp_train_one_process(..., hold=True)``), for bf16
+    parameters, whose gradients are bf16 too: each rounds an f32 sum that
+    the ranks form in another order, so an element may land one bf16 ulp
+    away. (a) Each gradient element (``grads``: those of the step)
+    within max(one bf16 ulp of it, TP_GRAD_TOL of its leaf's max|g|) of one
+    process's; the elements not bit for bit are counted. (b) The ranked
+    Adafactor (``ranked_adafactor_update``) fed one process's gradient
+    boxes from the weights before the step (``before``) gives each weight
+    within one bf16 ulp of one process's update plus TP_STATS_TOL of the
+    step |p1 - p0|. The step's own weights (``params``) are reported: how
+    many lie past one ulp, and the largest excess over it in units of the
+    step, where the gradient element is the same and where it differs."""
+    boxes = shard_boxes(cfg, tfm.abstract_params(cfg), mesh)
+    g1 = {name: leaf[boxes[name]] for name, leaf in leaf_paths(held["grads"])}
+    p1 = dict(leaf_paths(held["after"]))
+    mine, p0 = dict(leaf_paths(grads)), dict(leaf_paths(before))
+    fed = tree_map(torch.clone, before)
+    ranked_adafactor_update(
+        fed, unflatten(before, [g1[name] for name, _ in leaf_paths(before)]),
+        adafactor_init(fed), shards=adafactor_shards(cfg, mesh), lr=lr,
+        reduce=lambda t: mesh.transport.all_reduce(t, mesh.groups["model"],
+                                                   "adafactor"))
+    fed = dict(leaf_paths(fed))
+    out = {"grad_err": (0.0, ""), "grad_over": 0, "grad_flips": 0,
+           "update_over": 0, "fed_excess": 0.0, "fed_past_ulp": 0,
+           "past_ulp": 0, "excess_same": 0.0, "excess_other": 0.0,
+           "weights": 0}
+    for name, p in leaf_paths(params):
+        g, w = mine[name], g1[name]
+        want = p1[name][boxes[name]]
+        top = float(w.abs().max())
+        worst = 0.0
+        # in pieces of rows: a rank's f32 temporaries stay small
+        rows = max(1, (1 << 24) // max(1, p[0].numel())) if p.dim() else 1
+        for i in range(0, max(1, p.shape[0] if p.dim() else 1), rows):
+            part = (slice(i, i + rows),) if p.dim() else ()
+            gi, wi = g[part], w[part]
+            diff = (gi.float() - wi.float()).abs()
+            worst = max(worst, float(diff.max()))
+            out["grad_over"] += int((diff > torch.clamp(
+                bf16_ulp(wi), min=TP_GRAD_TOL * top)).sum())
+            same = gi == wi
+            out["grad_flips"] += int((~same).sum())
+            wp = want[part]
+            ulp = bf16_ulp(wp)
+            step = (wp.float() - p0[name][part].float()).abs()
+            off = (fed[name][part].float() - wp.float()).abs() - ulp
+            out["fed_past_ulp"] += int((off > 0).sum())
+            out["update_over"] += int((off > TP_STATS_TOL * step).sum())
+            out["fed_excess"] = max(out["fed_excess"], float(torch.where(
+                off > 0, off / step, 0.0).max()))
+            off = (p[part].float() - wp.float()).abs() - ulp
+            out["past_ulp"] += int((off > 0).sum())
+            excess = torch.where(off > 0, off / step, 0.0)
+            for key, mask in (("excess_same", same), ("excess_other",
+                                                      ~same)):
+                if mask.any():
+                    out[key] = max(out[key], float((excess * mask).max()))
+        out["grad_err"] = max(out["grad_err"], (worst / max(top, 1e-30),
+                                                name))
+        out["weights"] += p.numel()
+    return out
 
 
 def tp_replicas_equal(cfg, mesh, params) -> tuple:
     """(whether every rank of this rank's model line that holds the same
     box of a leaf holds the same bits, the leaves compared): each leaf that
     several ranks of a line hold (the KV heads of ``kv_head_pad``, the
-    replicated norms) gathered over the model group."""
+    replicated norms, the router, MLA's down-projections) gathered over
+    the model group."""
     like = tfm.abstract_params(cfg)
     shared = sorted({name for c in range(mesh.shape["model"])
                      for name, h in box_holders(cfg, like, mesh, c).items()
@@ -5017,40 +5188,56 @@ def tp_replicas_equal(cfg, mesh, params) -> tuple:
     return same, shared
 
 
-def tp_train_rank(rank, world, cell, batch, lr, keep, *, device):
+def tp_train_rank(rank, world, cell, batch, lr, held, *, device):
     """One rank of a ranked train cell (a job of ``run_jobs``: the
     world's cells run in turn): its shard of the seed-0 weights
-    (``init_shard_params``) and AdamW's state, ``make_train_step(cfg,
-    mesh=)`` on ``batch`` (the global batch) every step; the first step's
-    update against the one-process one where ``keep`` is given; the timed
-    steps between barriers (``rank_window``): the wall, the all-reduce,
-    gather and busy ms, the bytes sent each peer by kind, the kernels
-    launched, the peak; then the replicas compared bit for bit."""
-    name, layers, (data, model), compute, rows, warmup, steps = cell
+    (``init_shard_params``) and of the optimizer's state,
+    ``make_train_step(cfg, mesh=)`` on ``batch`` (the global batch) every
+    step, each MoE layer's dispatch in the first; the first step against
+    the one-process one where ``held`` (its gradients and update, on the
+    card) is given, with the gradients the ranked optimizer took in it
+    (``first_grads``); the timed steps between barriers
+    (``rank_window``): the wall, the all-reduce, gather and busy ms, the
+    bytes sent each peer by kind, the kernels launched, the peak; then the
+    replicas compared bit for bit."""
+    name, arch, layers, (data, model), compute, rows, warmup, steps = cell
     dev = torch.device(device)
     t_in = time.perf_counter()
     gc.collect()              # the world's cell before this one
     torch.cuda.empty_cache()
-    cfg = tp_train_config(layers, compute)
+    cfg = tp_train_config(arch, layers, compute)
     mesh = make_dev_mesh(world, model, dev,
                          group=torch.distributed.group.WORLD)
     params = init_shard_params(cfg, mesh, seed=0, device=dev)
-    opt = adamw_init(params)
-    step_fn = make_train_step(cfg, lr=lr, mesh=mesh)
+    opt = make_optimizer(cfg.optimizer)[0](params)
+    mine = {}
+    ranked = ((train_step_mod, "ranked_adafactor_update")
+              if cfg.optimizer == "adafactor"
+              else (optimizer_mod, f"{cfg.optimizer}_update"))
+    with first_grads(mine, *ranked) if held is not None \
+            else contextlib.nullcontext():
+        step_fn = make_train_step(cfg, lr=lr, mesh=mesh)
     batch = {k: v.to(dev) for k, v in batch.items()}
     torch.cuda.empty_cache()
     t_ready = time.perf_counter()
-    losses, norms, update, gate_s = [], [], None, 0.0
+    before = (tree_map(torch.clone, params) if held is not None
+              and cfg.optimizer == "adafactor" else None)
+    losses, norms, update, gate_s, routes = [], [], None, 0.0, []
     for s in range(warmup + steps):
         if s == warmup:
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = rank_window(mesh, dev)
-        params, opt, m = step_fn(params, opt, batch)
+        with recorded_routes(routes) if s == 0 else contextlib.nullcontext():
+            params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-        if s == 0 and keep:
+        if s == 0 and held is not None:
             t_gate = time.perf_counter()
-            update = tp_update_gate(cfg, mesh, params, opt.m, keep, lr)
+            update = (tp_bf16_gate(cfg, mesh, mine.pop("grads"), before,
+                                   params, held, lr) if before is not None
+                      else tp_update_gate(cfg, mesh, mine.pop("grads"),
+                                          params, held, lr))
+            before = held = None
             gate_s = time.perf_counter() - t_gate
     out = rank_window_end(mesh, dev, t0)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -5062,24 +5249,68 @@ def tp_train_rank(rank, world, cell, batch, lr, keep, *, device):
             "warmup_s": t0 - t_ready - gate_s,
             "job_s": time.perf_counter() - t_in,
             "reduce_ms": sum(net.ms.get(k, 0.0) for k in (
-                "reduce", "grad", "replica", "scalar")),
+                "reduce", "grad", "replica", "adafactor", "scalar")),
             "gather_ms": net.ms["gather"], "replicas_equal": same,
-            "shared": shared}
+            "shared": shared, "routes": moe_layer_routes(routes, cfg)}
+
+
+def tp_train_reduces(cfg) -> float:
+    """All-reduces of [tokens, d_model] a rank of a model line joins in
+    one ranked train step, in units of that size: the embedding's; per
+    layer the attention's ``wo`` sum twice (the forward, and the
+    recomputed block under remat full, which stops recomputing at the last
+    tensor the backward saved, before the FFN's or the experts' sum) and
+    its f once (GQA: the input; MLA: the latents q_lat, ckv and k_rope,
+    narrower); the dense FFN's sum and f, or the MoE's stacked sum (the
+    combine, and the shared experts' partial beside it) and f; the head's
+    f."""
+    if cfg.attention == "mla":
+        m = cfg.mla
+        attn = 2 + (m.q_lora_rank + m.kv_lora_rank + m.qk_rope_dim) \
+            / cfg.d_model
+    else:
+        attn = 3
+    ffn = {"dense": 2, "moe": 2 + bool(cfg.moe and cfg.moe.n_shared_experts)}
+    return 2 + sum(depth * (attn + ffn[seg])
+                   for seg, depth in tfm.layer_kinds(cfg).items())
+
+
+def tp_adafactor_bytes(cfg, mesh) -> tuple:
+    """(the bytes of the ranked Adafactor's all-reduces of more than one
+    element in one step, the number of one element): for each leaf of the
+    rank's shard that its box splits, the row sums of g² where its last
+    dim splits, the column sums and the rows' ``vr`` sums where its second
+    last does, and the clip sums, one a layer slice; f32."""
+    shard = dict(leaf_paths(shard_tree(cfg, tfm.abstract_params(cfg),
+                                       mesh)))
+    total, scalars = 0, 0
+    for name, sh in adafactor_shards(cfg, mesh).items():
+        if not sh.split:
+            continue
+        p = shard[name]
+        if p.dim() >= 2 and p.dim() - 1 in sh.split:
+            total += p.numel() // p.shape[-1]
+        if p.dim() >= 2 and p.dim() - 2 in sh.split:
+            total += p.numel() // p.shape[-2] + p.numel() // (
+                p.shape[-1] * p.shape[-2])
+        clips = p.shape[0] if p.dim() >= 3 else 1
+        total, scalars = (total + clips, scalars) if clips > 1 else (
+            total, scalars + 1)
+    return 4 * total, scalars
 
 
 def tp_train_bytes(cfg, coords: dict, mesh_shape, rows: int, seq: int,
                    runs) -> dict:
     """The bytes the rank at ``coords`` sends each peer in one ranked train
     step, by kind: to each other rank of its model line (``reduce``) the
-    embedding's all-reduce, each layer's two forward all-reduces, the
-    attention's again in the recomputed block (remat full stops
-    recomputing at the last tensor the backward saved, before the FFN's)
-    and the attention's and the FFN's input gradients (Megatron's f), and
-    the head's input gradient, [rows·seq, d_model] f32 each; its logits
-    [rows·seq, V / model] in the compute dtype (``gather``); to the other
-    holders of a KV head its wk and wv gradients in f32 (``replica``); to
-    its data peer every gradient of its shard in f32 (``grad``); |g|² to
-    the model peers and the loss to the data peer (``scalar``)."""
+    all-reduces of ``tp_train_reduces``, [rows·seq, d_model] f32 each; its
+    logits [rows·seq, V / model] in the compute dtype (``gather``); with
+    Adafactor its statistics (``adafactor``, ``tp_adafactor_bytes``); to
+    the other holders of a box of the sharded region (a KV head, the
+    router and its bias) its gradient in f32 (``replica``); to its data
+    peer every gradient of its shard in f32 (``grad``); |g|² and
+    Adafactor's one-element clip sums to the model peers and the loss to
+    the data peer (``scalar``)."""
     data, model = mesh_shape
     at = {tuple(r["coords"].values()): i for i, r in enumerate(runs)}
     d, c = coords["data"], coords["model"]
@@ -5090,14 +5321,18 @@ def tp_train_bytes(cfg, coords: dict, mesh_shape, rows: int, seq: int,
                                        mesh)))
     want = {k: [0] * len(runs) for k in ("p2p", "reduce", "gather",
                                          "scalar")}
+    factor, clips = (tp_adafactor_bytes(cfg, mesh)
+                     if cfg.optimizer == "adafactor" else (0, 0))
     for m in range(model):
         if m != c:
             p = at[(d, m)]
-            want["reduce"][p] = (1 + 5 * cfg.n_layers + 1) * t \
-                * cfg.d_model * 4
+            want["reduce"][p] = round(tp_train_reduces(cfg) * t
+                                      * cfg.d_model * 4)
             want["gather"][p] = t * cfg.vocab_size // model \
                 * tfm.dtype_of(cfg.compute_dtype).itemsize
-            want["scalar"][p] = 4
+            want["scalar"][p] = 4 * (1 + clips)
+            if factor:
+                want.setdefault("adafactor", [0] * len(runs))[p] = factor
     for name, holders in replica_leaves(cfg, mesh).items():
         for m in holders:
             if m != c:
@@ -5115,72 +5350,96 @@ def phase_train_ranks(dev, cells=TRAIN_TP_CELLS, seq=2048, lr=3e-4) -> dict:
     """Training with a model axis on rank processes that share the card
     (``make_train_step(cfg, mesh=)`` on ``make_dev_mesh(n, model,
     group=)``; ``dist.tensor_parallel``'s collectives with their backward,
-    through gloo over pinned host buffers). Each cell trains starcoder2-3b
-    at full width (cut in depth where the cell says), f32 parameters and
-    AdamW, remat full, on ``SyntheticLM``'s learnable batch 0 of ``data``
-    x ``rows`` x ``seq`` every step (one batch, so that the loss must
-    fall), each rank drawing only its shard of the seed-0 weights and
-    holding only its shard of AdamW's moments. First every cell's
-    yardstick, the one-process step on the same weights and batch, each
-    freed before the next; then one world of ranks a world size runs the
-    cells in turn: ``warmup`` steps, then ``steps`` timed between
-    barriers. Gates: no B1-B4 launch in a step on any rank; the first
-    step's loss and |g| against one process's (TP_TRAIN_LOSS_TOL,
+    through gloo over pinned host buffers). Each cell trains its arch at
+    full width (cut in depth where the cell says) with its own parameter
+    dtype and optimizer (starcoder2-3b: f32 and AdamW; grok-1-314b and
+    deepseek-v3-671b: bf16 and Adafactor), remat full, on ``SyntheticLM``'s
+    learnable batch 0 of ``data`` x ``rows`` x ``seq`` every step (one
+    batch, so that the loss must fall), each rank drawing only its shard of
+    the seed-0 weights and holding only its shard of the optimizer's state.
+    One world of ranks a world size runs the cells in turn, after their
+    yardsticks (the one-process step on the same weights and batch, each
+    freed before the next but for what an f32 cell's gate reads on the
+    card: its first step's gradients and update, held through CUDA IPC, no
+    copy). The f32 cells get a world of their own, last, so that what they
+    hold (deepseek-v3-671b-d3's 14.4 GB, starcoder2-3b-d4's 5.6 GB) never
+    shares the card with the bf16 cells' ranks (grok-1-314b-d2's 4 x 13 GB)
+    or yardsticks (71.9 GB). Each cell: ``warmup`` steps, then ``steps``
+    timed between barriers. Gates: no B1-B4 launch in a step on any rank;
+    the first step's loss and |g| against one process's (TP_TRAIN_LOSS_TOL,
     TP_TRAIN_NORM_TOL; in f32 every step's); the loss falling from step to
     step; the bytes each rank sends each peer by kind equal their formula
     (``tp_train_bytes``); the ranks that hold the same box of a leaf hold
-    the same bits after the steps (``tp_replicas_equal``); in f32 the
-    first step held to the one-process step's boxes
-    (``tp_update_gate``). Reports per cell ms a step (slowest rank) and
-    tok/s beside one process's, and per rank its all-reduce and gather ms
-    and share of the wall, busy ms and peak."""
+    the same bits after the steps (``tp_replicas_equal``); in f32 the first
+    step held to the one-process step's boxes (``tp_update_gate`` with
+    AdamW, ``tp_bf16_gate`` with Adafactor's bf16 parameters). Reports per
+    cell ms a step (slowest rank) and tok/s beside one process's, per rank
+    its all-reduce and gather ms and share of the wall, busy ms and peak,
+    and for the moe cells the MoE slots each rank routed otherwise than one
+    process in the first step."""
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="train-ranks-")
-    ones, worlds = {}, {}
+    ones, runs, worlds = {}, {}, {}
+    for cell in cells:      # a world a size; the f32 cells' apart, last
+        (data, model), compute = cell[3], cell[4]
+        worlds.setdefault((compute == "float32", data * model),
+                          []).append(cell)
     try:
-        for cell in cells:
-            name, layers, (data, model), compute, rows, warmup, steps = cell
+        for (hold, world), group in sorted(worlds.items()):
+            jobs = []
+            for cell in group:
+                name, arch, layers, (data, model), compute = cell[:5]
+                rows, warmup, steps = cell[5:]
+                t0 = time.perf_counter()
+                cfg = tp_train_config(arch, layers, compute)
+                batch = tp_train_batch(cfg, data * rows, seq)
+                ones[name] = tp_train_one_process(cfg, dev, batch, warmup,
+                                                  steps, lr, hold)
+                log(f"[train ranks] {name}: {cfg.name} at full width, "
+                    f"{cfg.n_layers} layers, {cfg.param_dtype} parameters, "
+                    f"{cfg.optimizer}, {compute} compute, on a ({data}, "
+                    f"{model}) mesh of {data * model} rank processes, "
+                    f"kv_head_pad {kv_head_pad(cfg, model)}; the yardstick "
+                    f"{time.perf_counter() - t0:.1f} s, peak "
+                    f"{ones[name]['peak_gb']:.2f} GB")
+                jobs.append((tp_train_rank, (cell, batch, lr,
+                                             ones[name]["held"]), {}))
+            log(f"[train ranks] this process holds "
+                f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+                f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved) "
+                "as the ranks start")
             t0 = time.perf_counter()
-            cfg = tp_train_config(layers, compute)
-            batch = tp_train_batch(cfg, data * rows, seq)
-            keep = (os.path.join(tmp, f"{name}.pt") if compute == "float32"
-                    else None)
-            ones[name] = tp_train_one_process(cfg, dev, batch, warmup, steps,
-                                              lr, keep)
-            log(f"[train ranks] {name}: {cfg.name} at full width, "
-                f"{cfg.n_layers} layers, {compute} compute, on a ({data}, "
-                f"{model}) mesh of {data * model} rank processes, "
-                f"kv_head_pad {kv_head_pad(cfg, model)}; the yardstick "
-                f"{time.perf_counter() - t0:.1f} s, peak "
-                f"{ones[name]['peak_gb']:.2f} GB")
-            worlds.setdefault(data * model, []).append(
-                (cell, (tp_train_rank, (cell, batch, lr, keep), {})))
-        log(f"[train ranks] this process holds "
-            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB as the ranks "
-            "start")
-        runs = {}
-        for world, jobs in worlds.items():
-            t0 = time.perf_counter()
-            got = spawn_ranks(run_jobs, world, [job for _, job in jobs],
-                              device=dev, timeout=900)
-            runs.update({cell[0]: [r[i] for r in got]
-                         for i, (cell, _) in enumerate(jobs)})
+            got = spawn_ranks(run_jobs, world, jobs, device=dev, timeout=900)
+            jobs.clear()
+            for i, cell in enumerate(group):
+                runs[cell[0]] = [r[i] for r in got]
+                ones[cell[0]]["held"] = None
             wall = time.perf_counter() - t0
             busy = sum(max(r[i]["job_s"] for r in got)
-                       for i in range(len(jobs)))
-            log(f"[train ranks] {len(jobs)} cells on one world of {world} "
+                       for i in range(len(group)))
+            log(f"[train ranks] {len(group)} cells on one world of {world} "
                 f"ranks: {wall:.1f} s, of which the cells {busy:.1f} s "
                 f"(slowest rank each) and the world's start and end "
                 f"{wall - busy:.1f} s")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for one in ones.values():
+            one["held"] = None
+        gc.collect()
+        torch.cuda.empty_cache()
     out = {}
     for cell in cells:
-        cfg = tp_train_config(cell[1], cell[3])
+        cfg = tp_train_config(*cell[1:3], cell[4])
         out[cell[0]] = tp_train_report(cell[0], cfg, cell, runs[cell[0]],
                                        ones[cell[0]], seq)
     log(f"[train ranks] phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def tp_route_flips(runs, one: dict) -> list:
+    """Per rank, per MoE layer: the slots [T, k] whose expert or kept flag
+    differs from one process's in the first step's forward."""
+    return [[int(((e != e1) | (k != k1)).sum())
+             for (e, k), (e1, k1) in zip(r["routes"], one["routes"])]
+            for r in runs]
 
 
 def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
@@ -5189,7 +5448,7 @@ def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
     (``phase_train_ranks``); returns each rank's launches, ms a step (the
     slowest rank's) beside one process's, each rank's peak and all-reduce
     share of its wall."""
-    _, _, (data, model), compute, rows, warmup, steps = cell
+    _, _, _, (data, model), compute, rows, warmup, steps = cell
     tokens = data * rows * seq
     wall = max(r["wall_ms"] for r in runs) / steps
     log(f"[train ranks] {name}: {wall:.1f} ms a step (host clock between "
@@ -5200,12 +5459,17 @@ def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
         f"{sum(r['peak_gb'] for r in runs):.2f} GB in all [{card()}]")
     log(f"[train ranks]   losses {runs[0]['losses']} vs one process "
         f"{one['losses']}; |g| {runs[0]['norms']} vs {one['norms']}")
+    if one["routes"]:
+        log(f"[train ranks]   MoE slots [T, k] routed otherwise than one "
+            f"process in the first step, per rank per layer: "
+            f"{tp_route_flips(runs, one)} of {one['routes'][0][0].numel()}"
+            " a layer")
     slow = max(runs, key=lambda r: r["job_s"])
     log(f"[train ranks]   slowest rank's {slow['job_s']:.1f} s: set-up "
-        f"(weights, AdamW state) {slow['setup_s']:.1f} s, warm-up "
-        f"{slow['warmup_s']:.1f} s, first-update gate {slow['gate_s']:.1f} "
+        f"(weights, optimizer state) {slow['setup_s']:.1f} s, warm-up "
+        f"{slow['warmup_s']:.1f} s, first-step gate {slow['gate_s']:.1f} "
         f"s, timed steps {slow['wall_ms'] / 1e3:.1f} s; the yardstick "
-        f"{one['s']:.1f} s (saving its first step {one['save_s']:.1f} s)")
+        f"{one['s']:.1f} s")
     failed = []
     loss_tol, norm_tol = TP_TRAIN_LOSS_TOL[compute], TP_TRAIN_NORM_TOL[compute]
     gated = len(one["losses"]) if compute == "float32" else 1
@@ -5222,8 +5486,25 @@ def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
             f"exchanges); bytes a step to each peer {per} (formula {want}); "
             f"kernel launches {r['launches']}; replicas of "
             f"{len(r['shared'])} leaves bit for bit: {r['replicas_equal']}")
-        if r["update"] is not None:
-            u = r["update"]
+        u = r["update"]
+        if u is not None and "grad_flips" in u:
+            log(f"[train ranks]   rank {r['coords']}: first step against "
+                f"one process's boxes: gradients within "
+                f"{u['grad_err'][0]:.3e} of a leaf's max "
+                f"({u['grad_err'][1]}), {u['grad_over']} elements past "
+                f"max(one bf16 ulp, {TP_GRAD_TOL:.0e} of the leaf's max), "
+                f"{u['grad_flips']} of {u['weights']} not bit for bit; "
+                f"Adafactor fed one process's gradients: {u['fed_past_ulp']}"
+                f" weights past one bf16 ulp of its update, the largest "
+                f"excess {u['fed_excess']:.3e} of the step's size (tol "
+                f"{TP_STATS_TOL:.0e}), {u['update_over']} past it; the "
+                f"step's own update: {u['past_ulp']} weights past one ulp, "
+                f"the largest excess {u['excess_same']:.3e} of the step "
+                f"where the gradient element is the same, "
+                f"{u['excess_other']:.3e} where it differs")
+            if u["grad_over"] or u["update_over"]:
+                failed.append(f"{name}: rank {r['coords']} first step {u}")
+        elif u is not None:
             log(f"[train ranks]   rank {r['coords']}: first step against "
                 f"one process's boxes: gradients within {u['grad_err']:.3e}"
                 f" of a leaf's max ({u['grad_leaf']}; tol {TP_GRAD_TOL:.0e})"

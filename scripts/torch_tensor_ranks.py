@@ -1,7 +1,7 @@
 """Run ``chip_smoke.py``'s tensor-parallel serving phase alone on the GPU:
 build the kernels, run ``phase_tensor_ranks`` (each cell of ``TP_CELLS``
 on rank processes that share the card, against its one-process
-yardstick: yi-6b-tp2-r2, starcoder2-3b-tp4-r4, grok-1-314b-d8-tp4-r4,
+yardstick: yi-6b-tp2-r2, starcoder2-3b-d10-tp4-r4, grok-1-314b-d4-tp4-r4,
 deepseek-v3-671b-d5-tp4-r4, grok-1-314b-d2-dp2-tp2-r4,
 mamba2-1.3b-d12-tp4-r4, zamba2-1.2b-d14-tp4-r4,
 seamless-m4t-large-v2-tp2-r2) and time B2, B3 and B4 at the ranks'

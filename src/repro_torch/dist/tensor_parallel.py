@@ -2,7 +2,7 @@
 ranks (``launch.mesh.Mesh(..., group=)``) for serving every family: dense,
 vlm and moe (GQA or MLA attention), ssm (Mamba-2), hybrid (Mamba-2 with
 the shared attention block) and encdec (cross-attention); and for training
-the dense and vlm families.
+the dense, vlm and moe families (GQA or MLA attention).
 
 The JAX package has no counterpart: its launchers place the weights and
 the decode cache by ``param_specs``/``cache_specs`` on a mesh of devices
@@ -105,9 +105,17 @@ so the gradient of every replicated activation is whole on every rank,
 and each sharded weight's gradient is its own slice of the one-process
 gradient. A leaf that several ranks of a model line hold and that the
 sharded region reads (:func:`box_holders`; qwen3's ``q_norm``/``k_norm``
-on head-sharded q and k, a KV head replicated ``kv_head_pad`` times) gets
-on each rank the gradient of that rank's heads only: the trainer
-(``train.train_step``) sums it over its holders. All sums stay in f32 (or
+on head-sharded q and k, a KV head replicated ``kv_head_pad`` times, the
+MoE's whole router, which each rank reads for its own slots only) gets on
+each rank the gradient of that rank's heads or slots only: the trainer
+(``train.train_step``) sums it over its holders. :func:`sum_partials`,
+the MoE's combine and shared experts' sum, is Megatron's g (its backward
+the identity on each stacked partial), and the MoE's input enters through
+f. MLA's ``wq_a``, ``wkv_a``, ``q_ln`` and ``kv_ln`` are whole on every
+rank and feed the head-sharded ``wq_b``/``wkv_b``: their outputs, the
+latents, enter the heads through one f (:func:`copy_all_to_model`), so
+the gradients of those leaves and of the attention's input come out whole
+on every rank and nothing else is summed. All sums stay in f32 (or
 wider), in the backward as in the forward. Under ``remat`` the
 checkpointed blocks run their forward collectives again in the backward,
 on every rank in the same order.
@@ -115,8 +123,8 @@ on every rank in the same order.
 What a model axis on ranks does not run raises ``ValueError`` naming its
 ROADMAP item (:func:`check_tp`): a vocabulary the axis does not divide
 (the d_model-sharded embedding and head, A8d5b). Under grad
-:func:`group_rms_norm` (ssm, hybrid: A8d6c) and :func:`sum_partials` (moe:
-A8d6b) raise: they have no backward yet.
+:func:`group_rms_norm` (ssm, hybrid: A8d6c) raises: it has no backward
+yet.
 """
 
 from __future__ import annotations
@@ -278,6 +286,18 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     return x if mesh is None else _Copy.apply(x, mesh)
 
 
+def copy_all_to_model(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``xs`` (one dtype, one shape but the last dim) entering
+    column-parallel products together: Megatron's f on their concatenation,
+    so that the backward sums their gradients over the model group in one
+    all-reduce. ``xs`` themselves without tensor parallelism."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return xs
+    both = _Copy.apply(torch.cat(xs, dim=-1), mesh)
+    return tuple(both.split([x.shape[-1] for x in xs], dim=-1))
+
+
 def group_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
                    ) -> torch.Tensor:
     """``rms_norm(x, w)`` over the whole last dim of which ``x`` [..., n]
@@ -311,13 +331,12 @@ def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
     """f32 partials of one shape summed over the model group in one
     all-reduce (each its own sum: stacked, reduced, split): the MoE's
-    combine and its shared experts' ``w_out`` product. The identity
-    without tensor parallelism."""
+    combine and its shared experts' ``w_out`` product. Under grad the
+    sum's backward is the identity on each partial (Megatron's g). The
+    identity without tensor parallelism."""
     mesh = tp_mesh()
     if mesh is None:
         return list(parts)
-    for t in parts:
-        _no_grad(t, "the moe family", "sum_partials", "A8d6b")
     both = _sum(mesh, torch.stack(parts) if len(parts) > 1
                     else parts[0][None])
     return list(both.unbind(0))
@@ -464,17 +483,33 @@ def _at(mesh, model: int):
                            coords={**mesh.coords, "model": model})
 
 
+def _factor_box(box, factor: str, ndim: int):
+    """The box of Adafactor's ``factor`` ("vr" or "vc") of a parameter of
+    ``ndim`` dims whose box is ``box``, as ``optimizer.opt_state_specs``
+    derives the factors' specs: a row factor drops the last dim's entry, a
+    column factor the second last; a vector's vr is its box, its vc (a [1]
+    placeholder) whole."""
+    if ndim < 2:
+        return box if factor == "vr" else (slice(None),)
+    return box[:-1] if factor == "vr" else box[:-2] + box[-1:]
+
+
 def shard_boxes(cfg: ModelConfig, tree: Any, mesh, model: int = None
                 ) -> dict:
     """``{leaf name: box}`` of ``tree``, a whole parameter tree or a tree
     that holds whole parameter trees (the optimizer's state, ``{"params",
     "opt"}``; any device, ``meta`` included): each parameter leaf's box is
     this rank's (or model coordinate ``model``'s) box of the whole leaf
-    (``shard_params``' index: a tuple of slices, the dense and vlm
-    families); every other leaf (the optimizer's step) is whole. The
-    ranked checkpoint writes and reads these boxes."""
+    (``shard_params``' index: a tuple of slices); AdamW's moments take
+    their parameter's box, Adafactor's factors ``vr``/``vc`` theirs
+    (:func:`_factor_box`); every other leaf (the optimizer's step) is
+    whole. The ranked checkpoint writes and reads these boxes."""
+    from ..models.transformer import abstract_params
+
     check_tp(cfg, mesh.shape["model"])
     specs = param_shard_specs(cfg, mesh)
+    shapes = {name: tuple(leaf.shape)
+              for name, leaf in leaf_paths(abstract_params(cfg))}
     at = mesh if model is None else _at(mesh, model)
     out = {}
     for name, leaf in leaf_paths(tree):
@@ -484,8 +519,11 @@ def shard_boxes(cfg: ModelConfig, tree: Any, mesh, model: int = None
             for k in keys[i:]:
                 spec = spec.get(k) if isinstance(spec, dict) else None
             if spec is not None and not isinstance(spec, dict):
-                out[name] = _param_index(cfg, keys[i:], spec,
-                                         tuple(leaf.shape), at)
+                shape = shapes["/".join(keys[i:])]
+                box = _param_index(cfg, keys[i:], spec, shape, at)
+                if i and keys[i - 1] in ("vr", "vc"):
+                    box = _factor_box(box, keys[i - 1], len(shape))
+                out[name] = box
                 break
         else:
             out[name] = (slice(None),) * leaf.dim()
@@ -623,8 +661,8 @@ def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
 
 
 __all__ = ["TRAINING", "box_holders", "cache_shard_specs", "check_tp",
-           "copy_to_model", "group_rms_norm", "init_shard_cache",
-           "init_shard_params", "owned", "param_shard_specs", "require",
-           "row_product", "shard_boxes", "shard_cache", "shard_index",
-           "shard_params", "shard_tree", "sum_partials", "tp_mesh",
-           "vocab_embed", "vocab_gather"]
+           "copy_all_to_model", "copy_to_model", "group_rms_norm",
+           "init_shard_cache", "init_shard_params", "owned",
+           "param_shard_specs", "require", "row_product", "shard_boxes",
+           "shard_cache", "shard_index", "shard_params", "shard_tree",
+           "sum_partials", "tp_mesh", "vocab_embed", "vocab_gather"]

@@ -16,8 +16,8 @@ devices: rank r sits at r's row-major position over ``axis_names``. Each rank kn
 line along each axis (``groups``, ``line``) and a ``TensorTransport``
 over the whole group. Every axis runs on ranks: the pipe and data axes
 for the pipelined trainer, the data and model axes for tensor-parallel
-serving of every family and for training of the dense and vlm families
-(``dist.tensor_parallel``: each rank holds its shard of the weights, of
+serving of every family and for training of the dense, vlm and moe
+families (``dist.tensor_parallel``: each rank holds its shard of the weights, of
 the optimizer state and of the decode cache and exchanges partial
 products over ``groups["model"]``). What a model axis > 1 on ranks does
 not run refuses where it is called: the pipelined trainer (the

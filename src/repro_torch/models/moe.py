@@ -27,11 +27,16 @@ On a mesh of ranks with a model axis (``dist.tensor_parallel``) a rank
 holds its experts (or every expert's slice of the hidden dim), routes
 every token of its row with the whole router and sums its combine over
 the model group (``moe_ffn``); no all-to-all: every rank of a model group
-holds the same tokens. The expert products are plain batched matrix
-products (``torch.bmm``), as the JAX package computes them outside any
-Pallas kernel. ``moe_ref`` is a
-plain version written apart from the dispatch: it walks the experts one by
-one and runs one FFN per expert on the tokens it keeps (one row).
+holds the same tokens. Under grad the combine's sum is Megatron's g and
+the layer's input enters through f (``transformer._mlp``): a rank's
+gradients of the input and of the whole router come from its own slots
+only, and the trainer sums the router's over the group
+(``train_step.replica_leaves``); ``router_bias`` only selects, so its
+gradient is zero, as on one process. The expert products are plain
+batched matrix products (``torch.bmm``), as the JAX package computes them
+outside any Pallas kernel. ``moe_ref`` is a plain version written apart
+from the dispatch: it walks the experts one by one and runs one FFN per
+expert on the tokens it keeps (one row).
 """
 
 from __future__ import annotations

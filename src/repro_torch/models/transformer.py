@@ -40,9 +40,11 @@ vocab-sharded embedding is looked up with a mask (``vocab_embed``) and the
 logits gathered (``vocab_gather``); MLA's latent cache is whole on every
 rank, and the hybrid's ring, the encdec's self and cross caches and the
 SSM states are the rank's heads. Without one those calls are the
-identity. For training (the dense and vlm families) the replicated
-activations enter the column-parallel products of the attention, the FFN
-and the head through ``copy_to_model`` (Megatron's f), and a data rank's
+identity. For training the replicated activations enter the
+column-parallel products of the attention, the FFN, the experts and the
+head through ``copy_to_model`` (Megatron's f); MLA's latents, which the
+whole ``wq_a`` and ``wkv_a`` give every rank, enter its heads through one
+f of the three (``copy_all_to_model``; ``_mla_full``); and a data rank's
 ``lm_loss`` divides by the global batch's label count it is given.
 """
 
@@ -58,8 +60,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ModelConfig
 from ..dist.ctx import act_spec, annotate
 from ..dist.sharding import P
-from ..dist.tensor_parallel import (copy_to_model, require, row_product,
-                                    vocab_embed, vocab_gather)
+from ..dist.tensor_parallel import (copy_all_to_model, copy_to_model,
+                                    require, row_product, vocab_embed,
+                                    vocab_gather)
 from ..kernels._build import needs_grad
 from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
@@ -77,12 +80,18 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # The parameter subtrees whose products run between ``copy_to_model`` and
-# a ``row_product`` under tensor parallelism: a leaf of them that several
-# ranks of a model line hold (``tensor_parallel.box_holders``: qwen3's
-# replicated q_norm and k_norm, a KV head replicated kv_head_pad times)
-# acts on the rank's own heads only, so its gradient on a rank is that
-# rank's part of the whole.
-TP_REGIONS = frozenset({"attn", "ffn"})
+# a ``row_product`` (or the experts' ``sum_partials``) under tensor
+# parallelism: a leaf of them that several ranks of a model line hold
+# (``tensor_parallel.box_holders``: qwen3's replicated q_norm and k_norm, a
+# KV head replicated kv_head_pad times, the MoE's whole router) acts on the
+# rank's own heads or slots only, so its gradient on a rank is that rank's
+# part of the whole.
+TP_REGIONS = frozenset({"attn", "ffn", "moe"})
+# The leaves of those subtrees read before their f: MLA's down-projections
+# and their norms, whose outputs enter the heads through
+# ``copy_all_to_model`` (``_mla_full``), so their gradient is whole on
+# every rank that holds them.
+TP_AHEAD = frozenset({"wq_a", "q_ln", "wkv_a", "kv_ln"})
 
 
 # =============================================================== parameters
@@ -169,12 +178,15 @@ def layer_kinds(cfg: ModelConfig) -> Dict[str, int]:
     """Named layer segments -> stack depth (the hybrid's shared attention
     block is not stacked, so not a segment). The moe family's leading
     dense layers are a segment of their own, left out when there are
-    none."""
+    none, and so is its MoE segment (a config cut to its leading dense
+    layers, deepseek-v3-671b's first 3: ``repro`` would give it an
+    unstacked MoE tree, which its layer scan cannot run)."""
     if cfg.family in ("dense", "vlm"):
         return {"dense": cfg.n_layers}
     if cfg.family == "moe":
-        fd = cfg.moe.first_dense_layers
-        return {**({"dense": fd} if fd else {}), "moe": cfg.n_layers - fd}
+        fd = min(cfg.moe.first_dense_layers, cfg.n_layers)
+        return {**({"dense": fd} if fd else {}),
+                **({"moe": cfg.n_layers - fd} if cfg.n_layers > fd else {})}
     if cfg.family in ("ssm", "hybrid"):
         return {"ssm": cfg.n_layers}
     if cfg.family == "encdec":
@@ -333,16 +345,22 @@ def _mla_full(cfg: ModelConfig, p, x):
     """Full-sequence MLA (prefill); returns (out, (ckv [B, S, r] after its
     norm, k_rope [B, S, rope] after RoPE)). The attention (q and k of nope +
     rope, v of v_head_dim) runs through ``chunked_attention``, as in the
-    reference. The heads are those of ``p``'s (local) ``wq_b``."""
+    reference. The heads are those of ``p``'s (local) ``wq_b``. Under
+    tensor parallelism every rank computes the latents (q_lat, ckv and
+    k_rope) whole, and they enter its heads through one f
+    (``copy_all_to_model``): the backward sums the heads' parts of their
+    gradients, so those of ``wq_a``, ``wkv_a``, their norms and ``x`` are
+    whole on every rank (``TP_AHEAD``)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = _mla_heads(cfg, p)
     q_lat = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
-    q = (q_lat @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
-    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     ckv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
                                          dim=-1)
     ckv = rms_norm(ckv, p["kv_ln"], cfg.norm_eps)
+    q_lat, ckv, k_rope = copy_all_to_model(q_lat, ckv, k_rope)
+    q = (q_lat @ p["wq_b"]).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     kvb = (ckv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = kvb.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
     cos, sin = rope_freqs(torch.arange(s, device=x.device), m.qk_rope_dim,
@@ -428,7 +446,7 @@ def _mlp(cfg: ModelConfig, p, h):
     """A block's FFN on h [B, S, D]: the experts of a moe block (``"moe"``
     in its parameters), the dense FFN otherwise."""
     if "moe" in p:
-        return moe_ffn(h, p["moe"], cfg.moe, cfg.ffn,
+        return moe_ffn(copy_to_model(h), p["moe"], cfg.moe, cfg.ffn,
                        dtype_of(cfg.compute_dtype))
     return _ffn_apply(cfg, p["ffn"], h)
 

@@ -13,6 +13,16 @@ updated one layer at a time, as the reference scans them
 (``REPRO_OPT_SCAN``, default on): the f32 temporaries stay one layer's
 size. For Adafactor this changes the result: its update clip
 ``sqrt(mean(u²))`` is then taken per layer slice.
+
+On a model axis of ranks each rank holds a box of each leaf
+(``dist.tensor_parallel.shard_boxes``). AdamW is elementwise, so each
+rank updates its boxes alone. :func:`ranked_adafactor_update` gives each
+rank its boxes of what ``adafactor_update`` gives the whole leaves, per
+layer slice as the layer loop takes them: each statistic that spans the
+rank's box (the means of g² over a split dim, the mean of ``vr`` over
+split rows, the clip's mean of u²) is summed over the model group in f32,
+each box counted by one of the ranks that hold it, one all-reduce per
+leaf for all its slices.
 """
 
 from __future__ import annotations
@@ -22,21 +32,26 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from .tree import leaves, tree_map
+from .tree import leaf_paths, leaves, tree_map
+
+
+def _slices(p: torch.Tensor, *rest: torch.Tensor) -> list:
+    """The operands the update runs on: ``[(p, *rest)]``, or each layer's
+    slices of a stacked leaf (ndim >= 3 and every operand with p's leading
+    dim) when ``REPRO_OPT_SCAN`` is on."""
+    lead = p.shape[0] if p.ndim >= 3 else None
+    if (os.environ.get("REPRO_OPT_SCAN", "1") != "1" or not lead
+            or any(r.ndim < 1 or r.shape[0] != lead for r in rest)):
+        return [(p, *rest)]
+    return [(p[i], *(r[i] for r in rest)) for i in range(lead)]
 
 
 def _layer_scanned(fn: Callable, p: torch.Tensor, *rest: torch.Tensor
                    ) -> None:
     """``fn(p, *rest)`` on the whole leaf, or on each layer's slice of a
-    stacked leaf (ndim >= 3 and every operand with p's leading dim) when
-    ``REPRO_OPT_SCAN`` is on. ``fn`` updates its operands in place."""
-    lead = p.shape[0] if p.ndim >= 3 else None
-    if (os.environ.get("REPRO_OPT_SCAN", "1") != "1" or not lead
-            or any(r.ndim < 1 or r.shape[0] != lead for r in rest)):
-        fn(p, *rest)
-        return
-    for i in range(lead):
-        fn(p[i], *(r[i] for r in rest))
+    stacked leaf (``_slices``). ``fn`` updates its operands in place."""
+    for ops in _slices(p, *rest):
+        fn(*ops)
 
 
 def _next_step(step: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,13 +122,9 @@ def adafactor_init(params) -> AdafactorState:
         vr=tree_map(vr, params), vc=tree_map(vc, params))
 
 
-@torch.no_grad()
-def adafactor_update(params, grads, state: AdafactorState, *, lr=1e-3,
-                     decay=0.8, eps=1e-30, clip=1.0):
-    """One Adafactor step; params, vr and vc are updated in place. Returns
-    (params, the new state)."""
-    step, t = _next_step(state.step)
-    beta = 1.0 - t ** -decay
+def _adafactor_leaf(beta, lr, eps, clip) -> Callable:
+    """``upd_leaf(p, g, vr, vc)``: one-process Adafactor on a whole leaf
+    or a layer slice of it, in place."""
 
     def upd_leaf(p, g, vr, vc):
         g = g.float()
@@ -131,11 +142,114 @@ def adafactor_update(params, grads, state: AdafactorState, *, lr=1e-3,
         u = u / torch.clamp(norm / clip, min=1.0)
         p.copy_((p.float() - lr * u).to(p.dtype))
 
+    return upd_leaf
+
+
+@torch.no_grad()
+def adafactor_update(params, grads, state: AdafactorState, *, lr=1e-3,
+                     decay=0.8, eps=1e-30, clip=1.0):
+    """One Adafactor step; params, vr and vc are updated in place. Returns
+    (params, the new state)."""
+    step, t = _next_step(state.step)
+    upd_leaf = _adafactor_leaf(1.0 - t ** -decay, lr, eps, clip)
     # _factored() depends only on rank, which the layer loop preserves (a
     # [L, a, b] leaf runs as [a, b] slices, still factored)
     for p, g, vr, vc in zip(*map(leaves,
                                  (params, grads, state.vr, state.vc))):
         _layer_scanned(upd_leaf, p, g, vr, vc)
+    return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+
+class Shard(NamedTuple):
+    """How a rank holds a leaf (``ranked_adafactor_update``): the whole
+    leaf's ``shape``, the dims of it of which the rank holds a part
+    (``split``), and whether the rank counts its box in the sums over the
+    model group (``counts``: one rank of those that hold the box)."""
+    shape: tuple
+    split: frozenset
+    counts: bool
+
+
+@torch.no_grad()
+def ranked_adafactor_update(params, grads, state: AdafactorState, *,
+                            shards: dict, reduce: Callable, lr=1e-3,
+                            decay=0.8, eps=1e-30, clip=1.0):
+    """``adafactor_update`` on a rank's boxes of the leaves: ``params``,
+    ``grads`` and ``state`` hold the rank's boxes (``grads`` already summed
+    over the data group and the holders), ``shards`` a :class:`Shard` per
+    leaf name, ``reduce(t)`` sums an f32 tensor over the model group in
+    place. A leaf with no split dim runs the one-process arithmetic.
+    Otherwise, per layer slice: the means of g² over a split dim, the mean
+    of ``vr`` over split rows and the clip's mean of u² are sums over the
+    group of each box's sums (a rank that does not count its box adds
+    zeros), over the whole leaf's sizes; the rest is elementwise on the
+    box. One all-reduce per leaf for the row means or for the column means
+    with the rows' ``vr`` sums (both only where both dims split), one for
+    the clips; u is formed twice (for the clip, then for the update), so
+    the f32 temporaries stay two of a slice's size. Returns (params, the
+    new state)."""
+    step, t = _next_step(state.step)
+    beta = 1.0 - t ** -decay
+    upd_leaf = _adafactor_leaf(beta, lr, eps, clip)
+
+    def summed(t, sh):
+        if not sh.counts:
+            t.zero_()
+        return reduce(t)
+
+    def u_of(g, r, vc):
+        """The unclipped update of a slice (``r`` is vr for a vector)."""
+        g = g.float()
+        if vc is None:
+            return g / (torch.sqrt(r) + eps)
+        u = torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :]
+        return torch.div(g, u.add_(eps), out=u)
+
+    for (name, p), g, vr, vc in zip(leaf_paths(params), *map(leaves, (
+            grads, state.vr, state.vc))):
+        sh = shards[name]
+        if not sh.split:
+            _layer_scanned(upd_leaf, p, g, vr, vc)
+            continue
+        parts = _slices(p, g, vr, vc)
+        factored = _factored(parts[0][0])
+        last, second = p.dim() - 1 in sh.split, p.dim() - 2 in sh.split
+        whole = 1                          # a slice's elements, whole
+        for n in sh.shape[p.dim() - parts[0][0].dim():]:
+            whole *= n
+        if factored:
+            row, col = [], []
+            for _, gi, _, _ in parts:
+                g2 = gi.float().square().add_(eps)
+                row.append(g2.sum(-1) if last else g2.mean(dim=-1))
+                col.append(g2.sum(-2) if second else g2.mean(dim=-2))
+                del g2
+            row = torch.stack(row).reshape(vr.shape)
+            col = torch.stack(col).reshape(vc.shape)
+            if last:
+                row = summed(row, sh) / sh.shape[-1]
+            vr.copy_(beta * vr + (1 - beta) * row)
+            if second:
+                both = summed(torch.cat([col.reshape(-1),
+                                         vr.sum(dim=-1).reshape(-1)]), sh)
+                col = both[:col.numel()].reshape(vc.shape) / sh.shape[-2]
+                vr_mean = both[col.numel():].reshape(
+                    vr.shape[:-1] + (1,)) / sh.shape[-2]
+            else:
+                vr_mean = vr.mean(dim=-1, keepdim=True)
+            vc.copy_(beta * vc + (1 - beta) * col)
+            parts = _slices(p, g, vr / torch.clamp(vr_mean, min=eps), vc)
+        else:
+            for _, gi, vri, _ in parts:
+                vri.copy_(beta * vri + (1 - beta)
+                          * gi.float().square().add_(eps))
+            parts = [(pi, gi, vri, None) for pi, gi, vri, _ in parts]
+        squares = torch.stack([torch.linalg.vector_norm(u_of(gi, ri, vci))
+                               ** 2 for _, gi, ri, vci in parts])
+        norms = torch.sqrt(summed(squares, sh) / whole)
+        for (pi, gi, ri, vci), norm in zip(parts, norms):
+            u = u_of(gi, ri, vci).div_(torch.clamp(norm / clip, min=1.0))
+            pi.copy_(u.mul_(-lr).add_(pi))      # p - lr·u, rounded once
     return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
 
@@ -177,6 +291,6 @@ def opt_state_specs(params_specs, opt_name: str, abstract_params):
                           vc=map_tree(vc_spec, params_specs, abstract_params))
 
 
-__all__ = ["AdafactorState", "AdamWState", "adafactor_init",
+__all__ = ["AdafactorState", "AdamWState", "Shard", "adafactor_init",
            "adafactor_update", "adamw_init", "adamw_update",
-           "make_optimizer", "opt_state_specs"]
+           "make_optimizer", "opt_state_specs", "ranked_adafactor_update"]

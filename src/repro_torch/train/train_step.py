@@ -18,7 +18,9 @@ parameters and of the optimizer state (``tensor_parallel.shard_boxes``),
 takes its rows of the global batch, and after the backward sums every
 gradient over its data group and each leaf that several ranks of its
 model line hold and the sharded region reads over those holders; |g|
-counts each leaf once. The dense and vlm families, with AdamW.
+counts each leaf once. The dense, vlm and moe families (MLA included),
+with AdamW or Adafactor (``optimizer.ranked_adafactor_update``: its
+statistics that span the shards summed over the model group).
 
 ``make_pipeline_train_step`` trains the dense family stage-parallel on a
 mesh's ``"pipe"`` axis (``dist/pipeline.py``): the same loss, its layer
@@ -43,12 +45,13 @@ from ..configs.base import ModelConfig
 from ..dist.ctx import suspend_annotations, use_mesh
 from ..dist.pipeline import (pipeline_apply, refuse_model_axis,
                              split_microbatches)
-from ..dist.tensor_parallel import box_holders, check_tp, owned
-from ..models.transformer import (TP_REGIONS, _head, _scan_segment,
+from ..dist.tensor_parallel import box_holders, check_tp, owned, shard_boxes
+from ..models.transformer import (TP_AHEAD, TP_REGIONS, _head,
+                                  _scan_segment,
                                   abstract_params, dtype_of, init_params,
                                   layer_kinds, lm_loss, next_token_loss,
                                   unstack)
-from .optimizer import make_optimizer
+from .optimizer import Shard, make_optimizer, ranked_adafactor_update
 from .tree import leaf_paths, leaves, tree_map, unflatten
 
 
@@ -131,38 +134,35 @@ def _accumulate(cfg: ModelConfig, params, parts: list, rows,
 
 def check_ranked_training(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError``, naming its ROADMAP item, unless a model axis
-    of ``model`` ranks trains ``cfg``: the dense and vlm families with
-    AdamW, on an axis ``check_tp`` passes (a vocabulary it does not divide:
-    A8d5b). Without a model axis there is nothing to check."""
+    of ``model`` ranks trains ``cfg``: the dense, vlm and moe families
+    with AdamW or Adafactor, on an axis ``check_tp`` passes (a vocabulary
+    it does not divide: A8d5b). Without a model axis there is nothing to
+    check."""
     if model == 1:
         return
-    where = f"{cfg.name} on a model axis of {model} ranks"
-    if cfg.family == "moe":
-        raise ValueError(f"{where}: training the moe family there (the "
-                         "backward of sum_partials, the router's partial "
-                         "gradient summed over the group) is ROADMAP A8d6b")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"{where}: training the {cfg.family} family there "
-                         "(the backward of group_rms_norm, the tied "
-                         "embedding) is ROADMAP A8d6c")
-    if cfg.optimizer != "adamw":
-        raise ValueError(f"{where}: {cfg.optimizer} on ranks (its factored "
-                         "second moments span the shards) is ROADMAP A8e; "
-                         "the ranked step trains with adamw")
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
+                         f"training the {cfg.family} family there (the "
+                         "backward of group_rms_norm, the tied embedding) "
+                         "is ROADMAP A8d6c")
     check_tp(cfg, model)
 
 
 def replica_leaves(cfg: ModelConfig, mesh, model: int = None) -> dict:
     """``{parameter name: holders}`` of the parameters of the sharded
     region (``TP_REGIONS``: read between ``copy_to_model`` and a
-    ``row_product``) that several ranks of a model line hold
-    (``box_holders``, seen from this rank or model coordinate ``model``):
-    a KV head that ``kv_head_pad`` replicates, qwen3's ``q_norm`` and
-    ``k_norm``. A holder's gradient of such a leaf is its own heads'
-    part."""
+    ``row_product`` or the experts' sum; not ``TP_AHEAD``, read before
+    the f) that several ranks of a model line hold (``box_holders``, seen
+    from this rank or model coordinate ``model``): a KV head that
+    ``kv_head_pad`` replicates, qwen3's ``q_norm`` and ``k_norm``, the
+    MoE's router and ``router_bias``. A holder's gradient of such a leaf
+    is its own heads' or slots' part."""
+    def region(keys):        # the subtrees between the segment and leaf
+        return TP_REGIONS & set(keys[1:-1]) and keys[-1] not in TP_AHEAD
+
     return {name: h for name, h in box_holders(
         cfg, abstract_params(cfg), mesh, model).items()
-        if len(h) > 1 and TP_REGIONS & set(name.split("/"))}
+        if len(h) > 1 and region(name.split("/"))}
 
 
 def _replica_groups(cfg: ModelConfig, mesh) -> dict:
@@ -216,8 +216,9 @@ def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
                 if microbatches > 1 else \
                 loss_and_grads(cfg, params, _data_rows(mesh, batch),
                                kept(batch))
-        grads = tree_map(lambda g: reduce(g, mesh.groups["data"], "grad"),
-                         grads)
+        if mesh.shape["data"] > 1:       # (a bf16 leaf's f32 copy else)
+            grads = tree_map(lambda g: reduce(g, mesh.groups["data"],
+                                              "grad"), grads)
         grads = unflatten(grads, [
             reduce(g, replicas[name], "replica") if name in replicas else g
             for name, g in leaf_paths(grads)])
@@ -226,36 +227,70 @@ def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
     return grads_of
 
 
+def adafactor_shards(cfg: ModelConfig, mesh) -> dict:
+    """``{parameter name: optimizer.Shard}`` of this rank: the whole
+    leaf's shape, the dims its box (``shard_boxes``) cuts, and whether it
+    is the owner of its box (``owned``), which alone counts it in the
+    ranked Adafactor's sums."""
+    like = abstract_params(cfg)
+    boxes, once = shard_boxes(cfg, like, mesh), owned(cfg, like, mesh)
+    out = {}
+    for name, leaf in leaf_paths(like):
+        box, shape = boxes[name], tuple(leaf.shape)
+        out[name] = Shard(shape, frozenset(
+            d for d, cut in enumerate(box)
+            if cut.indices(shape[d])[:2] != (0, shape[d])), name in once)
+    return out
+
+
+def _squares(g: torch.Tensor, piece: int = 1 << 26) -> torch.Tensor:
+    """sum(g²) in f32, over pieces of ``piece`` elements: a bf16 leaf's
+    f32 square is not formed whole (an expert bank of grok-1-314b's is
+    3.2 GB a rank of 4)."""
+    return sum(torch.sum(torch.square(c.float()))
+               for c in g.reshape(-1).split(piece))
+
+
 def ranked_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
                       microbatches: int = 1):
     """``make_train_step``'s step on a ("data", "model") mesh of ranks:
     ``ranked_grads``' loss and gradients, |g| global (each leaf's sum of
     squares counted on the first rank of its model line that holds its
-    box, then summed over the model group), and AdamW on each rank's own
-    shards. Raises ``ValueError`` for what the model axis does not train
-    (``check_ranked_training``) or another mesh than ("data", "model")."""
+    box, then summed over the model group), and the config's optimizer on
+    each rank's own shards: AdamW alone, Adafactor with its statistics
+    that span the shards summed over the model group (transport kind
+    ``"adafactor"``). Raises ``ValueError`` for what the model axis does
+    not train (``check_ranked_training``) or another mesh than ("data",
+    "model")."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"the ranked step trains on a ('data', 'model') "
                          f"mesh, got {mesh.shape}")
     check_ranked_training(cfg, mesh.shape["model"])
     once = owned(cfg, abstract_params(cfg), mesh)
+    update = None
+    if cfg.optimizer == "adafactor":
+        update = functools.partial(
+            ranked_adafactor_update, shards=adafactor_shards(cfg, mesh),
+            reduce=lambda t: mesh.transport.all_reduce(
+                t, mesh.groups["model"], "adafactor"))
 
     def norm(grads):
-        sq = sum((torch.sum(torch.square(g.float()))
-                  for name, g in leaf_paths(grads) if name in once),
-                 torch.zeros((), device=mesh.device))
+        sq = sum((_squares(g) for name, g in leaf_paths(grads)
+                  if name in once), torch.zeros((), device=mesh.device))
         return torch.sqrt(mesh.transport.all_reduce(sq,
                                                     mesh.groups["model"]))
 
     return _train_step(cfg, ranked_grads(cfg, mesh,
-                                         microbatches=microbatches), lr, norm)
+                                         microbatches=microbatches), lr, norm,
+                       update)
 
 
-def _train_step(cfg: ModelConfig, grads_of, lr: float, norm=grad_norm):
+def _train_step(cfg: ModelConfig, grads_of, lr: float, norm=grad_norm,
+                update=None):
     """``train_step(params, opt_state, batch)``: ``grads_of(params,
-    batch)``'s loss and gradients, their ``norm``, and the config's
-    optimizer update in place."""
-    _, update = make_optimizer(cfg.optimizer)
+    batch)``'s loss and gradients, their ``norm``, and ``update`` (the
+    config's optimizer's by default) in place."""
+    update = update or make_optimizer(cfg.optimizer)[1]
 
     def train_step(params, opt_state, batch):
         with torch.profiler.record_function("train_step.grads"):
@@ -477,17 +512,17 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
     global batch; the loss and gradients are ``pipeline_grads``', and |g|
     is global (each rank's sum of squares all-reduced over its pipe group,
     a tied embedding counted once). Every rank updates its own leaves. AdamW
-    only: Adafactor factors the second moments of a 2-D stacked leaf
-    across all its layers, which span the stages, so it raises
-    ``ValueError``."""
+    only: Adafactor on the pipelined ranks raises ``ValueError`` naming
+    ROADMAP A8e."""
     if mesh.group is None:
         return _train_step(cfg, functools.partial(
             value_and_grads, make_pipeline_loss(cfg, mesh, n_micro=n_micro,
                                                 axis=axis)), lr)
     refuse_model_axis(mesh)
     if cfg.optimizer != "adamw":
-        raise ValueError(f"{cfg.optimizer} on ranks: its factored second "
-                         "moments of a 2-D stacked leaf span the stages; "
+        raise ValueError(f"{cfg.optimizer} on the pipelined ranks (the "
+                         "column factor of a stacked [L, d] leaf averages "
+                         "over layers the stages split) is ROADMAP A8e; "
                          "the ranked pipeline trains with adamw")
     s, last = mesh.coords[axis], mesh.shape[axis] - 1
     twice = cfg.tie_embeddings and last and s == last   # stage 0 counts it
@@ -511,7 +546,8 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return params, init_opt(params)
 
 
-__all__ = ["check_ranked_training", "grad_norm", "init_train_state",
+__all__ = ["adafactor_shards", "check_ranked_training", "grad_norm",
+           "init_train_state",
            "loss_and_grads", "make_pipeline_loss",
            "make_pipeline_train_step", "make_train_step", "pipeline_grads",
            "pipeline_rows", "pipeline_shard", "ranked_grads",

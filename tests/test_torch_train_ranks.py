@@ -33,7 +33,8 @@ ranks and between the microbatches.
   is bit for bit the step from the same state sharded in memory;
 - the launcher trains on 4 rank processes (the reference's lines, the
   loss of the logical run's), and everything a model axis on ranks does
-  not train refuses, naming its ROADMAP item.
+  not train refuses, naming its ROADMAP item (the moe family and
+  Adafactor train there: ``tests/test_torch_moe_train_ranks.py``).
 
 The rank functions live here (a spawned child imports this module, which
 imports nothing of JAX at its top). Each world is spawned once for the
@@ -65,9 +66,10 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import (_accumulate, _split,
-                                          check_ranked_training,
-                                          loss_and_grads, make_train_step,
-                                          ranked_grads, replica_leaves)
+                                          loss_and_grads,
+                                          make_pipeline_train_step,
+                                          make_train_step, ranked_grads,
+                                          replica_leaves)
 from repro_torch.train.tree import leaf_paths, tree_map, unflatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -608,12 +610,6 @@ def _launcher_refuses(*args):
     return str(exc.value.code)
 
 
-def _step_refuses(cfg, model):
-    with pytest.raises(ValueError) as exc:
-        check_ranked_training(cfg, model)
-    return str(exc.value)
-
-
 def _pipeline_refuses():
     mesh = SimpleNamespace(group=object(), shape={"pipe": 2, "data": 1,
                                                   "model": 2})
@@ -622,9 +618,25 @@ def _pipeline_refuses():
     return str(exc.value)
 
 
+def _pipelined_adafactor_refuses():
+    mesh = SimpleNamespace(group=object(), shape={"pipe": 2, "data": 1,
+                                                  "model": 1})
+    with pytest.raises(ValueError) as exc:
+        make_pipeline_train_step(reduced(get_config("yi-6b"),
+                                         optimizer="adafactor"), mesh,
+                                 n_micro=2)
+    return str(exc.value)
+
+
+def _group_norm_grad_refuses():
+    mesh = SimpleNamespace(group=object(), shape={"data": 1, "model": 2})
+    x = torch.ones(2, 4, requires_grad=True)
+    with use_mesh(mesh), pytest.raises(RuntimeError) as exc:
+        tp.group_rms_norm(x, torch.ones(4))
+    return str(exc.value)
+
+
 @pytest.mark.parametrize("refuse,items", [
-    (lambda: _launcher_refuses("--arch", "grok-1-314b", "--reduced",
-                               "--host-devices", "4"), ["moe", "A8d6b"]),
     (lambda: _launcher_refuses("--arch", "mamba2-1.3b", "--reduced",
                                "--host-devices", "4"), ["ssm", "A8d6c"]),
     (lambda: _launcher_refuses("--arch", "zamba2-1.2b", "--reduced",
@@ -632,9 +644,10 @@ def _pipeline_refuses():
     (lambda: _launcher_refuses("--arch", "seamless-m4t-large-v2",
                                "--reduced", "--host-devices", "2"),
      ["encdec", "A8d6c"]),
-    (lambda: _step_refuses(reduced(get_config("yi-6b"),
-                                   optimizer="adafactor"), 2),
-     ["adafactor", "A8e"]),
+    (_pipelined_adafactor_refuses, ["adafactor on the pipelined ranks",
+                                    "A8e"]),
+    (_group_norm_grad_refuses, ["ssm and hybrid", "group_rms_norm",
+                                "A8d6c"]),
     (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced",
                                "--host-devices", "4", "--elastic"),
      ["--elastic", "A8e"]),
@@ -645,8 +658,9 @@ def _pipeline_refuses():
      ["--host-devices N", "A8d6"]),
     (_pipeline_refuses, ["model axis 2 on ranks",
                          "pipelined launcher runs with model axis 1"])],
-    ids=["moe", "ssm", "hybrid", "encdec", "adafactor", "elastic",
-         "vocabulary", "no-mesh", "pipelined-model-axis"])
+    ids=["ssm", "hybrid", "encdec", "pipelined-adafactor",
+         "group-rms-norm-grad", "elastic", "vocabulary", "no-mesh",
+         "pipelined-model-axis"])
 def test_what_a_model_axis_on_ranks_does_not_train_refuses(refuse, items):
     """Refused before any rank starts (the launcher exits with the
     message) or where it is called, naming its ROADMAP item."""
