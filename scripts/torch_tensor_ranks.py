@@ -1,11 +1,11 @@
 """Run ``chip_smoke.py``'s tensor-parallel serving phase alone on the GPU:
 build the kernels, run ``phase_tensor_ranks`` (each cell of ``TP_CELLS``
 on rank processes that share the card, against its one-process
-yardstick: yi-6b-tp2-r2, starcoder2-3b-d10-tp4-r4, grok-1-314b-d4-tp4-r4,
+yardstick: yi-6b-d16-tp2-r2, starcoder2-3b-d10-tp4-r4, grok-1-314b-d4-tp4-r4,
 deepseek-v3-671b-d5-tp4-r4, grok-1-314b-d2-dp2-tp2-r4,
-mamba2-1.3b-d12-tp4-r4, zamba2-1.2b-d14-tp4-r4,
-seamless-m4t-large-v2-tp2-r2) and time B2, B3 and B4 at the ranks'
-per-shard layouts.
+mamba2-1.3b-d6-tp4-r4, zamba2-1.2b-d14-tp4-r4,
+seamless-m4t-large-v2-d6-tp2-r2, seamless-m4t-large-v2-tp4-r4) and time
+B2, B3 and B4 at the ranks' per-shard layouts.
 
     python3 scripts/torch_tensor_ranks.py [cell ...]
 
@@ -34,7 +34,9 @@ SHARDS = (("yi-6b tp2", (1, 16, 2, 2048, 2048, 128), 0,
           ("grok-1-314b tp4", (1, 12, 2, 2048, 2048, 128), 0,
            (8, 12, 2, 4096, 128)),
           ("zamba2-1.2b tp4", (1, 8, 8, 4608, 4608, 64), 4096,
-           (8, 8, 8, 4096, 64)))
+           (8, 8, 8, 4096, 64)),
+          ("seamless-m4t-large-v2 tp4 decoder", (1, 4, 4, 512, 512, 64), 0,
+           (8, 4, 4, 4096, 64)))
 # B3 at mamba2-1.3b's shard on 4 ranks: (b, l, h, p, g, n)
 SSD_SHARD = [1, 2048, 16, 64, 1, 128]
 

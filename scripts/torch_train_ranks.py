@@ -3,10 +3,14 @@ times: ``phase_train_ranks`` (starcoder2-3b-d10-train-tp4-r4 at full
 width, 10 of its 30 layers, on a (1, 4) mesh of rank processes that share
 the card,
 starcoder2-3b-d4-train-dp2-tp2-r4, 4 of its 30 layers in f32 on (2, 2),
-and with the configs' bf16 parameters and Adafactor
+with the configs' bf16 parameters and Adafactor
 grok-1-314b-d2-train-tp4-r4 and deepseek-v3-671b-d3-train-tp4-r4 on (1,
-4), each against its one-process yardstick, with every gate of the
-phase), then the range of each cell's ms a step over the repeats.
+4), and in f32 zamba2-1.2b-d13-train-tp4-r4 (13 of 38 layers, two shared
+sites) and seamless-m4t-large-v2-d6-train-tp4-r4 (6 + 6 of 24 + 24
+layers, 2 048 frames and 512 tokens, the embedding and head split on
+d_model) on (1, 4), each against its one-process yardstick, with every
+gate of the phase), then the range of each cell's ms a step over the
+repeats.
 
     python3 scripts/torch_train_ranks.py [--repeats N] [cell ...]
     python3 scripts/torch_train_ranks.py --plant NAME [--plant NAME ...]

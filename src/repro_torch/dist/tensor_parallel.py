@@ -1,8 +1,7 @@
 """Tensor parallelism on rank processes: the ``"model"`` axis of a mesh of
-ranks (``launch.mesh.Mesh(..., group=)``) for serving every family: dense,
-vlm and moe (GQA or MLA attention), ssm (Mamba-2), hybrid (Mamba-2 with
-the shared attention block) and encdec (cross-attention); and for training
-the dense, vlm and moe families (GQA or MLA attention).
+ranks (``launch.mesh.Mesh(..., group=)``) for serving and training every
+family: dense, vlm and moe (GQA or MLA attention), ssm (Mamba-2), hybrid
+(Mamba-2 with the shared attention block) and encdec (cross-attention).
 
 The JAX package has no counterpart: its launchers place the weights and
 the decode cache by ``param_specs``/``cache_specs`` on a mesh of devices
@@ -13,11 +12,12 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
 
 - column-parallel products (``wq``, ``wk``, ``wv``, MLA's ``wq_b`` and
   ``wkv_b``, ``w_gate``, ``w_in``, the shared experts' ``shared_w_gate``
-  and ``shared_w_in``, Mamba-2's ``w_in``, and ``lm_head`` or a tied
-  ``embed.T`` on the vocabulary) take their replicated input as it is:
+  and ``shared_w_in``, Mamba-2's ``w_in``, and a vocab-sharded
+  ``lm_head`` or tied ``embed.T``) take their replicated input as it is:
   the identity in the forward, and where training reaches them
-  (attention, the dense FFN, the head) through :func:`copy_to_model`,
-  whose backward sums the input's gradient over the group (Megatron's f);
+  (attention, the FFN, the experts, the Mamba-2 mixer, the head) through
+  :func:`copy_to_model`, whose backward sums the input's gradient over
+  the group (Megatron's f);
 - a row-parallel product (``wo``, the cross-attention's ``wo``,
   ``w_out``, ``shared_w_out``, Mamba-2's ``w_out``) gives each rank a
   partial sum, all-reduced by :func:`row_product` (Megatron's g: its
@@ -25,6 +25,8 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
 - Mamba-2's gated RMSNorm normalises over the whole d_inner, which the
   heads split: :func:`group_rms_norm` sums each rank's f32 squares over
   the model group (one [T, 1] all-reduce) and divides by the whole width;
+  the sum feeds every rank's outputs, so its backward sums the gradient
+  of the squares over the group too (one more [T, 1] all-reduce);
 - the experts (``models/moe.py``): every rank routes every token of its
   dispatch row with the whole router (each rank of a model group holds
   the same tokens, so no all-to-all), scatters the slots of its own
@@ -32,19 +34,34 @@ parallelism, over ``mesh.groups["model"]`` through ``mesh.transport``
   into its slice of each expert's hidden dim), and its f32 combine is a
   partial summed over the group by :func:`sum_partials`, with the shared
   experts' partial in the same collective;
-- the vocab-sharded ``embed`` is looked up by :func:`vocab_embed`: each
-  rank takes the rows of the tokens in its range, zeros elsewhere, and an
-  all-reduce sums them (exact: one term is nonzero); under grad each
-  token's gradient lands in the rank's own rows;
-- the vocab-sharded logits are gathered by :func:`vocab_gather` (greedy
-  argmax, the returned ``[B, V]`` and the loss read all of them); under
-  grad each rank takes its own slice of the gathered gradient.
+- the embedding and the head (:func:`embed_lookup`, :func:`head_logits`,
+  :func:`gather_logits`) take one of two layouts, as ``param_specs``
+  shards ``embed`` (:func:`vocab_sharded`). Where the axis divides the
+  vocabulary, ``embed`` [V / model, d] and ``lm_head`` [d, V / model]
+  (or the tied ``embed.T``) are split on it: a rank looks up the tokens
+  in its range, zeros elsewhere, and an all-reduce sums them (exact: one
+  term is nonzero; under grad each token's gradient lands in the rank's
+  own rows), and its logits [..., V / model] are gathered (greedy argmax,
+  the returned ``[B, V]`` and the loss read all of them; under grad each
+  rank takes its own slice of the gathered gradient). Elsewhere (seamless-
+  m4t-large-v2's 256 206 on 4 ranks) they are split on d_model: ``embed``
+  [V, d / model] and ``lm_head`` [d / model, V] (a tied ``embed.T`` the
+  same rows). A rank looks up its d-slice of every token's row and the
+  slices are gathered on the last dim (exact: the one-process rows; under
+  grad the rank takes its slice of the gradient, no sum); the head is
+  row-parallel: the normed hidden state enters through its rank's d-slice,
+  whose backward all-gathers the slices' gradients (whole on every rank:
+  [T, d / model] in the compute dtype to each peer, where ``copy_to_model``
+  and a slice would all-reduce [T, d] in f32), and the rank's f32 partial
+  [..., V], formed from the operands' values, is summed over the group in
+  f32 and rounded once, as :func:`row_product`'s; a prefill sums the last
+  position's partial only ([B, V], not [B, S, V]).
 
 With no mesh of ranks with a model axis > 1 in the context every one of
-them is the identity (the group norm the plain ``rms_norm``), so the
-one-process and logical-mesh paths are bit for bit what they were. The
-model code takes its head, expert and Mamba-2 sizes from the local
-weights' shapes.
+them is the identity (the group norm the plain ``rms_norm``, the head the
+one-process product), so the one-process and logical-mesh paths are bit
+for bit what they were. The model code takes its head, expert and Mamba-2
+sizes from the local weights' shapes.
 
 Rounding. ``TensorTransport.all_reduce`` sums in f32 only. The
 one-process bf16 product sums all of its terms in the matmul's f32
@@ -100,31 +117,32 @@ of column boxes for Mamba-2's packed leaves) from the one seeded generator
 grok-1-314b is 25.8 GB in bf16): the values are bit for bit the slices of
 ``init_params(cfg, seed=seed)``.
 
-Training. Every rank computes the whole loss from the gathered logits,
-so the gradient of every replicated activation is whole on every rank,
-and each sharded weight's gradient is its own slice of the one-process
+Training. Every rank computes the whole loss from the whole logits, so
+the gradient of every replicated activation is whole on every rank, and
+each sharded weight's gradient is its own slice of the one-process
 gradient. A leaf that several ranks of a model line hold and that the
 sharded region reads (:func:`box_holders`; qwen3's ``q_norm``/``k_norm``
 on head-sharded q and k, a KV head replicated ``kv_head_pad`` times, the
-MoE's whole router, which each rank reads for its own slots only) gets on
-each rank the gradient of that rank's heads or slots only: the trainer
-(``train.train_step``) sums it over its holders. :func:`sum_partials`,
-the MoE's combine and shared experts' sum, is Megatron's g (its backward
-the identity on each stacked partial), and the MoE's input enters through
-f. MLA's ``wq_a``, ``wkv_a``, ``q_ln`` and ``kv_ln`` are whole on every
-rank and feed the head-sharded ``wq_b``/``wkv_b``: their outputs, the
-latents, enter the heads through one f (:func:`copy_all_to_model`), so
-the gradients of those leaves and of the attention's input come out whole
-on every rank and nothing else is summed. All sums stay in f32 (or
-wider), in the backward as in the forward. Under ``remat`` the
-checkpointed blocks run their forward collectives again in the backward,
-on every rank in the same order.
+MoE's whole router, which each rank reads for its own slots only), and a
+column piece of a Mamba-2 leaf that several ranks hold
+(:func:`column_holders`: the B and C columns of ``w_in``, ``conv_w`` and
+``conv_b`` of a group whose heads the axis splits, mamba2-1.3b's and
+zamba2-1.2b's one group on every rank), gets on each rank the gradient of
+that rank's heads or slots only: the trainer (``train.train_step``) sums
+it over its holders. :func:`sum_partials`, the MoE's combine and shared
+experts' sum, is Megatron's g (its backward the identity on each stacked
+partial), and the MoE's input enters through f. MLA's ``wq_a``,
+``wkv_a``, ``q_ln`` and ``kv_ln`` are whole on every rank and feed the
+head-sharded ``wq_b``/``wkv_b``: their outputs, the latents, enter the
+heads through one f (:func:`copy_all_to_model`), so the gradients of
+those leaves and of the attention's input come out whole on every rank
+and nothing else is summed. All sums stay in f32 (or wider), in the
+backward as in the forward. Under ``remat`` the checkpointed blocks run
+their forward collectives again in the backward, on every rank in the
+same order.
 
-What a model axis on ranks does not run raises ``ValueError`` naming its
-ROADMAP item (:func:`check_tp`): a vocabulary the axis does not divide
-(the d_model-sharded embedding and head, A8d5b). Under grad
-:func:`group_rms_norm` (ssm, hybrid: A8d6c) raises: it has no backward
-yet.
+What a model axis on ranks does not run raises ``ValueError``
+(:func:`check_tp`): heads, widths or SSM groups the axis does not divide.
 """
 
 from __future__ import annotations
@@ -141,28 +159,32 @@ from .ctx import get_mesh
 from .sharding import (P, cache_specs, kv_head_pad, map_tree, param_specs,
                        sanitize_specs)
 
-TRAINING = ("training {families} with a model axis on ranks (the backward "
-            "of {what}) is ROADMAP {item}")
+def vocab_sharded(cfg: ModelConfig, model: int) -> bool:
+    """Whether a model axis of ``model`` ranks splits the embedding and the
+    head on the vocabulary (it divides it), or else on d_model:
+    ``param_specs``' rule for ``embed`` (``lm_head`` [d, V] falls to its
+    rows by ``_matmul_spec`` where V does not divide)."""
+    return cfg.vocab_size % model == 0
 
 
 def check_tp(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError`` unless a model axis of ``model`` ranks can
-    serve ``cfg``: the axis must divide its vocabulary (else A8d5b); its
-    query heads and padded KV heads (``kv_head_pad``; GQA; encdec's KV
-    heads unpadded, as its cross cache is), and the dense d_ff of a family
-    with dense FFNs; for the moe family its experts (or else the expert
-    d_ff) and the shared experts' d_ff; for Mamba-2 (ssm, hybrid) its
-    heads, and its groups or the axis the groups."""
+    serve and train ``cfg``: the axis must divide its vocabulary or else
+    its d_model (:func:`vocab_sharded`); its query heads and padded KV
+    heads (``kv_head_pad``; GQA; encdec's KV heads unpadded, as its cross
+    cache is), and the dense d_ff of a family with dense FFNs; for the moe
+    family its experts (or else the expert d_ff) and the shared experts'
+    d_ff; for Mamba-2 (ssm, hybrid) its heads, and its groups or the axis
+    the groups."""
     if model == 1:
         return
     from ..models.transformer import layer_kinds
 
-    if cfg.vocab_size % model:
-        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: its "
-                         f"vocabulary of {cfg.vocab_size} does not divide "
-                         "over the axis, which needs the d_model-sharded "
-                         "embedding and head (ROADMAP A8d5b)")
     sizes = []
+    if not vocab_sharded(cfg, model):
+        sizes.append(("columns of d_model (the embedding and head split "
+                      f"them: its vocabulary of {cfg.vocab_size} does not "
+                      "divide either)", cfg.d_model))
     if cfg.family != "ssm":
         sizes.append(("query heads", cfg.n_heads))
     if cfg.family == "encdec":
@@ -209,12 +231,6 @@ def require(cfg: ModelConfig) -> None:
         check_tp(cfg, mesh.shape["model"])
 
 
-def _no_grad(t: torch.Tensor, families: str, what: str, item: str) -> None:
-    if t.requires_grad:
-        raise RuntimeError(TRAINING.format(families=families, what=what,
-                                           item=item))
-
-
 def _wide(t: torch.Tensor) -> torch.dtype:
     """The dtype a sum of ``t`` runs in: f32, or ``t``'s if wider."""
     return torch.promote_types(t.dtype, torch.float32)
@@ -258,9 +274,46 @@ class _Copy(torch.autograd.Function):
         return _sum(ctx.mesh, g.to(_wide(g), copy=True)).to(g.dtype), None
 
 
+class _Both(torch.autograd.Function):
+    """``t`` summed over the model group, in place, where every rank's
+    ``t`` feeds every rank's outputs (Megatron's g in the forward, f in
+    the backward): the backward sums the gradient over the group too.
+    ``t`` is f32 or wider."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        ctx.mark_dirty(t)
+        mesh.transport.all_reduce(t, mesh.groups["model"])
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(ctx.mesh, g.clone()), None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's slice [..., n / model] of a replicated ``x`` [..., n]
+    (the input of the d_model-sharded head); the backward gathers every
+    rank's slice of the gradient: whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        n = x.shape[-1] // mesh.shape["model"]
+        return x[..., mesh.coords["model"] * n:
+                 (mesh.coords["model"] + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(ctx.mesh.transport.all_gather(
+            g.contiguous(), ctx.mesh.groups["model"]), dim=-1), None
+
+
 class _Gather(torch.autograd.Function):
-    """The logits [..., V / model] of every rank, concatenated; the
-    backward takes this rank's slice of the gradient, with no sum."""
+    """Every rank's [..., n] (its vocabulary's logits, or its d-slice of
+    the embedding's rows), concatenated on the last dim; the backward
+    takes this rank's slice of the gradient, with no sum."""
 
     @staticmethod
     def forward(ctx, logits, mesh):
@@ -278,7 +331,8 @@ class _Gather(torch.autograd.Function):
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """``x``, a replicated activation entering column-parallel products
     (the attention's input and the cross-attention's source, the FFN's
-    input, the head's input). Under tensor parallelism, Megatron's f: the
+    input, a vocab-sharded head's input, the Mamba-2 mixer's input). Under
+    tensor parallelism, Megatron's f: the
     identity, whose backward sums the gradient of ``x`` over the model
     group, each rank holding the part that flowed through its own
     columns. ``x`` itself otherwise."""
@@ -302,17 +356,19 @@ def group_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
                    ) -> torch.Tensor:
     """``rms_norm(x, w)`` over the whole last dim of which ``x`` [..., n]
     is this rank's slice (Mamba-2's gated norm over d_inner, its heads
-    split): the f32 sum of squares summed over the model group in one
-    [..., 1] all-reduce and divided by ``n`` times the axis. ``rms_norm``
-    itself on one process."""
+    split): the f32 (or wider) sum of squares summed over the model group
+    in one [..., 1] all-reduce and divided by ``n`` times the axis. Under
+    grad the sum's backward sums the squares' gradient over the group
+    (:class:`_Both`: each rank's squares scale every rank's outputs);
+    ``w``, split as ``x`` is, keeps its own gradient. ``rms_norm`` itself
+    on one process."""
     mesh = tp_mesh()
     if mesh is None:
         return rms_norm(x, w, eps)
-    _no_grad(x, "the ssm and hybrid families", "group_rms_norm", "A8d6c")
-    f = x.float()
-    squares = _sum(mesh, (f * f).sum(dim=-1, keepdim=True))
+    f = x.to(_wide(x))
+    squares = _Both.apply((f * f).sum(dim=-1, keepdim=True), mesh)
     f = f * torch.rsqrt(squares / (x.shape[-1] * mesh.shape["model"]) + eps)
-    return (f * w.float()).to(x.dtype)
+    return (f * w.to(f.dtype)).to(x.dtype)
 
 
 def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -342,15 +398,25 @@ def sum_partials(*parts: torch.Tensor) -> List[torch.Tensor]:
     return list(both.unbind(0))
 
 
-def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``embed[tokens]`` of a vocab-sharded ``embed`` (this rank's rows):
-    the tokens in the rank's range looked up, zeros elsewhere, summed over
-    the model group. Under grad the sum's backward is the identity, and
-    the masked lookup's own backward puts each token's gradient into the
-    rank's rows (none where the token lies in another rank's range)."""
+def embed_lookup(cfg: ModelConfig, embed: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]`` of this rank's ``embed`` (:func:`vocab_sharded`).
+    Split on the vocabulary: the tokens in the rank's range looked up,
+    zeros elsewhere, summed over the model group; under grad the sum's
+    backward is the identity, and the masked lookup's own backward puts
+    each token's gradient into the rank's rows (none where the token lies
+    in another rank's range). Split on d_model: the rank's d-slice of
+    every token's row in the compute dtype (the cast the caller makes),
+    the slices gathered on the last dim (bit for bit the one-process
+    lookup); under grad the rank takes its slice of the gradient
+    (:class:`_Gather`)."""
     mesh = tp_mesh()
     if mesh is None:
         return embed[tokens]
+    if not vocab_sharded(cfg, mesh.shape["model"]):
+        return _Gather.apply(embed[tokens].to(getattr(torch,
+                                                      cfg.compute_dtype)),
+                             mesh)
     rows = embed.shape[0]
     local = tokens - mesh.coords["model"] * rows
     hit = (local >= 0) & (local < rows)
@@ -359,17 +425,41 @@ def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return _sum(mesh, x)
 
 
-def vocab_gather(logits: torch.Tensor) -> torch.Tensor:
-    """The logits of every rank's vocabulary slice [..., V / model],
-    concatenated in the model axis's order: [..., V].
-
-    Under grad the backward takes this rank's slice of the incoming
-    gradient and sums nothing: every rank of the model group computes the
-    whole loss from the same gathered logits, so each already holds the
-    whole gradient of the logits, and the loss the ranks train is that one
-    loss, not its sum over the ranks."""
+def head_logits(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor
+                ) -> torch.Tensor:
+    """The head's product of the normed hidden state ``x`` [..., d] (every
+    rank's) and this rank's ``head`` (``lm_head`` or a tied ``embed.T``):
+    ``x @ head`` in ``x``'s dtype on one process and split on the
+    vocabulary (``x`` entering through :func:`copy_to_model`), the rank's
+    logits [..., V / model]; split on d_model, the rank's f32 partial
+    [..., V] of its d-slice of ``x`` (:class:`_Slice`: under grad the
+    slices' gradients are gathered) and its rows of the head, formed from
+    the operands' values. :func:`gather_logits` makes them whole."""
     mesh = tp_mesh()
-    return logits if mesh is None else _Gather.apply(logits, mesh)
+    if mesh is None or vocab_sharded(cfg, mesh.shape["model"]):
+        return copy_to_model(x) @ head.to(x.dtype)
+    return _Slice.apply(x, mesh).float() @ head.float()
+
+
+def gather_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The whole logits [..., V] from :func:`head_logits`' (of the
+    positions wanted: a prefill passes its last). Split on the vocabulary:
+    every rank's slice, concatenated in the model axis's order; under grad
+    the backward takes this rank's slice of the incoming gradient and sums
+    nothing: every rank of the model group computes the whole loss from
+    the same logits, so each already holds their whole gradient, and the
+    loss the ranks train is that one loss, not its sum over the ranks.
+    Split on d_model: the f32 partials summed over the model group and
+    rounded once to the compute dtype (Megatron's g: under grad the
+    gradient reaches each rank's partial as it is). ``logits`` itself on
+    one process."""
+    mesh = tp_mesh()
+    if mesh is None:
+        return logits
+    if vocab_sharded(cfg, mesh.shape["model"]):
+        return _Gather.apply(logits, mesh)
+    return _sum(mesh, logits.contiguous()).to(getattr(torch,
+                                                      cfg.compute_dtype))
 
 
 # ------------------------------------------------------------------ shards
@@ -548,10 +638,51 @@ def owned(cfg: ModelConfig, tree: Any, mesh) -> set:
     """The names of the leaves of ``tree`` of which this rank is the first
     of its model line to hold its box (``box_holders``): each leaf has one
     owner a model line, where the ranked step's |g| counts it and, on data
-    rank 0, the ranked checkpoint writes it."""
+    rank 0, the ranked checkpoint writes it. A Mamba-2 leaf of column
+    pieces is every rank's own: its shared B and C columns are written by
+    each holder (the same bits, after the holders' gradient sum) and
+    counted in |g| by their first holder alone (:func:`owned_columns`)."""
     me = mesh.coords["model"]
     return {name for name, h in box_holders(cfg, tree, mesh).items()
             if h[0] == me}
+
+
+def column_holders(cfg: ModelConfig, tree: Any, mesh, model: int = None
+                   ) -> dict:
+    """``{leaf name: [(lo, hi, holders), ...]}`` of the leaves of ``tree``
+    whose box is a list of column boxes (Mamba-2's head-aligned leaves,
+    ``shard_boxes``), seen from this rank or from model coordinate
+    ``model``: each piece's columns [lo, hi) in the rank's joined leaf and
+    the model coordinates of its line whose box holds the same columns of
+    the whole leaf (``box_holders`` compares whole boxes, which differ
+    between ranks there): the B and C columns of a group the axis splits
+    the heads of are held by each rank that reads it."""
+    n = mesh.shape["model"]
+    boxes = [shard_boxes(cfg, tree, mesh, c) for c in range(n)]
+    mine = boxes[mesh.coords["model"] if model is None else model]
+    out = {}
+    for name, box in mine.items():
+        if not isinstance(box, list):
+            continue
+        pieces, at = [], 0
+        for piece in box:
+            width = piece[-1].stop - piece[-1].start
+            pieces.append((at, at + width, tuple(
+                c for c in range(n) if piece in boxes[c][name])))
+            at += width
+        out[name] = pieces
+    return out
+
+
+def owned_columns(cfg: ModelConfig, tree: Any, mesh) -> dict:
+    """``{leaf name: [(lo, hi), ...]}``: of each leaf of
+    :func:`column_holders`, the columns of this rank's joined leaf of
+    which it is the first holder in its model line; the ranked step's |g|
+    counts those columns of the leaf only, so that a shared piece counts
+    once."""
+    me = mesh.coords["model"]
+    return {name: [(lo, hi) for lo, hi, h in pieces if h[0] == me]
+            for name, pieces in column_holders(cfg, tree, mesh).items()}
 
 
 def shard_tree(cfg: ModelConfig, tree: Any, mesh) -> Any:
@@ -660,9 +791,10 @@ def init_shard_cache(cfg: ModelConfig, mesh, global_batch: int,
             take_box(leaf, index).shape, dtype=dtype, device=device)))
 
 
-__all__ = ["TRAINING", "box_holders", "cache_shard_specs", "check_tp",
-           "copy_all_to_model", "copy_to_model", "group_rms_norm",
-           "init_shard_cache", "init_shard_params", "owned",
+__all__ = ["box_holders", "cache_shard_specs", "check_tp", "column_holders",
+           "copy_all_to_model", "copy_to_model", "embed_lookup",
+           "gather_logits", "group_rms_norm", "head_logits",
+           "init_shard_cache", "init_shard_params", "owned", "owned_columns",
            "param_shard_specs", "require", "row_product", "shard_boxes",
            "shard_cache", "shard_index", "shard_params", "shard_tree",
-           "sum_partials", "tp_mesh", "vocab_embed", "vocab_gather"]
+           "sum_partials", "tp_mesh", "vocab_sharded"]

@@ -16,14 +16,14 @@ devices: rank r sits at r's row-major position over ``axis_names``. Each rank kn
 line along each axis (``groups``, ``line``) and a ``TensorTransport``
 over the whole group. Every axis runs on ranks: the pipe and data axes
 for the pipelined trainer, the data and model axes for tensor-parallel
-serving of every family and for training of the dense, vlm and moe
-families (``dist.tensor_parallel``: each rank holds its shard of the weights, of
-the optimizer state and of the decode cache and exchanges partial
-products over ``groups["model"]``). What a model axis > 1 on ranks does
-not run refuses where it is called: the pipelined trainer (the
-reference's pipelined launcher runs with a model axis of 1), training
-the other families (``train_step.check_ranked_training``) and what the
-axis does not divide (``tensor_parallel.check_tp``).
+serving and training of every family (``dist.tensor_parallel``: each
+rank holds its shard of the weights, of the optimizer state and of the
+decode cache and exchanges partial products over ``groups["model"]``).
+What a model axis > 1 on ranks does not run refuses where it is called:
+the pipelined trainer (the reference's pipelined launcher runs with a
+model axis of 1), Adafactor over Mamba-2's column pieces
+(``train_step.check_ranked_training``) and what the axis does not
+divide (``tensor_parallel.check_tp``).
 
 Single pod: (16, 16) = 256 chips, axes ("data", "model").
 Multi-pod:  (2, 16, 16) = 512 chips, axes ("pod", "data", "model") — the

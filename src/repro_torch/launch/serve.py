@@ -36,11 +36,12 @@ moe (grok-1-314b's experts, 2 a rank on 4 ranks; deepseek-v3-671b's, 64
 a rank, with MLA's heads split and its latent cache whole on every rank),
 ssm (mamba2-1.3b, 16 of its 64 heads a rank on 4), hybrid (zamba2-1.2b:
 its Mamba-2 heads and the shared block's heads and ring) and encdec
-(seamless-m4t-large-v2 on 2 ranks, its cross cache the launcher's zeros,
-a rank's KV heads of them). An arch whose vocabulary, heads or widths the
-model axis does not divide exits naming what does not divide (a
-vocabulary: ROADMAP A8d5b; seamless-m4t-large-v2's 256 206 on 4 ranks),
-before any rank starts. ``--layers N`` keeps the config's first N layers
+(seamless-m4t-large-v2 on 2 or 4 ranks, its cross cache the launcher's
+zeros, a rank's KV heads of them). Where the axis does not divide the
+vocabulary (seamless-m4t-large-v2's 256 206 on 4 ranks) the embedding and
+the head split d_model instead. An arch whose heads or widths the model
+axis does not divide exits naming what does not divide, before any rank
+starts. ``--layers N`` keeps the config's first N layers
 at full width (a moe arch's leading dense layers first), so that a moe
 arch fits the card without ``--reduced``: ``--arch grok-1-314b --layers 8
 --host-devices 4 --ranks`` holds 14 GB of bf16 weights a rank.

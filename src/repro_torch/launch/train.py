@@ -43,16 +43,17 @@ group=)``: (N / model, model), model = min(4, N). Each rank draws,
 trains and checkpoints only its tensor-parallel shard of the parameters
 and of the optimizer's state, AdamW's or Adafactor's
 (``tensor_parallel.init_shard_params``, ``make_train_step(cfg, mesh=)``,
-``checkpoint.RankCheckpointer`` with each leaf's box): the dense, vlm and
-moe families. With ``--pipeline S
+``checkpoint.RankCheckpointer`` with each leaf's box): every family
+(the ssm and hybrid families with AdamW). With ``--pipeline S
 --host-devices N`` (N defaults to S) it starts N processes on the (S, N /
 S, 1) pipelined mesh, each holding, training and checkpointing its own
 stage's leaves (``make_pipeline_train_step`` on a ``Mesh(..., group=)``).
 Either way the checkpoint is the reference's layout, byte for byte, and
 restores onto any mesh; rank 0 prints the step lines. Before any rank
 starts the launcher exits naming its ROADMAP item for what the ranks do
-not train: the ssm, hybrid and encdec families (A8d6c), ``--elastic``
-(A8e), a vocabulary the model axis does not divide (A8d5b).
+not train: ``--elastic`` and Adafactor on Mamba-2's column pieces or on
+the pipelined ranks (A8e); or naming what the model axis does not
+divide.
 """
 
 import argparse

@@ -10,8 +10,10 @@ The forward and the step take their sizes (d_inner, heads, groups) from
 the weights they are given (``local_sizes``): on a model axis of ranks a
 rank holds the z, x and dt columns of its heads and the B and C columns of
 the groups they read (``dist.tensor_parallel``), its gated norm sums its
-squares over the model group and ``w_out`` is all-reduced; on one process
-these are the config's sizes and the plain norm and product.
+squares over the model group and ``w_out`` is all-reduced, and for
+training the forward's input enters ``w_in`` through ``copy_to_model``;
+on one process these are the config's sizes and the plain norm and
+product.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
-from ..dist.tensor_parallel import group_rms_norm, row_product
+from ..dist.tensor_parallel import (copy_to_model, group_rms_norm,
+                                    row_product)
 from ..kernels.ssd_scan.ops import ssd
 from ..launch.flags import ssd_chunk
 
@@ -98,9 +101,10 @@ def mamba2_forward(x: torch.Tensor, p: Dict[str, torch.Tensor],
     kernel launch on CUDA tensors; x, B and C reach it as strided views of
     the convolved projection, with no copy. The sizes are those of ``p``'s
     (local) weights; the gated norm sums over the model group and
-    ``w_out`` is a row-parallel product under tensor parallelism."""
+    ``w_out`` is a row-parallel product under tensor parallelism, whose
+    replicated input enters ``w_in`` through ``copy_to_model``."""
     bsz, s, _ = x.shape
-    proj = x @ p["w_in"]
+    proj = copy_to_model(x) @ p["w_in"]
     z, xbc, dt, di, g, n, nh = _split(proj, p, ssm)
 
     # depthwise causal conv over the sequence, summed in the JAX package's

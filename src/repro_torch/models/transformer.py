@@ -36,13 +36,16 @@ cross-attention's own) shapes and Mamba-2's sizes from its local weights
 ``wo``, the FFN's and Mamba-2's ``w_out``) are all-reduced
 (``row_product``), Mamba-2's gated norm sums over the group
 (``group_rms_norm``), the experts are the rank's own (``moe_ffn``), the
-vocab-sharded embedding is looked up with a mask (``vocab_embed``) and the
-logits gathered (``vocab_gather``); MLA's latent cache is whole on every
-rank, and the hybrid's ring, the encdec's self and cross caches and the
-SSM states are the rank's heads. Without one those calls are the
-identity. For training the replicated activations enter the
-column-parallel products of the attention, the FFN, the experts and the
-head through ``copy_to_model`` (Megatron's f); MLA's latents, which the
+embedding is looked up and the head's logits made whole as its layout
+has them (on the vocabulary, or on d_model where the axis does not
+divide the vocabulary: ``embed_lookup``, ``head_logits``,
+``gather_logits``; a prefill makes its last position's whole only);
+MLA's latent cache is whole on every rank, and the hybrid's ring, the
+encdec's self and cross caches and the SSM states are the rank's heads.
+Without one those calls are the identity. For training the replicated
+activations enter the column-parallel products of the attention, the
+FFN, the experts, the Mamba-2 mixer and a vocab-sharded head through
+``copy_to_model`` (Megatron's f); MLA's latents, which the
 whole ``wq_a`` and ``wkv_a`` give every rank, enter its heads through one
 f of the three (``copy_all_to_model``; ``_mla_full``); and a data rank's
 ``lm_loss`` divides by the global batch's label count it is given.
@@ -61,8 +64,8 @@ from ..configs.base import ModelConfig
 from ..dist.ctx import act_spec, annotate
 from ..dist.sharding import P
 from ..dist.tensor_parallel import (copy_all_to_model, copy_to_model,
-                                    require, row_product, vocab_embed,
-                                    vocab_gather)
+                                    embed_lookup, gather_logits,
+                                    head_logits, require, row_product)
 from ..kernels._build import needs_grad
 from ..launch.flags import remat_policy
 from .attention import (NEG_INF, chunked_attention, decode_attention_host,
@@ -83,10 +86,11 @@ def dtype_of(name: str) -> torch.dtype:
 # a ``row_product`` (or the experts' ``sum_partials``) under tensor
 # parallelism: a leaf of them that several ranks of a model line hold
 # (``tensor_parallel.box_holders``: qwen3's replicated q_norm and k_norm, a
-# KV head replicated kv_head_pad times, the MoE's whole router) acts on the
-# rank's own heads or slots only, so its gradient on a rank is that rank's
-# part of the whole.
-TP_REGIONS = frozenset({"attn", "ffn", "moe"})
+# KV head replicated kv_head_pad times, the MoE's whole router; and by
+# column pieces, ``column_holders``: the B and C columns of a Mamba-2
+# group whose heads the axis splits) acts on the rank's own heads or slots
+# only, so its gradient on a rank is that rank's part of the whole.
+TP_REGIONS = frozenset({"attn", "cross", "ffn", "moe", "mamba"})
 # The leaves of those subtrees read before their f: MLA's down-projections
 # and their norms, whose outputs enter the heads through
 # ``copy_all_to_model`` (``_mla_full``), so their gradient is whole on
@@ -480,12 +484,13 @@ def _block_full(cfg: ModelConfig, kind: str, p, x, *, enc_out=None,
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """The final norm and the LM head: the logits of the vocabulary the
-    head's (local) weights hold (``vocab_gather`` assembles them under
-    tensor parallelism)."""
+    """The final norm and the LM head: the logits on one process; under
+    tensor parallelism the rank's part of them (``head_logits``: its
+    vocabulary's logits, or its f32 partial of all of them), which
+    ``gather_logits`` makes whole."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return copy_to_model(x) @ head.to(x.dtype)
+    return head_logits(cfg, x, head)
 
 
 # ============================================================ full forward
@@ -504,22 +509,23 @@ def forward(cfg: ModelConfig, params, tokens=None, embeds=None,
     ``enc_tokens`` or ``enc_embeds``."""
     logits, caches = _forward(cfg, params, tokens, embeds, enc_tokens,
                               enc_embeds, collect_cache)
-    return vocab_gather(logits), caches
+    return gather_logits(cfg, logits), caches
 
 
 def _forward(cfg, params, tokens, embeds, enc_tokens, enc_embeds,
              collect_cache):
-    """``forward`` with the logits of the head's own vocabulary (a rank's
-    slice under tensor parallelism)."""
+    """``forward`` with the head's own logits (a rank's part under tensor
+    parallelism, ``head_logits``)."""
     require(cfg)
     kinds = layer_kinds(cfg)
-    x = vocab_embed(params["embed"], tokens) if embeds is None else embeds
+    x = (embed_lookup(cfg, params["embed"], tokens) if embeds is None
+         else embeds)
     x = annotate(x.to(dtype_of(cfg.compute_dtype)), act_spec())
     caches: Dict[str, Any] = {}
     enc_out = None
     if cfg.family == "encdec":
-        e = (vocab_embed(params["embed"], enc_tokens) if enc_embeds is None
-             else enc_embeds)
+        e = (embed_lookup(cfg, params["embed"], enc_tokens)
+             if enc_embeds is None else enc_embeds)
         e, _ = _scan_segment(cfg, "dense", params["enc"], e.to(x.dtype),
                              causal_kind="enc")
         enc_out = rms_norm(e, params["enc_norm"], cfg.norm_eps)
@@ -663,10 +669,11 @@ def prefill(cfg: ModelConfig, params, tokens=None, embeds=None,
             enc_tokens=None, enc_embeds=None):
     """Forward over the prompt; returns last-position logits (cache wiring
     for incremental decode is exercised via decode_step). Under tensor
-    parallelism only the last position's logits are gathered."""
+    parallelism only the last position's logits are made whole (gathered,
+    or its f32 partials summed)."""
     logits, _ = _forward(cfg, params, tokens, embeds, enc_tokens, enc_embeds,
                          False)
-    return vocab_gather(logits[:, -1])
+    return gather_logits(cfg, logits[:, -1])
 
 
 def lm_loss(cfg: ModelConfig, params, batch, count=None) -> torch.Tensor:
@@ -764,7 +771,7 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
     used again after a step."""
     require(cfg)
     if token_or_embed.dim() == 1:
-        x = vocab_embed(params["embed"], token_or_embed)
+        x = embed_lookup(cfg, params["embed"], token_or_embed)
     else:
         x = token_or_embed
     x = x.to(dtype_of(cfg.compute_dtype))
@@ -786,7 +793,7 @@ def decode_step(cfg: ModelConfig, params, token_or_embed: torch.Tensor,
         x, layers["cross_self"] = _decode_scan_gqa(
             cfg, params["cross"], x, layers["cross_self"], pos,
             enc_out=layers["enc_out"])
-    logits = annotate(vocab_gather(_head(cfg, params, x)),
+    logits = annotate(gather_logits(cfg, _head(cfg, params, x)),
                       P(("pod", "data"), "model"))
     return logits, DecodeCache(pos=pos + 1, layers=layers)
 

@@ -24,7 +24,8 @@ on the device it is given.
 From rank processes that each hold a part of each leaf of the tree (the
 pipelined trainer's stages, ``train_step.pipeline_shard``: rows; the
 tensor-parallel shards, ``tensor_parallel.shard_boxes``: a box, one slice
-per dim), ``save_from_ranks`` writes the same directory, byte for byte,
+per dim, or a list of column boxes for Mamba-2's head-aligned leaves),
+``save_from_ranks`` writes the same directory, byte for byte,
 with no tensor on the wire: rank 0 writes the manifest and every leaf's
 file, sized, as a memory map; after a barrier each rank writes its own
 parts into those files (a part several ranks hold, by one of them);
@@ -130,6 +131,23 @@ def _box(place, leaf, bf16: bool) -> tuple:
     return place
 
 
+def _parts(place, leaf, bf16: bool) -> list:
+    """(the index in the whole leaf's stored array, the columns of the
+    rank's stored array or None for all of it) of each part of a rank's
+    ``leaf`` at ``place``: one for a row or a box (``_box``); one per
+    column box for a list of them (Mamba-2's head-aligned leaves, joined
+    on the last dim: ``layers.take_box``), a bfloat16 leaf's columns
+    counted in bytes."""
+    if not isinstance(place, list):
+        return [(_box(place, leaf, bf16), None)]
+    out, at = [], 0
+    for box in place:
+        width = (box[-1].stop - box[-1].start) * (2 if bf16 else 1)
+        out.append((_box(box, leaf, bf16), slice(at, at + width)))
+        at += width
+    return out
+
+
 def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
                     rows: dict, group=None, writes=None) -> None:
     """Write a checkpoint of the whole tree ``like`` (its names, shapes and
@@ -137,9 +155,9 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
     each writing the leaves of its ``tree`` (a part of ``like``'s, the
     same names; None writes nothing) at ``rows[name]``, where the leaf
     lies in the whole one: the row along dim 0 where it starts, or its box
-    (a tuple of slices). With ``writes`` (a set of leaf names) the rank
-    writes those leaves only: a part several ranks hold is written by one
-    of them. Every rank of ``group`` calls it; it returns once the
+    (a tuple of slices, or a list of column boxes). With ``writes`` (a set
+    of leaf names) the rank writes those leaves only: a part several ranks
+    hold is written by one of them. Every rank of ``group`` calls it; it returns once the
     checkpoint is published. Ranks that hold the same part may both write
     it (the same bytes)."""
     group = dist.group.WORLD if group is None else group
@@ -167,7 +185,8 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
         out = np.load(os.path.join(tmp, "arrays",
                                    manifest["leaves"][name]["file"]),
                       mmap_mode="r+")
-        out[_box(rows[name], leaf, dname == "bfloat16")] = arr
+        for index, cols in _parts(rows[name], leaf, dname == "bfloat16"):
+            out[index] = arr if cols is None else arr[..., cols]
         out.flush()
         del out
     dist.barrier(group)
@@ -221,7 +240,9 @@ def _load_leaf(final: str, meta: dict, place=None,
     if place is None:
         arr = np.load(path)
     else:
-        arr = np.array(np.load(path, mmap_mode="r")[_box(place, ref, bf16)])
+        stored = np.load(path, mmap_mode="r")
+        arr = np.concatenate([np.array(stored[index]) for index, _
+                              in _parts(place, ref, bf16)], axis=-1)
         shape = list(ref.shape)
     if bf16 and arr.dtype == np.uint8:
         return torch.from_numpy(arr).view(torch.bfloat16).reshape(shape)

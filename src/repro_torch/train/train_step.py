@@ -17,10 +17,13 @@ each rank holds, differentiates and updates only its shard of the
 parameters and of the optimizer state (``tensor_parallel.shard_boxes``),
 takes its rows of the global batch, and after the backward sums every
 gradient over its data group and each leaf that several ranks of its
-model line hold and the sharded region reads over those holders; |g|
-counts each leaf once. The dense, vlm and moe families (MLA included),
-with AdamW or Adafactor (``optimizer.ranked_adafactor_update``: its
-statistics that span the shards summed over the model group).
+model line hold and the sharded region reads over those holders (and
+each column piece of a Mamba-2 leaf that several of them hold); |g|
+counts each leaf and piece once. Every family (dense, vlm, moe with MLA,
+ssm, hybrid, encdec), with AdamW, or Adafactor
+(``optimizer.ranked_adafactor_update``: its statistics that span the
+shards summed over the model group) where no leaf is cut into column
+pieces.
 
 ``make_pipeline_train_step`` trains the dense family stage-parallel on a
 mesh's ``"pipe"`` axis (``dist/pipeline.py``): the same loss, its layer
@@ -45,7 +48,8 @@ from ..configs.base import ModelConfig
 from ..dist.ctx import suspend_annotations, use_mesh
 from ..dist.pipeline import (pipeline_apply, refuse_model_axis,
                              split_microbatches)
-from ..dist.tensor_parallel import box_holders, check_tp, owned, shard_boxes
+from ..dist.tensor_parallel import (box_holders, check_tp, column_holders,
+                                    owned, owned_columns, shard_boxes)
 from ..models.transformer import (TP_AHEAD, TP_REGIONS, _head,
                                   _scan_segment,
                                   abstract_params, dtype_of, init_params,
@@ -133,43 +137,72 @@ def _accumulate(cfg: ModelConfig, params, parts: list, rows,
 
 
 def check_ranked_training(cfg: ModelConfig, model: int) -> None:
-    """Raise ``ValueError``, naming its ROADMAP item, unless a model axis
-    of ``model`` ranks trains ``cfg``: the dense, vlm and moe families
-    with AdamW or Adafactor, on an axis ``check_tp`` passes (a vocabulary
-    it does not divide: A8d5b). Without a model axis there is nothing to
-    check."""
+    """Raise ``ValueError`` unless a model axis of ``model`` ranks trains
+    ``cfg``: every family, on an axis ``check_tp`` passes, with AdamW or
+    Adafactor; Adafactor not where Mamba-2's leaves are cut into column
+    pieces (its factor boxes are whole boxes: ROADMAP A8e). Without a
+    model axis there is nothing to check."""
     if model == 1:
         return
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
-                         f"training the {cfg.family} family there (the "
-                         "backward of group_rms_norm, the tied embedding) "
-                         "is ROADMAP A8d6c")
     check_tp(cfg, model)
+    if cfg.optimizer == "adafactor" and cfg.ssm is not None:
+        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
+                         "adafactor over Mamba-2's column pieces (its "
+                         "factors of a leaf cut into column boxes) is "
+                         "ROADMAP A8e; the ssm and hybrid families train "
+                         "there with adamw")
+
+
+def _region(name: str) -> bool:
+    """Whether parameter ``name`` lies in the sharded region
+    (``TP_REGIONS``: read between ``copy_to_model`` and a ``row_product``
+    or the experts' sum; not ``TP_AHEAD``, read before the f), matched on
+    the subtrees between the segment and the leaf."""
+    keys = name.split("/")
+    return bool(TP_REGIONS & set(keys[1:-1])) and keys[-1] not in TP_AHEAD
 
 
 def replica_leaves(cfg: ModelConfig, mesh, model: int = None) -> dict:
     """``{parameter name: holders}`` of the parameters of the sharded
-    region (``TP_REGIONS``: read between ``copy_to_model`` and a
-    ``row_product`` or the experts' sum; not ``TP_AHEAD``, read before
-    the f) that several ranks of a model line hold (``box_holders``, seen
-    from this rank or model coordinate ``model``): a KV head that
-    ``kv_head_pad`` replicates, qwen3's ``q_norm`` and ``k_norm``, the
-    MoE's router and ``router_bias``. A holder's gradient of such a leaf
-    is its own heads' or slots' part."""
-    def region(keys):        # the subtrees between the segment and leaf
-        return TP_REGIONS & set(keys[1:-1]) and keys[-1] not in TP_AHEAD
-
+    region (``_region``) that several ranks of a model line hold
+    (``box_holders``, seen from this rank or model coordinate ``model``):
+    a KV head that ``kv_head_pad`` replicates, qwen3's ``q_norm`` and
+    ``k_norm``, the MoE's router and ``router_bias``. A holder's gradient
+    of such a leaf is its own heads' or slots' part."""
     return {name: h for name, h in box_holders(
         cfg, abstract_params(cfg), mesh, model).items()
-        if len(h) > 1 and region(name.split("/"))}
+        if len(h) > 1 and _region(name)}
+
+
+def replica_columns(cfg: ModelConfig, mesh, model: int = None) -> dict:
+    """``{parameter name: [(lo, hi, holders), ...]}``: the column pieces
+    of the sharded region's Mamba-2 leaves that several ranks of a model
+    line hold (``column_holders``, seen from this rank or model
+    coordinate ``model``; [lo, hi) in the rank's joined leaf): the B and
+    C columns of ``w_in``, ``conv_w`` and ``conv_b`` of a group whose
+    heads the axis splits. A holder's gradient of such a piece is its own
+    heads' part."""
+    out = {}
+    for name, pieces in column_holders(cfg, abstract_params(cfg), mesh,
+                                       model).items():
+        shared = [p for p in pieces if len(p[2]) > 1]
+        if shared and _region(name):
+            out[name] = shared
+    return out
 
 
 def _replica_groups(cfg: ModelConfig, mesh) -> dict:
-    """``{parameter name: process group}``: each of ``replica_leaves``
-    with the group of its holders. One ``new_group`` per holder set and
-    data coordinate, made on every rank in the same order."""
-    every = [replica_leaves(cfg, mesh, c) for c in range(mesh.shape["model"])]
+    """``{parameter name or (name, lo, hi): process group}``: each of
+    ``replica_leaves`` and each column piece of ``replica_columns`` with
+    the group of its holders. One ``new_group`` per holder set and data
+    coordinate, made on every rank in the same order."""
+    every = []
+    for c in range(mesh.shape["model"]):
+        held = replica_leaves(cfg, mesh, c)
+        held.update({(name, lo, hi): h for name, pieces
+                     in replica_columns(cfg, mesh, c).items()
+                     for lo, hi, h in pieces})
+        every.append(held)
     sets = sorted({h for held in every for h in held.values()})
     mine = every[mesh.coords["model"]]
     groups = {}
@@ -179,7 +212,7 @@ def _replica_groups(cfg: ModelConfig, mesh) -> dict:
                 [mesh.rank_of(data=d, model=c) for c in h])
             if d == mesh.coords["data"] and mesh.coords["model"] in h:
                 groups[h] = pg
-    return {name: groups[h] for name, h in mine.items()}
+    return {key: groups[h] for key, h in mine.items()}
 
 
 def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
@@ -195,10 +228,21 @@ def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
     group (kind ``"grad"``), then each leaf of the sharded region that
     several ranks of the model line hold over its holders (kind
     ``"replica"``: the KV heads ``kv_head_pad`` replicates, qwen3's
-    ``q_norm``/``k_norm``), all in f32, each in its dtype after: every
-    holder then has the same bits."""
+    ``q_norm``/``k_norm``), and each Mamba-2 column piece that several
+    hold (the B and C columns of a shared group), all in f32, each in its
+    dtype after: every holder then has the same bits."""
     net = mesh.transport
     replicas = _replica_groups(cfg, mesh)
+    pieces = {}
+    for key, pg in replicas.items():
+        if isinstance(key, tuple):
+            pieces.setdefault(key[0], []).append((key[1], key[2], pg))
+
+    def columns(g, name):
+        for lo, hi, pg in pieces.get(name, ()):
+            g[..., lo:hi] = reduce(g[..., lo:hi].contiguous(), pg,
+                                   "replica")
+        return g
 
     def reduce(g, pg, kind):
         if g.dtype == torch.float32:
@@ -220,8 +264,8 @@ def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
             grads = tree_map(lambda g: reduce(g, mesh.groups["data"],
                                               "grad"), grads)
         grads = unflatten(grads, [
-            reduce(g, replicas[name], "replica") if name in replicas else g
-            for name, g in leaf_paths(grads)])
+            reduce(g, replicas[name], "replica") if name in replicas
+            else columns(g, name) for name, g in leaf_paths(grads)])
         return net.all_reduce(loss.float(), mesh.groups["data"]), grads
 
     return grads_of
@@ -256,7 +300,9 @@ def ranked_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
     """``make_train_step``'s step on a ("data", "model") mesh of ranks:
     ``ranked_grads``' loss and gradients, |g| global (each leaf's sum of
     squares counted on the first rank of its model line that holds its
-    box, then summed over the model group), and the config's optimizer on
+    box, a Mamba-2 leaf's columns on the first that holds each piece,
+    ``owned_columns``; then summed over the model group), and the config's
+    optimizer on
     each rank's own shards: AdamW alone, Adafactor with its statistics
     that span the shards summed over the model group (transport kind
     ``"adafactor"``). Raises ``ValueError`` for what the model axis does
@@ -266,7 +312,8 @@ def ranked_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
         raise ValueError(f"the ranked step trains on a ('data', 'model') "
                          f"mesh, got {mesh.shape}")
     check_ranked_training(cfg, mesh.shape["model"])
-    once = owned(cfg, abstract_params(cfg), mesh)
+    like = abstract_params(cfg)
+    once, cols = owned(cfg, like, mesh), owned_columns(cfg, like, mesh)
     update = None
     if cfg.optimizer == "adafactor":
         update = functools.partial(
@@ -274,9 +321,15 @@ def ranked_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
             reduce=lambda t: mesh.transport.all_reduce(
                 t, mesh.groups["model"], "adafactor"))
 
+    def counted(name, g):
+        if name not in cols:
+            return [g] if name in once else []
+        return [g[..., lo:hi] for lo, hi in cols[name]]
+
     def norm(grads):
-        sq = sum((_squares(g) for name, g in leaf_paths(grads)
-                  if name in once), torch.zeros((), device=mesh.device))
+        sq = sum((_squares(part) for name, g in leaf_paths(grads)
+                  for part in counted(name, g)),
+                 torch.zeros((), device=mesh.device))
         return torch.sqrt(mesh.transport.all_reduce(sq,
                                                     mesh.groups["model"]))
 
@@ -551,4 +604,5 @@ __all__ = ["adafactor_shards", "check_ranked_training", "grad_norm",
            "loss_and_grads", "make_pipeline_loss",
            "make_pipeline_train_step", "make_train_step", "pipeline_grads",
            "pipeline_rows", "pipeline_shard", "ranked_grads",
-           "ranked_train_step", "replica_leaves", "value_and_grads"]
+           "ranked_train_step", "replica_columns", "replica_leaves",
+           "value_and_grads"]

@@ -24,9 +24,11 @@ a KV head and each rank holds the whole KV head of its padded cache shard.
   did (the new keys and values come from the residual stream);
 - the bytes each rank sends each peer, by kind, in ``forward``,
   ``prefill`` and a step equal their formula;
-- the launcher decodes on ranks (also the ssm and encdec families) and
-  refuses what the model axis on ranks does not run, naming its ROADMAP
-  item.
+- the launcher decodes on ranks (also the ssm and encdec families, and
+  seamless-m4t-large-v2 on 4 ranks) and refuses what the model axis on
+  ranks does not run; ``check_tp`` passes every family, full-size
+  seamless-m4t-large-v2 on 4 with its embedding and head split on d_model
+  (``tests/test_torch_dshard_ranks.py`` serves that layout).
 
 The rank functions live here (a spawned child imports this module, which
 imports nothing of JAX at its top). Each world is spawned once for the
@@ -39,6 +41,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -50,7 +53,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.dist import ranks
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.ctx import launch_mesh
-from repro_torch.dist.sharding import kv_head_pad
+from repro_torch.dist.sharding import P, kv_head_pad
 from repro_torch.launch.mesh import Mesh, make_dev_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import (params_from_reference,
@@ -507,15 +510,21 @@ def test_every_family_passes_a_ranked_model_axis(arch, full):
 
 
 @pytest.mark.parametrize("arch,items", [
-    ("seamless-m4t-large-v2", ["4 ranks", "vocabulary of 256206", "A8d5b"])])
+    ("seamless-m4t-large-v2", [("embed", P(None, "model")),
+                               ("lm_head", P("model", None))])])
 def test_unported_families_refuse_a_ranked_model_axis(arch, items):
-    """What a model axis on ranks does not run yet refuses, naming its
-    ROADMAP item: full-size seamless-m4t-large-v2 on 4 ranks, its
-    vocabulary of 256 206 not dividing (the d_model-sharded embedding and
-    head, A8d5b)."""
-    with pytest.raises(ValueError) as exc:
-        tp.check_tp(get_config(arch), 4)
-    assert all(item in str(exc.value) for item in items), str(exc.value)
+    """Full-size seamless-m4t-large-v2 on 4 ranks, which refused until the
+    d_model-sharded embedding and head (A8d5b): its vocabulary of 256 206
+    does not divide over 4, so ``check_tp`` passes it with the embedding
+    and the head split on d_model, as ``param_specs`` splits them."""
+    cfg = get_config(arch)
+    tp.check_tp(cfg, 4)
+    assert not tp.vocab_sharded(cfg, 4) and tp.vocab_sharded(cfg, 2)
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 4},
+                                 coords={"data": 0, "model": 1})
+    specs = tp.param_shard_specs(cfg, mesh)
+    for leaf, spec in items:
+        assert specs[leaf] == spec, (leaf, specs[leaf])
 
 
 @pytest.mark.parametrize("make,model,message", [
@@ -525,7 +534,10 @@ def test_unported_families_refuse_a_ranked_model_axis(arch, items):
     # divided by them
     (lambda: _mamba(3, d_model=192, vocab_size=516), 2, "SSM groups"),
     (lambda: _mamba(4), 16, "8 SSM heads"),
-    (lambda: _mamba(4, vocab_size=510), 4, "A8d5b")],
+    # neither the vocabulary nor d_model divides: no layout of the head
+    (lambda: reduced(get_config("yi-6b"), d_model=130, d_head=32,
+                     vocab_size=510), 4,
+     "130 columns of d_model .* vocabulary of 510 does not divide")],
     ids=["query-heads", "ssm-groups", "ssm-heads", "vocabulary"])
 def test_a_model_axis_that_does_not_divide_refuses(make, model, message):
     with pytest.raises(ValueError, match=message):
@@ -587,18 +599,28 @@ def test_serve_launcher_serves_every_family_on_ranks(arch):
 
 @pytest.mark.parametrize("args,message", [
     (("--reduced", "--arch", "yi-6b", "--ranks"), "pass --host-devices N"),
-    (("--arch", "seamless-m4t-large-v2", "--host-devices", "4", "--ranks"),
-     "A8d5b")])
+    pytest.param(("--reduced", "--arch", "seamless-m4t-large-v2",
+                  "--host-devices", "4", "--ranks", "--batch", "2",
+                  "--tokens", "3"), None, id="args1-A8d5b")])
 def test_serve_launcher_refuses_on_ranks(args, message):
     """The launcher refuses, before any rank starts, what a model axis on
-    ranks does not run: ``--ranks`` without a mesh, and full-size
-    seamless-m4t-large-v2 on 4 ranks (its vocabulary, A8d5b; refused
-    before any weights)."""
+    ranks does not run: ``--ranks`` without a mesh. seamless-m4t-large-v2
+    on 4 ranks, which it refused until the d_model-sharded embedding and
+    head (A8d5b), now serves (reduced here: the full model's f32 weights
+    are 8.1 GB)."""
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          *args], capture_output=True, text=True, timeout=600, cwd=REPO,
         env=env)
+    if message is None:
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        lines = proc.stdout.splitlines()
+        assert lines[0] == ("device: cpu, arch=seamless-m4t-large-v2, mesh: "
+                            "{'data': 1, 'model': 4} on 4 rank processes, "
+                            "kv_head_pad 1")
+        assert lines[1].startswith("decoded 3 x batch 2: ")
+        return
     assert proc.returncode != 0 and message in proc.stderr, proc.stderr
     assert "Traceback" not in proc.stderr
 

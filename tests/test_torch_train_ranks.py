@@ -32,9 +32,12 @@ ranks and between the microbatches.
   each rank reads its own boxes bit for bit, and the next step from them
   is bit for bit the step from the same state sharded in memory;
 - the launcher trains on 4 rank processes (the reference's lines, the
-  loss of the logical run's), and everything a model axis on ranks does
-  not train refuses, naming its ROADMAP item (the moe family and
-  Adafactor train there: ``tests/test_torch_moe_train_ranks.py``).
+  loss of the logical run's), also the ssm, hybrid and encdec families,
+  and everything a model axis on ranks does not train refuses, naming
+  its ROADMAP item or what does not divide (the moe family and Adafactor
+  train there: ``tests/test_torch_moe_train_ranks.py``; the ssm, hybrid
+  and encdec families and the d_model-sharded head:
+  ``tests/test_torch_ssm_train_ranks.py``).
 
 The rank functions live here (a spawned child imports this module, which
 imports nothing of JAX at its top). Each world is spawned once for the
@@ -566,13 +569,16 @@ def test_ranked_checkpoint_restores_onto_another_mesh(worlds, where):
 
 # ----------------------------------------------------------- launcher
 
-def _train(*args):
+def _train_arch(*args):
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                           "--arch", "starcoder2-3b", "--reduced",
-                           "--device", "cpu", "--host-devices", "4",
-                           "--steps", "3", *args], capture_output=True,
+                           "--device", "cpu", *args], capture_output=True,
                           text=True, timeout=600, cwd=REPO, env=env)
+
+
+def _train(*args):
+    return _train_arch("--arch", "starcoder2-3b", "--reduced",
+                       "--host-devices", "4", "--steps", "3", *args)
 
 
 def test_train_launcher_trains_a_model_axis_on_ranks(tmp_path):
@@ -628,32 +634,71 @@ def _pipelined_adafactor_refuses():
     return str(exc.value)
 
 
-def _group_norm_grad_refuses():
-    mesh = SimpleNamespace(group=object(), shape={"data": 1, "model": 2})
-    x = torch.ones(2, 4, requires_grad=True)
-    with use_mesh(mesh), pytest.raises(RuntimeError) as exc:
-        tp.group_rms_norm(x, torch.ones(4))
-    return str(exc.value)
+def _launcher_trains(*args):
+    """The launcher's output for one step on rank processes, where it used
+    to refuse (the ssm, hybrid and encdec families, A8d6c)."""
+    with tempfile.TemporaryDirectory() as ck:
+        proc = _train_arch(*args, "--ranks", "--steps", "1",
+                           "--global-batch", "4", "--seq", "16",
+                           "--ckpt-dir", ck)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+class _Twice:
+    """A stand-in model group of 2 ranks that hold the same slice: its
+    all-reduce doubles, the sum of two equal terms."""
+
+    @staticmethod
+    def all_reduce(t, group, kind="reduce"):
+        return t.mul_(2)
+
+
+def _group_norm_grad_trains():
+    """``group_rms_norm`` under grad (it refused until A8d6c), on a model
+    group of 2 whose ranks hold equal slices x of a row [x, x]: its
+    output and its gradients (of x and of its slice of the weight) are
+    RMSNorm's over the whole row (in f64, as the group norm keeps a wider
+    input's dtype), the upstream gradient [v, v]; the backward's sum over
+    the group is what makes them so."""
+    mesh = SimpleNamespace(group=object(), shape={"data": 1, "model": 2},
+                           groups={"model": None}, transport=_Twice())
+    gen = torch.Generator().manual_seed(9)
+    x, w, v = (torch.randn(3, 8, generator=gen, dtype=torch.float64)
+               for _ in range(3))
+    x, w = x.requires_grad_(), w[0].requires_grad_()
+    with use_mesh(mesh):
+        out = tp.group_rms_norm(x, w)
+    gx, gw = torch.autograd.grad(out, (x, w), v)
+    xx, ww = (torch.cat([t, t], dim=-1).detach().requires_grad_()
+              for t in (x, w))
+    want = xx * torch.rsqrt((xx * xx).mean(-1, keepdim=True) + 1e-5) * ww
+    wx, wv = torch.autograd.grad(want, (xx, ww), torch.cat([v, v], dim=-1))
+    torch.testing.assert_close(out, want[..., :8], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(gx, wx[..., :8], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(gw, wv[:8], rtol=1e-12, atol=1e-12)
+    return "group_rms_norm's gradient is RMSNorm's over the whole row"
 
 
 @pytest.mark.parametrize("refuse,items", [
-    (lambda: _launcher_refuses("--arch", "mamba2-1.3b", "--reduced",
-                               "--host-devices", "4"), ["ssm", "A8d6c"]),
-    (lambda: _launcher_refuses("--arch", "zamba2-1.2b", "--reduced",
-                               "--host-devices", "2"), ["hybrid", "A8d6c"]),
-    (lambda: _launcher_refuses("--arch", "seamless-m4t-large-v2",
-                               "--reduced", "--host-devices", "2"),
-     ["encdec", "A8d6c"]),
+    (lambda: _launcher_trains("--arch", "mamba2-1.3b", "--reduced",
+                              "--host-devices", "4"),
+     ["mesh: {'data': 1, 'model': 4} on 4 rank processes", "done"]),
+    (lambda: _launcher_trains("--arch", "zamba2-1.2b", "--reduced",
+                              "--host-devices", "2"),
+     ["mesh: {'data': 1, 'model': 2} on 2 rank processes", "done"]),
+    (lambda: _launcher_trains("--arch", "seamless-m4t-large-v2",
+                              "--reduced", "--host-devices", "2"),
+     ["mesh: {'data': 1, 'model': 2} on 2 rank processes", "done"]),
     (_pipelined_adafactor_refuses, ["adafactor on the pipelined ranks",
                                     "A8e"]),
-    (_group_norm_grad_refuses, ["ssm and hybrid", "group_rms_norm",
-                                "A8d6c"]),
+    (_group_norm_grad_trains, ["RMSNorm's over the whole row"]),
     (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced",
                                "--host-devices", "4", "--elastic"),
      ["--elastic", "A8e"]),
     (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced",
                                "--host-devices", "3"),
-     ["vocabulary of 512", "A8d5b"]),
+     ["128 columns of d_model", "vocabulary of 512 does not divide"]),
     (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced"),
      ["--host-devices N", "A8d6"]),
     (_pipeline_refuses, ["model axis 2 on ranks",
@@ -663,7 +708,10 @@ def _group_norm_grad_refuses():
          "pipelined-model-axis"])
 def test_what_a_model_axis_on_ranks_does_not_train_refuses(refuse, items):
     """Refused before any rank starts (the launcher exits with the
-    message) or where it is called, naming its ROADMAP item."""
+    message) or where it is called, naming its ROADMAP item or what does
+    not divide. What refused until A8d5b and A8d6c runs and says so: the
+    ssm, hybrid and encdec families train on ranks (the launcher's lines),
+    and ``group_rms_norm`` has its backward."""
     message = refuse()
     assert all(item in message for item in items), message
 
