@@ -217,7 +217,15 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    norms, the router, MLA's down-projections) bit for bit; grok's MoE
    slots routed otherwise than on one process counted; ms a step and
    tok/s beside one process, per rank all-reduce and gather ms, busy ms
-   and peak memory;
+   and peak memory; then elastic training on rank processes through the
+   launcher (``phase_elastic_ranks``, ``launch.train --ranks --elastic``):
+   starcoder2-3b-d2-train-dp2-tp2-r4-elastic (2 of 30 layers at full
+   width, f32, AdamW, 4 ranks as 2 fake hosts on (2, 2), host 1 silent
+   from step 2): its lines exactly, the survivors' world of 2 ranks on
+   (1, 2) restored from step 2, its step 3 against the lost world's
+   within 1e-5 (loss) and 1e-4 (|g|), no B1-B4 launch; each world's
+   spawn, the restore, the first resumed step, the time to recover and
+   the checkpoints' size and seconds;
 8. time each kernel, its plain version and one PyTorch library call at the
    main paths' shapes (CUDA events), beside the least time the card could
    take (its bound);
@@ -230,7 +238,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    rank's B2 launches a prefill and B4 launches in 8 steps of the ranked
    tensor-parallel cells, the moe cells' included;
    ``tensor_ranks_train_launches``: each rank's in the timed steps of the
-   ranked tensor-parallel train cells, 0)
+   ranked tensor-parallel train cells, 0;
+   ``elastic_ranks_train_launches``: each rank's in each world's step
+   loop of the elastic cell, 0)
    and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -5729,6 +5739,122 @@ def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
             "reduce_share": [r["reduce_ms"] / r["wall_ms"] for r in runs]}
 
 
+ELASTIC_CELL = "starcoder2-3b-d2-train-dp2-tp2-r4-elastic"
+
+
+def launcher_run(argv, **kwargs):
+    """``launch.train.main(argv, **kwargs)`` with its and its rank
+    processes' standard output caught: (its lines, its return)."""
+    from repro_torch.launch import train as train_launcher
+
+    with tempfile.TemporaryFile("w+") as out:
+        saved = os.dup(1)
+        sys.stdout.flush()
+        os.dup2(out.fileno(), 1)             # the rank processes' prints
+        try:
+            with contextlib.redirect_stdout(out):        # the launcher's
+                got = train_launcher.main(argv, **kwargs)
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        out.seek(0)
+        return out.read().splitlines(), got
+
+
+def phase_elastic_ranks(dev, layers=2, rows=1, seq=2048, steps=5, every=2,
+                        kill=(1, 2), lease=1) -> dict:
+    """Elastic training on rank processes (``launch.train --ranks
+    --elastic``), through the launcher's entry point: starcoder2-3b at full
+    width cut to ``layers`` layers, f32 parameters and compute, AdamW,
+    remat full, on 4 rank processes that share the card as 2 fake hosts of
+    2 (a (2, 2) mesh), ``rows`` x ``seq`` tokens a data rank,
+    ``--kill-host`` host ``kill[0]`` from step ``kill[1]`` with a lease of
+    ``lease`` steps and a checkpoint every ``every`` steps. Host 1's last
+    beat is step 1, the poll of step 3 declares it, and a world of 2 ranks
+    on (1, 2) restores step 2 and runs steps 3 and 4. Gates: the
+    launcher's lines, exactly; the survivors' step 3 against the lost
+    world's step 3, which ran from the same state on the same batch (loss
+    and |g| within TP_TRAIN_LOSS_TOL and TP_TRAIN_NORM_TOL of f32); no
+    B1-B4 launch on any rank. Prints each world's spawn (the launcher's
+    call to the ranks' start), the restore, the first resumed step, the
+    time to recover (from the plan to the end of that step) and the
+    checkpoints' size and seconds."""
+    t_phase = time.perf_counter()
+    cfg = tp_train_config("starcoder2-3b", layers, "float32")
+    where = torch.cuda.get_device_name(dev)
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", cfg.name, "--device", dev.type, "--ranks",
+                "--host-devices", "4", "--elastic", "--fake-hosts", "2",
+                "--kill-host", f"{kill[0]}@{kill[1]}", "--lease", str(lease),
+                "--steps", str(steps), "--ckpt-every", str(every),
+                "--global-batch", str(2 * rows), "--seq", str(seq),
+                "--ckpt-dir", d]
+        lines, worlds = launcher_run(argv, cfg=cfg)
+        gb = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, files in os.walk(
+                     os.path.join(d, f"step_{steps - 1:08d}"))
+                 for f in files) / 1e9
+    for line in lines:
+        log(f"[elastic ranks] | {line}")
+    head = (f"arch={cfg.name} ({cfg.n_params() / 1e9:.2f}B params), "
+            f"seq={seq} batch={2 * rows}")
+    # the first poll past the lease declares the host; it restores the
+    # latest checkpoint by then
+    restore = (kill[1] + lease) // every * every
+    survivor = 1 - kill[0]
+    want = [f"mesh: {{'data': 2, 'model': 2}} on 4 rank processes "
+            f"({where}), {head}",
+            f"host failure: survivors [{survivor}], re-mesh (1, 2), "
+            f"restore step {restore}",
+            f"mesh: {{'data': 1, 'model': 2}} on 2 rank processes "
+            f"({where}), {head}",
+            f"elastic restore from step {restore} (resuming at step "
+            f"{restore + 1})", "done"]
+    got = [ln for ln in lines if not ln.startswith("step ")]
+    check(got == want, f"{ELASTIC_CELL}: the launcher's lines {got}, "
+          f"want {want}")
+    lost, kept = worlds
+    check(not lost["died"] and lost["plan"].survivors == [survivor]
+          and len(kept["ranks"]) == 2 and kept["plan"] is None,
+          f"{ELASTIC_CELL}: worlds {[(w['died'], w['plan']) for w in worlds]}")
+    first = restore + 1
+    a, b = lost["ranks"][0]["steps"][first], kept["ranks"][0]["steps"][first]
+    loss_err = abs(b["loss"] - a["loss"]) / a["loss"]
+    norm_err = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+    log(f"[elastic ranks] {ELASTIC_CELL}: step {first} on (1, 2) loss "
+        f"{b['loss']:.6f} |g| {b['grad_norm']:.6f} against the lost (2, 2) "
+        f"world's {a['loss']:.6f} {a['grad_norm']:.6f}: {loss_err:.3e} and "
+        f"{norm_err:.3e} relative")
+    check(loss_err <= TP_TRAIN_LOSS_TOL["float32"]
+          and norm_err <= TP_TRAIN_NORM_TOL["float32"],
+          f"{ELASTIC_CELL}: the survivors' step {first} off the lost "
+          f"world's: loss {loss_err:.3e}, |g| {norm_err:.3e}")
+    launches = [[r["launches"] for r in w["ranks"]] for w in worlds]
+    check(not any(n for w in launches for r in w for n in r.values()),
+          f"{ELASTIC_CELL}: kernels launched in a train step: {launches}")
+    for i, w in enumerate(worlds):
+        spawn = max(r["t_start"] for r in w["ranks"]) - w["t_spawn"]
+        ms = [round(max(r["steps"][s]["ms"] for r in w["ranks"]), 1)
+              for s in sorted(w["ranks"][0]["steps"])]
+        saves = {s: round(max(r["save_s"][s] for r in w["ranks"]), 2)
+                 for s in sorted(w["ranks"][0]["save_s"])}
+        log(f"[elastic ranks] world {i}: {len(w['ranks'])} ranks on "
+            f"{card()}; spawn {spawn:.1f} s (the call to the ranks' start), "
+            f"{w['t_end'] - w['t_spawn']:.1f} s in all; ms a step "
+            f"(slowest rank) {ms}; checkpoint s by step {saves}")
+    restore_s = max(r["restore_s"] for r in kept["ranks"])
+    first_ms = max(r["steps"][first]["ms"] for r in kept["ranks"])
+    recover = kept["ranks"][0]["steps"][first]["t"] - lost["ranks"][0]["t_plan"]
+    log(f"[elastic ranks] {ELASTIC_CELL}: restore {restore_s:.2f} s, first "
+        f"resumed step {first_ms:.1f} ms, time to recover (the plan to the "
+        f"end of step {first}) {recover:.1f} s; a checkpoint "
+        f"{gb:.2f} GB; B1-B4 launches per rank "
+        f"{[[sum(r.values()) for r in w] for w in launches]}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "recover_s": recover,
+            "restore_s": restore_s, "first_ms": first_ms, "ckpt_gb": gb}
+
+
 def phase_yardstick(dev, chol_batch: int, gemm_batch: int, b_chol=512,
                     b_gemm=1024) -> dict:
     """Times at the main path's largest body calls (the Cholesky gemm
@@ -6019,6 +6145,7 @@ def main() -> int:
     train_ranks = timed(phase_train_ranks, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    elastic = timed(phase_elastic_ranks, dev)
     times = timed(phase_yardstick, dev, chol["max_batch"], gemm["max_batch"])
     attn_times = timed(phase_time_attention, dev, chain["seq"], chain["dim"])
     ssd_time = timed(phase_time_ssd, dev, model["shape"])
@@ -6129,6 +6256,9 @@ def main() -> int:
         "tensor_ranks_train_launches": {
             cell: [r[name] for r in got["launches"]]
             for cell, got in train_ranks.items()},
+        "elastic_ranks_train_launches": {
+            ELASTIC_CELL: [[r[name] for r in world]
+                           for world in elastic["launches"]]},
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

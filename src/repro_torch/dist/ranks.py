@@ -6,11 +6,19 @@ shard (``repro.core.schedule``: ``shard_map``, ``all_to_all``,
 ``ppermute``). Here each shard is a process, and the exchanges are
 ``torch.distributed`` collectives between them:
 
-- :func:`spawn_ranks` starts ``world`` processes (``spawn``, never
-  ``fork``: the parent has usually initialised CUDA), joins them into a
+- :func:`spawn_ranks` starts ``world`` processes, joins them into a
   process group that meets through a file, runs one function on each and
-  returns what each returned. A rank that raises, or a world that misses
-  its deadline, fails the call, and every child is stopped first.
+  returns what each returned. They are forked from a fork server (never
+  from the parent, which has usually initialised CUDA), a clean process
+  that has imported torch and the port's rank modules once: a world
+  starts in a fraction of a second instead of each process importing
+  torch anew. Each takes the parent's environment and standard output
+  and error at the call, as a spawned process would, and its call
+  through a pipe (tensors in the arguments shared as a spawned process
+  shares them: CPU memory by file descriptor, CUDA memory by IPC). A
+  rank that raises or dies (``RankDied`` names the ranks a signal
+  killed), or a world that misses its deadline, fails the call at once,
+  and every child is stopped first.
 - :class:`HostTransport` is the transport: gloo, with blocks of stores on
   the card staged through pinned host buffers explicitly (gloo moves host
   memory only; the staging and the counts per peer are :class:`_Staged`'s,
@@ -43,24 +51,38 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import signal
 import sys
 import tempfile
+import threading
 import time
 import traceback
+from multiprocessing import connection as mp_connection
+from multiprocessing import reduction
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-from torch.multiprocessing.spawn import ProcessException
+
+
+class RankDied(RuntimeError):
+    """A world failed because a signal killed rank processes ``ranks``:
+    told apart by their exit code from the ranks that raised (or exited)
+    after them, waiting on a dead peer. A ``RuntimeError``, as any failed
+    world."""
+
+    def __init__(self, message: str, ranks: List[int]):
+        super().__init__(message)
+        self.ranks = ranks
 
 
 def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
                 device="cuda", timeout: float = 600.0,
                 **kwargs) -> List[object]:
     """Run ``fn(rank, world, *args, device=device, **kwargs)`` in ``world``
-    spawned processes joined into one ``torch.distributed`` group; return
-    the ranks' results in rank order.
+    new processes joined into one ``torch.distributed`` group; return the
+    ranks' results in rank order.
 
     The group meets through a file in a temporary directory (no port to
     collide with other worlds) and its collectives time out after
@@ -69,9 +91,11 @@ def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
     one thread. On ``cuda`` every kernel is built here, once, before the
     children load it; without a GPU the call raises before it spawns.
 
-    Raises ``RuntimeError`` with the child's traceback if a rank raises or
-    dies, ``TimeoutError`` if the world misses the deadline; either way
-    every child is killed before it returns."""
+    Raises ``RuntimeError`` with the children's tracebacks as soon as a
+    rank raises, exits or dies (:class:`RankDied`, naming the ranks that
+    a signal killed, where some did), ``TimeoutError`` if the world
+    misses the deadline; either way every child is killed before it
+    returns."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -82,24 +106,51 @@ def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
         _build.build(*sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     tmp = tempfile.mkdtemp(prefix="ranks-")
     try:
-        ctx = mp.start_processes(
-            _child, args=(fn, world, args, kwargs, tmp, backend, str(dev),
-                          timeout),
-            nprocs=world, join=False, start_method="spawn")
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(_PRELOAD)
+        pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
+        procs = mp.start_processes(
+            _child, args=(world, [r for r, _ in pipes], tmp, backend,
+                          str(dev), timeout, _Inherited(1), _Inherited(2)),
+            nprocs=world, join=False, start_method="forkserver").processes
         deadline = time.monotonic() + timeout
         try:
-            while not ctx.join(timeout=min(1.0, max(
-                    0.0, deadline - time.monotonic()))):
-                if time.monotonic() >= deadline:
+            for r, _ in pipes:
+                r.close()
+            # the call goes to the ranks through the pipes, not with the
+            # processes: a fork server takes a process at most ~250 file
+            # descriptors, and each CPU tensor in ``args`` lends one
+            # (pickled once a rank: a lent descriptor is taken once)
+            job = (fn, args, kwargs, dict(os.environ))
+            threading.Thread(target=_send, daemon=True, args=(
+                [(w, reduction.ForkingPickler.dumps(job)) for _, w in pipes],
+            )).start()
+            while True:
+                codes = [p.exitcode for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None,
+                                                                      0)]
+                if failed:
+                    # a signal ended a rank that died (a negative code);
+                    # one that raised or exited left its traceback
+                    died = [r for r in failed if codes[r] < 0]
+                    message = (f"spawn_ranks: {fn.__name__} failed on "
+                               f"{world} ranks\n"
+                               f"{_failures(tmp, procs, died)}")
+                    if died:
+                        raise RankDied(message, died)
+                    raise RuntimeError(message)
+                if None not in codes:
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0:
                     raise TimeoutError(
                         f"spawn_ranks: {world} ranks of {fn.__name__} did "
                         f"not finish within {timeout} s")
-        except ProcessException as exc:
-            raise RuntimeError(f"spawn_ranks: {fn.__name__} failed on "
-                               f"{world} ranks\n{_failures(tmp, exc)}"
-                               ) from None
+                mp_connection.wait([p.sentinel for p in procs
+                                    if p.exitcode is None],
+                                   timeout=min(1.0, left))
         finally:
-            for proc in ctx.processes:
+            for proc in procs:
                 if proc.is_alive():
                     proc.kill()
                 proc.join(timeout=30)
@@ -109,40 +160,84 @@ def spawn_ranks(fn, world: int, *args, backend: str = "gloo",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _failures(tmp: str, exc: ProcessException) -> str:
-    """Every rank's traceback, the first to fail first: a rank that raises
-    makes its peers fail too, waiting on it."""
+def _failures(tmp: str, procs, died: List[int]) -> str:
+    """Every rank's traceback, the first to fail first (a rank that raises
+    makes its peers fail too, waiting on it), after the ranks that died."""
+    out = [f"rank {r}: killed by signal {-procs[r].exitcode}"
+           for r in died]
     files = sorted((f for f in os.listdir(tmp) if f.endswith(".err")),
                    key=lambda f: os.path.getmtime(os.path.join(tmp, f)))
-    if not files:                                # killed: no traceback
-        return f"rank {exc.error_index}: {exc}"
-    out = []
     for f in files:
         with open(os.path.join(tmp, f)) as fh:
             out.append(f"rank {f[4:-4]}:\n{fh.read()}")
     return "\n".join(out)
 
 
-def _child(rank, fn, world, args, kwargs, tmp, backend, device, timeout):
+# what the fork server imports once for every rank process it forks
+_PRELOAD = ["torch", "torch.distributed", "numpy", "repro_torch.dist.ranks",
+            "repro_torch.dist.tensor_parallel", "repro_torch.launch.train",
+            "repro_torch.models.transformer", "repro_torch.train.checkpoint",
+            "repro_torch.train.train_step"]
+
+
+class _Inherited:
+    """The parent's file descriptor ``fd`` as of the call, handed to a
+    child (a fork server's child otherwise writes where the server was
+    started): pickled, it becomes the child's copy of it."""
+
+    def __init__(self, fd: int):
+        self.fd = fd
+
+    def __reduce__(self):
+        return _detach, (reduction.DupFd(self.fd),)
+
+
+def _detach(dup) -> int:
+    return dup.detach()
+
+
+def _send(jobs) -> None:
+    """Write each rank its pickled call (a thread: a pipe takes ~64 KB
+    before its reader reads)."""
+    for conn, payload in jobs:
+        try:
+            conn.send_bytes(payload)
+        except OSError:         # the rank is gone; its world fails
+            pass
+        finally:
+            conn.close()
+
+
+def _child(rank, world, readers, tmp, backend, device, timeout, stdout,
+           stderr):
+    for fd, to in ((stdout, 1), (stderr, 2)):
+        os.dup2(fd, to)
+        os.close(fd)
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 means IEEE f32
     torch.backends.cudnn.allow_tf32 = False
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)
-    dist.init_process_group(
-        backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
-        world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout))
     try:
+        fn, args, kwargs, env = readers[rank].recv()
+        for conn in readers:
+            conn.close()
+        os.environ.clear()      # the parent's at the call, not the server's
+        os.environ.update(env)
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout))
         out = fn(rank, world, *args, device=device, **kwargs)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt.tmp"))
         os.replace(os.path.join(tmp, f"rank{rank}.pt.tmp"),
                    os.path.join(tmp, f"rank{rank}.pt"))
-    except Exception:
+    except BaseException:       # sys.exit in a rank too
         with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
             fh.write(traceback.format_exc())
         raise
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def run_jobs(rank: int, world: int, jobs: Sequence, *, device) -> list:
@@ -154,12 +249,19 @@ def run_jobs(rank: int, world: int, jobs: Sequence, *, device) -> list:
 
 
 def rank_probe(rank: int, world: int, fail: Optional[int] = None,
-               hang: Optional[int] = None, *, device) -> List[str]:
+               hang: Optional[int] = None, how: str = "raise", *,
+               device) -> List[str]:
     """The top-level packages this rank process has imported. Rank
-    ``fail`` raises, rank ``hang`` sleeps for good, and with either the
-    other ranks wait in a barrier that never completes: the faults
-    :func:`spawn_ranks` must turn into an error within its deadline."""
+    ``fail`` raises (``how`` "raise"), calls ``sys.exit`` ("exit") or
+    dies by SIGKILL ("kill"), rank ``hang`` sleeps for good, and with
+    either the other ranks wait in a barrier that never completes: the
+    faults :func:`spawn_ranks` must turn into an error within its
+    deadline."""
     if rank == fail:
+        if how == "kill":
+            os.kill(os.getpid(), signal.SIGKILL)
+        if how == "exit":
+            sys.exit(f"rank {rank} exits on purpose")
         raise RuntimeError(f"rank {rank} fails on purpose")
     if rank == hang:
         time.sleep(1e9)
@@ -356,8 +458,9 @@ class TensorTransport(_Staged):
     member: what a pair exchanges; broadcasts count as ``"p2p"`` from
     their source); ``"gather"``, the all-gathers (the rank's own tensor's
     bytes to each other member); ``"scalar"``, any message of one
-    element. An all-reduce may name a kind of its own (the ranked train
-    step's ``"grad"`` and ``"replica"``), counted from its first use.
+    element. An all-reduce or an all-gather may name a kind of its own
+    (the ranked train step's ``"grad"`` and ``"replica"``, the elastic
+    launcher's heartbeats, ``"beat"``), counted from its first use.
     ``ms[kind]``
     is the host time spent in each kind, waits for the peers included,
     after the stream has drained. :meth:`busy_ms` is the time the rank's
@@ -463,10 +566,11 @@ class TensorTransport(_Staged):
         self._leave(kind, t0)
         return t
 
-    def all_gather(self, t: torch.Tensor, group) -> List[torch.Tensor]:
+    def all_gather(self, t: torch.Tensor, group, kind: str = "gather"
+                   ) -> List[torch.Tensor]:
         """Each member's ``t`` (one shape and dtype on every member) on
         ``device``, in the group's rank order; ``[t]`` in a group of
-        one."""
+        one. Its bytes count under ``kind`` (one element: ``"scalar"``)."""
         members = dist.get_process_group_ranks(group)
         if len(members) == 1:
             return [t]
@@ -476,7 +580,7 @@ class TensorTransport(_Staged):
         dist.all_gather([self._bytes_of(p) for p in parts],
                         self._bytes_of(host), group=group)
         out = [self.stage_in(p) for p in parts]
-        kind = self._kind(t, "gather")
+        kind = self._kind(t, kind)
         self._count(kind, [p for p in members if p != dist.get_rank()],
                     host.nbytes)
         self._leave(kind, t0)
@@ -509,12 +613,15 @@ def owned_blocks(prog, runs: Sequence[dict]) -> Dict[object, torch.Tensor]:
             if (run["rank"], slot) in slot_blk}
 
 
-def _launch_counts() -> Dict[str, int]:
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launches so far in this process (B1-B4)."""
     from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
-    return {"block_gemm": block_gemm.launches,
-            "flash_attention": flash_attention.launches}
+    return {k.__name__: k.launches for k in (block_gemm, flash_attention,
+                                             ssd_scan, decode_attention)}
 
 
 def run_program(prog, bodies, blocks, runs: Sequence[dict], *, device,
@@ -559,14 +666,14 @@ def run_program(prog, bodies, blocks, runs: Sequence[dict], *, device,
             ex(row)
         drain()
         ex.reset()
-        before = _launch_counts()
+        before = launch_counts()
         dist.barrier(group)
         t0 = time.perf_counter()
         got = ex(row)
         drain()
         dist.barrier(group)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        after = _launch_counts()
+        after = launch_counts()
         out.append({
             "name": name, "mode": ex.mode, "rank": rank, "wall_ms": wall_ms,
             "body_ms": ex.body_ms, "exchange_ms": ex.transport.ms,

@@ -578,7 +578,13 @@ def _factor_box(box, factor: str, ndim: int):
     ``ndim`` dims whose box is ``box``, as ``optimizer.opt_state_specs``
     derives the factors' specs: a row factor drops the last dim's entry, a
     column factor the second last; a vector's vr is its box, its vc (a [1]
-    placeholder) whole."""
+    placeholder) whole. A box of column pieces (a list) gives its pieces'
+    factor boxes where the factor keeps the columns (a matrix's vc, a
+    vector's vr), else the one box they share."""
+    if isinstance(box, list):
+        boxes = [_factor_box(b, factor, ndim) for b in box]
+        return boxes if factor == ("vc" if ndim >= 2 else "vr") \
+            else boxes[0]
     if ndim < 2:
         return box if factor == "vr" else (slice(None),)
     return box[:-1] if factor == "vr" else box[:-2] + box[-1:]

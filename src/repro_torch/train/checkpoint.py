@@ -149,7 +149,8 @@ def _parts(place, leaf, bf16: bool) -> list:
 
 
 def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
-                    rows: dict, group=None, writes=None) -> None:
+                    rows: dict, group=None, writes=None,
+                    written=None) -> None:
     """Write a checkpoint of the whole tree ``like`` (its names, shapes and
     dtypes; any device, ``meta`` included) from the ranks of ``group``,
     each writing the leaves of its ``tree`` (a part of ``like``'s, the
@@ -159,7 +160,8 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
     of leaf names) the rank writes those leaves only: a part several ranks
     hold is written by one of them. Every rank of ``group`` calls it; it returns once the
     checkpoint is published. Ranks that hold the same part may both write
-    it (the same bytes)."""
+    it (the same bytes). ``written`` (a function of no arguments) is
+    called once this rank's parts are written, before the publish."""
     group = dist.group.WORLD if group is None else group
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -168,11 +170,14 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
         name: leaf.detach().to("cpu", copy=True)
         for name, leaf in leaf_paths(tree) if writes is None or name in writes}
     manifest = {"step": step, "leaves": {}}
+    if lead:
+        # a write of this step that died before its publish left its parts
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(os.path.join(tmp, "arrays"))
     for name, leaf in leaf_paths(like):
         dtype, shape, dname = _stored(leaf)
         fname = name.replace("/", "__") + ".npy"
         if lead:
-            os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
             np.lib.format.open_memmap(os.path.join(tmp, "arrays", fname),
                                       mode="w+", dtype=dtype, shape=shape
                                       ).flush()
@@ -189,6 +194,8 @@ def save_from_ranks(ckpt_dir: str, step: int, tree: Any, *, like: Any,
             out[index] = arr if cols is None else arr[..., cols]
         out.flush()
         del out
+    if written is not None:
+        written()
     dist.barrier(group)
     if lead:
         _publish(tmp, final, manifest)
@@ -201,19 +208,22 @@ class RankCheckpointer:
     rank 0 keeps the ``keep`` latest steps; ``wait`` has nothing to
     drain. ``writes`` False: this rank holds a copy another rank writes
     (it still meets the others in the barriers); a set of leaf names: it
-    writes those leaves only."""
+    writes those leaves only. ``written`` is ``save_from_ranks``' hook
+    between this rank's writes and the publish."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3, *, like: Any,
                  rows: dict, group=None, writes=True):
         self.ckpt_dir, self.keep = ckpt_dir, keep
         self.like, self.rows, self.group = like, rows, group
         self.writes = writes
+        self.written = None
 
     def save(self, step: int, tree: Any) -> None:
         save_from_ranks(self.ckpt_dir, step,
                         tree if self.writes is not False else None,
                         like=self.like, rows=self.rows, group=self.group,
-                        writes=None if self.writes is True else self.writes)
+                        writes=None if self.writes is True else self.writes,
+                        written=self.written)
         group = dist.group.WORLD if self.group is None else self.group
         if dist.get_rank(group) == 0:
             _prune(self.ckpt_dir, self.keep)

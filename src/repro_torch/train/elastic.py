@@ -27,6 +27,7 @@ heartbeats) is the same rank-0 pattern as the paper's completion protocol.
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
@@ -53,8 +54,9 @@ class StragglerDetector:
     straggler_factor: float = 1.5
     patience: int = 3
     window: int = 32
+    # (a partial, not a lambda: a controller is pickled to rank processes)
     _times: Dict[int, deque] = field(default_factory=lambda: defaultdict(
-        lambda: deque(maxlen=32)))
+        functools.partial(deque, maxlen=32)))
     _strikes: Dict[int, int] = field(default_factory=lambda: defaultdict(int))
 
     def record(self, host: int, step_time: float) -> None:

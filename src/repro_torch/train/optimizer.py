@@ -15,20 +15,22 @@ size. For Adafactor this changes the result: its update clip
 ``sqrt(mean(u²))`` is then taken per layer slice.
 
 On a model axis of ranks each rank holds a box of each leaf
-(``dist.tensor_parallel.shard_boxes``). AdamW is elementwise, so each
-rank updates its boxes alone. :func:`ranked_adafactor_update` gives each
-rank its boxes of what ``adafactor_update`` gives the whole leaves, per
-layer slice as the layer loop takes them: each statistic that spans the
-rank's box (the means of g² over a split dim, the mean of ``vr`` over
-split rows, the clip's mean of u²) is summed over the model group in f32,
-each box counted by one of the ranks that hold it, one all-reduce per
+(``dist.tensor_parallel.shard_boxes``; Mamba-2's head-aligned leaves as
+column pieces), and on the pipelined ranks each stage its layers of the
+stacked leaves. AdamW is elementwise, so each rank updates its boxes
+alone. :func:`ranked_adafactor_update` gives each rank its boxes of what
+``adafactor_update`` gives the whole leaves, per layer slice as the layer
+loop takes them: each statistic that spans the rank's box (the means of
+g² over a split dim, the mean of ``vr`` over split rows, the clip's mean
+of u²) is summed over the group that splits the leaf in f32, each box or
+column piece counted by one of the ranks that hold it, one all-reduce per
 leaf for all its slices.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -163,11 +165,32 @@ def adafactor_update(params, grads, state: AdafactorState, *, lr=1e-3,
 class Shard(NamedTuple):
     """How a rank holds a leaf (``ranked_adafactor_update``): the whole
     leaf's ``shape``, the dims of it of which the rank holds a part
-    (``split``), and whether the rank counts its box in the sums over the
-    model group (``counts``: one rank of those that hold the box)."""
+    (``split``), whether the rank counts its box in the sums over the
+    group (``counts``: one rank of those that hold the box), and for a
+    leaf held as column pieces (Mamba-2's head-aligned leaves) the columns
+    [lo, hi) of the rank's joined last dim that it counts (``cols``: a
+    piece several ranks hold counts on one of them)."""
     shape: tuple
     split: frozenset
     counts: bool
+    cols: Optional[tuple] = None
+
+
+def _col_sum(t: torch.Tensor, cols) -> torch.Tensor:
+    """``t`` summed over its last dim: over the columns ``cols`` only where
+    given."""
+    if cols is None:
+        return t.sum(-1)
+    return sum((t[..., lo:hi].sum(-1) for lo, hi in cols),
+               torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device))
+
+
+def _squares(u: torch.Tensor, cols) -> torch.Tensor:
+    """sum(u²), over the columns ``cols`` only where given."""
+    if cols is None:
+        return torch.linalg.vector_norm(u) ** 2
+    return sum((torch.linalg.vector_norm(u[..., lo:hi]) ** 2
+                for lo, hi in cols), torch.zeros((), device=u.device))
 
 
 @torch.no_grad()
@@ -177,17 +200,20 @@ def ranked_adafactor_update(params, grads, state: AdafactorState, *,
     """``adafactor_update`` on a rank's boxes of the leaves: ``params``,
     ``grads`` and ``state`` hold the rank's boxes (``grads`` already summed
     over the data group and the holders), ``shards`` a :class:`Shard` per
-    leaf name, ``reduce(t)`` sums an f32 tensor over the model group in
-    place. A leaf with no split dim runs the one-process arithmetic.
-    Otherwise, per layer slice: the means of g² over a split dim, the mean
-    of ``vr`` over split rows and the clip's mean of u² are sums over the
-    group of each box's sums (a rank that does not count its box adds
-    zeros), over the whole leaf's sizes; the rest is elementwise on the
-    box. One all-reduce per leaf for the row means or for the column means
-    with the rows' ``vr`` sums (both only where both dims split), one for
-    the clips; u is formed twice (for the clip, then for the update), so
-    the f32 temporaries stay two of a slice's size. Returns (params, the
-    new state)."""
+    leaf name, ``reduce(t)`` sums an f32 tensor over the group that splits
+    the leaves (the model group; the pipe group of a pipelined mesh) in
+    place. A leaf with no split dim, or split only along the layers that
+    the layer loop runs over one at a time (``_slices``), runs the
+    one-process arithmetic. Otherwise, per layer slice: the means of g²
+    over a split dim, the mean of ``vr`` over split rows and the clip's
+    mean of u² are sums over the group of each box's sums (a rank that does
+    not count its box adds zeros; of a leaf of column pieces each rank adds
+    its counted columns), over the whole leaf's sizes; the rest is
+    elementwise on the box. One all-reduce per leaf for the row means or
+    for the column means with the rows' ``vr`` sums (both only where both
+    dims split), one for the clips; u is formed twice (for the clip, then
+    for the update), so the f32 temporaries stay two of a slice's size.
+    Returns (params, the new state)."""
     step, t = _next_step(state.step)
     beta = 1.0 - t ** -decay
     upd_leaf = _adafactor_leaf(beta, lr, eps, clip)
@@ -208,20 +234,23 @@ def ranked_adafactor_update(params, grads, state: AdafactorState, *,
     for (name, p), g, vr, vc in zip(leaf_paths(params), *map(leaves, (
             grads, state.vr, state.vc))):
         sh = shards[name]
-        if not sh.split:
+        parts = _slices(p, g, vr, vc)
+        lead = p.dim() - parts[0][0].dim()      # 1: the layer loop's dim
+        split = {d for d in sh.split if d >= lead}
+        if not split:
             _layer_scanned(upd_leaf, p, g, vr, vc)
             continue
-        parts = _slices(p, g, vr, vc)
         factored = _factored(parts[0][0])
-        last, second = p.dim() - 1 in sh.split, p.dim() - 2 in sh.split
+        last, second = p.dim() - 1 in split, p.dim() - 2 in split
         whole = 1                          # a slice's elements, whole
-        for n in sh.shape[p.dim() - parts[0][0].dim():]:
+        for n in sh.shape[lead:]:
             whole *= n
         if factored:
             row, col = [], []
             for _, gi, _, _ in parts:
                 g2 = gi.float().square().add_(eps)
-                row.append(g2.sum(-1) if last else g2.mean(dim=-1))
+                row.append(_col_sum(g2, sh.cols) if last
+                           else g2.mean(dim=-1))
                 col.append(g2.sum(-2) if second else g2.mean(dim=-2))
                 del g2
             row = torch.stack(row).reshape(vr.shape)
@@ -244,8 +273,8 @@ def ranked_adafactor_update(params, grads, state: AdafactorState, *,
                 vri.copy_(beta * vri + (1 - beta)
                           * gi.float().square().add_(eps))
             parts = [(pi, gi, vri, None) for pi, gi, vri, _ in parts]
-        squares = torch.stack([torch.linalg.vector_norm(u_of(gi, ri, vci))
-                               ** 2 for _, gi, ri, vci in parts])
+        squares = torch.stack([_squares(u_of(gi, ri, vci), sh.cols)
+                               for _, gi, ri, vci in parts])
         norms = torch.sqrt(summed(squares, sh) / whole)
         for (pi, gi, ri, vci), norm in zip(parts, norms):
             u = u_of(gi, ri, vci).div_(torch.clamp(norm / clip, min=1.0))

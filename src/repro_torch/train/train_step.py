@@ -22,8 +22,8 @@ each column piece of a Mamba-2 leaf that several of them hold); |g|
 counts each leaf and piece once. Every family (dense, vlm, moe with MLA,
 ssm, hybrid, encdec), with AdamW, or Adafactor
 (``optimizer.ranked_adafactor_update``: its statistics that span the
-shards summed over the model group) where no leaf is cut into column
-pieces.
+shards summed over the model group, a column piece that several ranks
+hold counted once).
 
 ``make_pipeline_train_step`` trains the dense family stage-parallel on a
 mesh's ``"pipe"`` axis (``dist/pipeline.py``): the same loss, its layer
@@ -33,7 +33,8 @@ processes (one per mesh coordinate): each rank holds, differentiates and
 updates only its own leaves (``pipeline_shard``), takes its own rows of
 the global batch, and the ranks meet in the pipeline's hand-offs and in
 f32 all-reduces (the data group's gradients and mask count, the tied
-embedding's two stages, the gradient norm) through the mesh's
+embedding's two stages, the gradient norm, Adafactor's statistics that
+average over the layers the stages split) through the mesh's
 ``TensorTransport``.
 """
 
@@ -138,19 +139,11 @@ def _accumulate(cfg: ModelConfig, params, parts: list, rows,
 
 def check_ranked_training(cfg: ModelConfig, model: int) -> None:
     """Raise ``ValueError`` unless a model axis of ``model`` ranks trains
-    ``cfg``: every family, on an axis ``check_tp`` passes, with AdamW or
-    Adafactor; Adafactor not where Mamba-2's leaves are cut into column
-    pieces (its factor boxes are whole boxes: ROADMAP A8e). Without a
-    model axis there is nothing to check."""
-    if model == 1:
-        return
-    check_tp(cfg, model)
-    if cfg.optimizer == "adafactor" and cfg.ssm is not None:
-        raise ValueError(f"{cfg.name} on a model axis of {model} ranks: "
-                         "adafactor over Mamba-2's column pieces (its "
-                         "factors of a leaf cut into column boxes) is "
-                         "ROADMAP A8e; the ssm and hybrid families train "
-                         "there with adamw")
+    ``cfg``: every family, with AdamW or Adafactor, on an axis
+    ``check_tp`` passes. Without a model axis there is nothing to
+    check."""
+    if model > 1:
+        check_tp(cfg, model)
 
 
 def _region(name: str) -> bool:
@@ -272,19 +265,40 @@ def ranked_grads(cfg: ModelConfig, mesh, *, microbatches: int = 1):
 
 
 def adafactor_shards(cfg: ModelConfig, mesh) -> dict:
-    """``{parameter name: optimizer.Shard}`` of this rank: the whole
-    leaf's shape, the dims its box (``shard_boxes``) cuts, and whether it
-    is the owner of its box (``owned``), which alone counts it in the
-    ranked Adafactor's sums."""
+    """``{parameter name: optimizer.Shard}`` of this rank on a model axis:
+    the whole leaf's shape, the dims its box (``shard_boxes``; each of a
+    Mamba-2 leaf's column pieces) cuts, whether it is the owner of its box
+    (``owned``), which alone counts it in the ranked Adafactor's sums, and
+    of a leaf of column pieces the columns it counts (``owned_columns``:
+    a B or C column that several ranks hold counts on its first
+    holder)."""
     like = abstract_params(cfg)
     boxes, once = shard_boxes(cfg, like, mesh), owned(cfg, like, mesh)
+    cols = owned_columns(cfg, like, mesh)
     out = {}
     for name, leaf in leaf_paths(like):
         box, shape = boxes[name], tuple(leaf.shape)
         out[name] = Shard(shape, frozenset(
-            d for d, cut in enumerate(box)
-            if cut.indices(shape[d])[:2] != (0, shape[d])), name in once)
+            d for piece in (box if isinstance(box, list) else [box])
+            for d, cut in enumerate(piece)
+            if cut.indices(shape[d])[:2] != (0, shape[d])), name in once,
+            cols.get(name))
     return out
+
+
+def pipeline_adafactor_shards(cfg: ModelConfig, mesh,
+                              axis: str = "pipe") -> dict:
+    """``{parameter name: optimizer.Shard}`` of this stage rank: each of
+    its leaves of the layer stack split along the layers (dim 0) over the
+    pipe axis, counted by every stage (each holds its own layers); every
+    other leaf whole."""
+    like = dict(leaf_paths(abstract_params(cfg)))
+    split = frozenset({0}) if mesh.shape[axis] > 1 else frozenset()
+    return {name: Shard(tuple(like[name].shape),
+                        split if "dense" in name.split("/") else frozenset(),
+                        True)
+            for name, _ in leaf_paths(pipeline_shard(
+                cfg, abstract_params(cfg), mesh, axis))}
 
 
 def _squares(g: torch.Tensor, piece: int = 1 << 26) -> torch.Tensor:
@@ -480,23 +494,34 @@ def pipeline_shard(cfg: ModelConfig, tree, mesh, axis: str = "pipe"):
     parameter-shaped dicts (the optimizer's state, ``{"params", "opt"}``):
     in each of those dicts, its stage's consecutive run of the stacked
     ``"dense"`` layers (cloned) and the keys ``_stage_keys`` gives it;
-    every other leaf (the optimizer's step) whole."""
+    every other leaf (the optimizer's step; Adafactor's column factor of
+    a stacked leaf of 2 dims or fewer, which spans the layers:
+    ``_stacked``) whole."""
     s, n_stages = mesh.coords[axis], mesh.shape[axis]
     per = _pipeline_split(cfg, mesh, axis)
     keys = _stage_keys(cfg, s, n_stages)
 
-    def take(node):
+    def take(node, factor=None):
         if isinstance(node, dict) and "dense" in node:
-            return {k: (tree_map(lambda t: t[s * per:(s + 1) * per].clone(),
-                                 v) if k == "dense" else v)
+            return {k: (tree_map(lambda t: t[s * per:(s + 1) * per].clone()
+                                 if _stacked(factor, t) else t.clone(), v)
+                        if k == "dense" else v)
                     for k, v in node.items() if k == "dense" or k in keys}
         if isinstance(node, dict):
-            return {k: take(v) for k, v in node.items()}
+            return {k: take(v, factor) for k, v in node.items()}
         if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*map(take, node))
+            return type(node)(*(take(v, k) for k, v in
+                                zip(node._fields, node)))
         return node
 
     return take(tree)
+
+
+def _stacked(factor, t) -> bool:
+    """Whether a leaf of the layer stack runs along the layers on dim 0:
+    all do but Adafactor's column factor (``factor`` "vc") of a parameter
+    of 2 dims or fewer, [d] or a [1] placeholder."""
+    return not (factor == "vc" and t.dim() < 2)
 
 
 def pipeline_rows(cfg: ModelConfig, tree, mesh, axis: str = "pipe"
@@ -506,8 +531,9 @@ def pipeline_rows(cfg: ModelConfig, tree, mesh, axis: str = "pipe"
     stacked ``"dense"`` leaves, 0 for whole leaves), as the ranked
     checkpoint writes and reads them."""
     first = mesh.coords[axis] * _pipeline_split(cfg, mesh, axis)
-    return {name: first if "dense" in name.split("/") else 0
-            for name, _ in leaf_paths(tree)}
+    return {name: first if "dense" in keys and _stacked(
+        "vc" if "vc" in keys else None, t) else 0
+        for name, t in leaf_paths(tree) for keys in [name.split("/")]}
 
 
 def pipeline_grads(cfg: ModelConfig, mesh, *, n_micro: int,
@@ -564,19 +590,25 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
     ``opt_state`` are this rank's own (``pipeline_shard``), ``batch`` the
     global batch; the loss and gradients are ``pipeline_grads``', and |g|
     is global (each rank's sum of squares all-reduced over its pipe group,
-    a tied embedding counted once). Every rank updates its own leaves. AdamW
-    only: Adafactor on the pipelined ranks raises ``ValueError`` naming
-    ROADMAP A8e."""
+    a tied embedding counted once). Every rank updates its own leaves:
+    AdamW alone, Adafactor with the statistics of a stacked leaf that
+    average over the layers the stages split (the column factor and the
+    row mean of a [L, d] leaf, the clip of a leaf the layer loop does not
+    slice) summed over the pipe group (``ranked_adafactor_update`` with
+    ``pipeline_adafactor_shards``, transport kind ``"adafactor"``); the
+    data replicas compute the same statistics."""
     if mesh.group is None:
         return _train_step(cfg, functools.partial(
             value_and_grads, make_pipeline_loss(cfg, mesh, n_micro=n_micro,
                                                 axis=axis)), lr)
     refuse_model_axis(mesh)
-    if cfg.optimizer != "adamw":
-        raise ValueError(f"{cfg.optimizer} on the pipelined ranks (the "
-                         "column factor of a stacked [L, d] leaf averages "
-                         "over layers the stages split) is ROADMAP A8e; "
-                         "the ranked pipeline trains with adamw")
+    update = None
+    if cfg.optimizer == "adafactor":
+        update = functools.partial(
+            ranked_adafactor_update,
+            shards=pipeline_adafactor_shards(cfg, mesh, axis),
+            reduce=lambda t: mesh.transport.all_reduce(
+                t, mesh.groups[axis], "adafactor"))
     s, last = mesh.coords[axis], mesh.shape[axis] - 1
     twice = cfg.tie_embeddings and last and s == last   # stage 0 counts it
 
@@ -588,7 +620,7 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, *, lr: float = 3e-4,
         return torch.sqrt(mesh.transport.all_reduce(sq, mesh.groups[axis]))
 
     return _train_step(cfg, pipeline_grads(cfg, mesh, n_micro=n_micro,
-                                           axis=axis), lr, norm)
+                                           axis=axis), lr, norm, update)
 
 
 def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -602,7 +634,8 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 __all__ = ["adafactor_shards", "check_ranked_training", "grad_norm",
            "init_train_state",
            "loss_and_grads", "make_pipeline_loss",
-           "make_pipeline_train_step", "make_train_step", "pipeline_grads",
+           "make_pipeline_train_step", "make_train_step",
+           "pipeline_adafactor_shards", "pipeline_grads",
            "pipeline_rows", "pipeline_shard", "ranked_grads",
            "ranked_train_step", "replica_columns", "replica_leaves",
            "value_and_grads"]

@@ -502,7 +502,11 @@ def test_train_launcher_on_ranks(tmp_path):
 
 @pytest.mark.parametrize("args,message", [
     (("--ranks",), "A8d"),
-    (("--ranks", "--pipeline", "2", "--elastic"), "A8e"),
+    # (the reference's message since --elastic runs on ranks, ROADMAP A8e;
+    # the case keeps its name)
+    pytest.param(("--ranks", "--pipeline", "2", "--elastic"),
+                 "--elastic does not compose with --pipeline yet",
+                 id="args1-A8e"),
     (("--ranks", "--pipeline", "2", "--host-devices", "3"),
      "does not divide 3 devices")])
 def test_train_launcher_refuses_on_ranks(args, message):

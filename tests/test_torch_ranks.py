@@ -221,6 +221,40 @@ def test_a_failing_rank_fails_the_world_with_its_traceback():
     assert time.monotonic() - t0 < 120
 
 
+def tensors_rank(rank, world, tensors, *, device):
+    """The sum of the CPU tensors this rank was given, and whether they
+    share the parent's memory."""
+    return float(sum(t.sum() for t in tensors)), all(
+        t.is_shared() for t in tensors)
+
+
+def test_a_world_takes_more_cpu_tensors_than_a_process_takes_fds():
+    """Each CPU tensor in the call's arguments lends its shared memory by
+    a file descriptor: 300 of them reach every rank, which a fork server
+    would refuse with the process itself (at most ~250 descriptors)."""
+    tensors = [torch.full((4,), float(i)) for i in range(300)]
+    got = ranks.spawn_ranks(tensors_rank, 2, tensors, device="cpu",
+                            timeout=120)
+    assert got == [(4.0 * sum(range(300)), True)] * 2
+
+
+@pytest.mark.parametrize("how", ["exit", "kill"])
+def test_a_rank_killed_by_a_signal_is_told_from_one_that_exits(how):
+    """``RankDied`` names a rank that a signal killed, and only such a
+    rank: one that calls ``sys.exit`` fails the world with its traceback,
+    as one that raises does."""
+    with pytest.raises(RuntimeError) as err:
+        ranks.spawn_ranks(ranks.rank_probe, 2, 1, None, how, device="cpu",
+                          timeout=120)
+    if how == "kill":
+        assert isinstance(err.value, ranks.RankDied)
+        assert err.value.ranks == [1]
+        assert "rank 1: killed by signal 9" in str(err.value)
+    else:
+        assert not isinstance(err.value, ranks.RankDied)
+        assert "SystemExit: rank 1 exits on purpose" in str(err.value)
+
+
 def test_a_hung_rank_fails_the_world_within_its_deadline():
     """Rank 1 never returns and rank 0 waits for it in a barrier: the
     barrier's timeout or the call's deadline ends the world."""

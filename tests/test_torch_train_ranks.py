@@ -69,10 +69,9 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import (_accumulate, _split,
-                                          loss_and_grads,
-                                          make_pipeline_train_step,
-                                          make_train_step, ranked_grads,
-                                          replica_leaves)
+                                          loss_and_grads, make_train_step,
+                                          pipeline_adafactor_shards,
+                                          ranked_grads, replica_leaves)
 from repro_torch.train.tree import leaf_paths, tree_map, unflatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -624,14 +623,16 @@ def _pipeline_refuses():
     return str(exc.value)
 
 
-def _pipelined_adafactor_refuses():
-    mesh = SimpleNamespace(group=object(), shape={"pipe": 2, "data": 1,
-                                                  "model": 1})
-    with pytest.raises(ValueError) as exc:
-        make_pipeline_train_step(reduced(get_config("yi-6b"),
-                                         optimizer="adafactor"), mesh,
-                                 n_micro=2)
-    return str(exc.value)
+def _pipelined_adafactor_trains():
+    """The pipelined ranks' Adafactor (it refused until A8e): a stage's
+    leaves of the layer stack split along the layers, summed over the
+    pipe group; its other leaves whole (``pipeline_adafactor_shards``)."""
+    cfg = reduced(get_config("yi-6b"), optimizer="adafactor")
+    mesh = SimpleNamespace(shape={"pipe": 2, "data": 1, "model": 1},
+                           coords={"pipe": 1, "data": 0, "model": 0})
+    shards = pipeline_adafactor_shards(cfg, mesh)
+    return "; ".join(f"{name} split {sorted(sh.split)}"
+                     for name, sh in sorted(shards.items()))
 
 
 def _launcher_trains(*args):
@@ -690,12 +691,15 @@ def _group_norm_grad_trains():
     (lambda: _launcher_trains("--arch", "seamless-m4t-large-v2",
                               "--reduced", "--host-devices", "2"),
      ["mesh: {'data': 1, 'model': 2} on 2 rank processes", "done"]),
-    (_pipelined_adafactor_refuses, ["adafactor on the pipelined ranks",
-                                    "A8e"]),
+    (_pipelined_adafactor_trains, ["dense/attn/wq split [0]",
+                                   "dense/ln1 split [0]",
+                                   "final_norm split []",
+                                   "lm_head split []"]),
     (_group_norm_grad_trains, ["RMSNorm's over the whole row"]),
-    (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced",
-                               "--host-devices", "4", "--elastic"),
-     ["--elastic", "A8e"]),
+    (lambda: _launcher_trains("--arch", "yi-6b", "--reduced",
+                              "--host-devices", "4", "--elastic",
+                              "--fake-hosts", "2"),
+     ["mesh: {'data': 2, 'model': 2} on 4 rank processes", "done"]),
     (lambda: _launcher_refuses("--arch", "yi-6b", "--reduced",
                                "--host-devices", "3"),
      ["128 columns of d_model", "vocabulary of 512 does not divide"]),
@@ -709,9 +713,10 @@ def _group_norm_grad_trains():
 def test_what_a_model_axis_on_ranks_does_not_train_refuses(refuse, items):
     """Refused before any rank starts (the launcher exits with the
     message) or where it is called, naming its ROADMAP item or what does
-    not divide. What refused until A8d5b and A8d6c runs and says so: the
-    ssm, hybrid and encdec families train on ranks (the launcher's lines),
-    and ``group_rms_norm`` has its backward."""
+    not divide. What refused until A8d5b, A8d6c and A8e runs and says so:
+    the ssm, hybrid and encdec families train on ranks (the launcher's
+    lines), ``group_rms_norm`` has its backward, ``--elastic`` trains on
+    ranks and the pipelined ranks take Adafactor."""
     message = refuse()
     assert all(item in message for item in items), message
 
