@@ -60,7 +60,9 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    one profiled run; the unrolled, dense-scan and union-cover lowerings
    bit for bit; then the same three programs with one process per shard
    (``phase_ranks``, ``repro_torch.dist.ranks``; the processes share the
-   card and exchange through gloo over pinned host buffers):
+   card and exchange through the device transport, the ranks' mailboxes
+   of device memory mapped by CUDA IPC, then once more through gloo over
+   pinned host buffers, every block bit for bit the device run's):
    cholesky-16k-r4 (4 ranks, the union-cover plan once and the unrolled
    lowering after a warm-up, each rank's L blocks against the one-device
    run of the same lowering and the residual), gemm2d-8k-r4 (4 ranks, C
@@ -143,8 +145,8 @@ nothing of JAX or of the JAX package ``repro``. Phases:
    argument bytes of the train cell on one card against the step's
    measured peak; then the same mesh's pipe and data axes as rank
    processes that share the card (``phase_pipeline_ranks``,
-   ``make_pipeline_mesh(..., group=)``, gloo over pinned host
-   buffers): starcoder2-3b-pipe2-r2, full width and depth on 2 stage
+   ``make_pipeline_mesh(..., group=)``, the device transport):
+   starcoder2-3b-pipe2-r2, full width and depth on 2 stage
    ranks that each draw the whole model from seed 0 and keep their
    stage: the forward under no_grad bit for bit the logical one, 60 B2
    launches per rank each held to ``mha_ref`` on its operands; 1 warm-up
@@ -314,8 +316,8 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.attention_chain import (chain_blocks,  # noqa: E402
                                          chain_bodies, chain_graph,
                                          chain_rank)
-from repro_torch.dist.ranks import (owned_blocks, run_jobs,  # noqa: E402
-                                    spawn_ranks)
+from repro_torch.dist.ranks import (MAILBOX_BYTES, owned_blocks,  # noqa: E402,E501
+                                    run_jobs, spawn_ranks)
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -525,7 +527,7 @@ def sass_counts(name: str, opcodes) -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build("block_gemm", "flash_attention", "ssd_scan",
-                         "decode_attention")
+                         "decode_attention", "mailbox")
     log(f"[build] nvcc {built or 'nothing to build'}; "
         f"{time.perf_counter() - t0:.2f} s in all")
     # B2's bf16 path must run on the tensor cores (wgmma is HGMMA in SASS)
@@ -1570,6 +1572,36 @@ RANK_CELLS = {"block_gemm": ("cholesky-16k-r4", "gemm2d-8k-r4"),
 RANK_CHOL_TOL = HOST_TOL
 
 
+# what a transport's exchange ms count: the device transport times the
+# exchange's own work on the rank's stream, gloo the host's issue and wait
+EXCHANGE_CLOCK = {"device": "CUDA events on the rank's stream",
+                  "gloo": "host clock after the stream drained"}
+
+
+def transport_of(runs) -> str:
+    """``runs``' transport as a phrase: its name and mailbox size."""
+    name = runs[0]["transport"]
+    if name == "device":
+        return (f"device transport (mailboxes of "
+                f"{runs[0]['mailbox_bytes'] / 2 ** 20:.0f} MiB a rank)")
+    return "gloo over pinned host buffers"
+
+
+def check_transport(tag: str, runs, want: str = "device") -> None:
+    """Every rank of a cell ran on transport ``want``; on the device
+    transport nothing was staged through the host and every mailbox is
+    MAILBOX_BYTES."""
+    staged = [r["staged_bytes"] for r in runs]
+    log(f"[transport] {tag}: {transport_of(runs)}; bytes staged through "
+        f"the host per rank {staged}")
+    check(all(r["transport"] == want for r in runs),
+          f"{tag}: transports {[r['transport'] for r in runs]}, not {want}")
+    if want == "device":
+        check(not any(staged) and all(r["mailbox_bytes"] == MAILBOX_BYTES
+                                      for r in runs),
+              f"{tag}: staged {staged} on the device transport")
+
+
 def rank_blocks(prog, results, run: int, dev) -> dict:
     """{block: tensor on ``dev``} of the owned blocks the ranks returned
     from their ``run``-th run."""
@@ -1578,7 +1610,7 @@ def rank_blocks(prog, results, run: int, dev) -> dict:
 
 
 def rank_report(tag, prog, results, run: int, one_ms: float, wire: dict,
-                kernel: str, types) -> dict:
+                kernel: str, types, transport: str = "device") -> dict:
     """Print one ranked run (wall time on the slowest rank beside the
     one-device time; per rank exchange and body ms, the kernel's launches
     against the rank's body calls of ``types``, bytes sent per peer) and
@@ -1589,8 +1621,10 @@ def rank_report(tag, prog, results, run: int, one_ms: float, wire: dict,
     bb = wire["block_bytes"]
     wall = max(r["wall_ms"] for r in runs)
     log(f"[ranks] {tag} {runs[0]['name']} ({runs[0]['mode']}) on "
-        f"{len(runs)} processes: {wall:.1f} ms (host clock between "
-        f"barriers, slowest rank); one device: {one_ms:.1f} ms; {card()}")
+        f"{len(runs)} processes, {transport_of(runs)}: {wall:.1f} ms (host "
+        f"clock between barriers, slowest rank); one device: "
+        f"{one_ms:.1f} ms; {card()}")
+    check_transport(tag, runs, transport)
     launches = []
     for r in runs:
         calls = sum(r["calls"].get(t, 0) for t in types)
@@ -1598,7 +1632,8 @@ def rank_report(tag, prog, results, run: int, one_ms: float, wire: dict,
         launches.append(n)
         log(f"[ranks]   rank {r['rank']}: exchange {r['exchange_ms']:.1f} "
             f"ms ({r['exchange_ms'] / r['wall_ms']:.1%} of its wall; "
-            f"{r['stage_ms']:.1f} ms of it copying to pinned memory), "
+            f"{r['stage_ms']:.1f} ms of it copying to pinned memory; "
+            f"{EXCHANGE_CLOCK[r['transport']]}), "
             f"bodies {r['body_ms']:.1f} ms, {kernel} launches {n} = "
             f"{'+'.join(types)} calls {calls}; bytes sent per peer "
             f"{r['sent_bytes']} ({r['sent_msgs']} messages), staged "
@@ -1614,7 +1649,7 @@ def rank_report(tag, prog, results, run: int, one_ms: float, wire: dict,
         f"{wire['total_wire_bytes']} ({wire['real_bytes']} real, "
         f"efficiency {wire['wire_efficiency']:.3f}); {own} of them from "
         f"ranks to themselves (a dense exchange's own row, which "
-        f"comm_stats counts as wire; gloo copies it within the process)")
+        f"comm_stats counts as wire; it is copied within the process)")
     check(sent == wire["total_wire_bytes"],
           f"{tag}: {sent} bytes sent != comm_stats "
           f"{wire['total_wire_bytes']}")
@@ -1626,11 +1661,14 @@ def phase_ranks(dev, chol: dict, gemm: dict, chain: dict, nb=32, b=512,
     """The block executor with one process per shard (``dist.ranks``):
     cholesky-16k-r4 and gemm2d-8k-r4 in one world of 4 rank processes,
     attn-chain-4k-r2 in one of 2, all on the one card, exchanging through
-    gloo over pinned host buffers. Each is held against the one-device
-    phase's result of the same program: Cholesky's L blocks within
-    RANK_CHOL_TOL of the same lowering's (and its residual), GEMM's C and
-    the chain's blocks bit for bit. Returns each cell's per-rank kernel
-    launches (Cholesky's in its unrolled run)."""
+    the device transport (the ranks' mailboxes), then the same worlds
+    again on gloo over pinned host buffers. Each run is held against the
+    one-device phase's result of the same program: Cholesky's L blocks
+    within RANK_CHOL_TOL of the same lowering's (and its residual), GEMM's
+    C and the chain's blocks bit for bit; and every block the device
+    transport's ranks returned bit for bit the gloo run's (the exchanges
+    are copies). Returns each cell's per-rank kernel launches on the
+    device transport (Cholesky's in its unrolled run)."""
     t0 = time.perf_counter()
     chol_prog = cholesky_program(nb, 2, 2, b)
     gemm_prog = gemm_2d_program(gemm_nb, 2, 2, gemm_b, staged=True)
@@ -1639,63 +1677,108 @@ def phase_ranks(dev, chol: dict, gemm: dict, chain: dict, nb=32, b=512,
                  {"name": "unrolled", "scan": False, "comm": "auto",
                   "overlap": True, "warmup": 1}]
     once = [{"name": "auto", "auto": True, "warmup": 1}]
-    world4 = spawn_ranks(run_jobs, 4, [
-        (cholesky_rank, (nb, 2, 2, b, chol_runs),
-         {"kernel": True, "on_device": True, "keep": ("L",)}),
-        (gemm_rank, (gemm_nb, gemm_b, once),
-         {"staged": True, "seed": 1, "kernel": True, "on_device": True,
-          "keep": ("C",)})], device=dev, timeout=600)
-    world2 = spawn_ranks(chain_rank, 2, depth, seq, dim, once, device=dev,
-                         timeout=300, keep=("x",))
-    log(f"[ranks] two worlds spawned and run: "
-        f"{time.perf_counter() - t0:.1f} s")
-    chol_res = [res[0] for res in world4]
-    gemm_res = [res[1] for res in world4]
+    got = {}
+    for transport in ("device", "gloo"):
+        t1 = time.perf_counter()
+        world4 = spawn_ranks(run_jobs, 4, [
+            (cholesky_rank, (nb, 2, 2, b, chol_runs),
+             {"kernel": True, "on_device": True, "keep": ("L",)}),
+            (gemm_rank, (gemm_nb, gemm_b, once),
+             {"staged": True, "seed": 1, "kernel": True, "on_device": True,
+              "keep": ("C",)})], device=dev, timeout=600,
+            transport=transport)
+        world2 = spawn_ranks(chain_rank, 2, depth, seq, dim, once,
+                             device=dev, timeout=300, keep=("x",),
+                             transport=transport)
+        log(f"[ranks] two worlds on the {transport} transport spawned and "
+            f"run: {time.perf_counter() - t1:.1f} s")
+        got[transport] = {"cholesky-16k-r4": [res[0] for res in world4],
+                          "gemm2d-8k-r4": [res[1] for res in world4],
+                          "attn-chain-4k-r2": world2}
+        del world4, world2
 
-    launches = {}
+    launches, walls = {}, {}
     _, a = make_spd_blocks(nb, b, seed=0, device=dev)
     wires = (chol_prog.comm_stats(comm="auto", segmented=True,
                                   cover="union"),
              chol_prog.comm_stats(comm="auto"))
-    for run, (want, one_ms, wire) in enumerate(
-            ((chol["L"], chol["ms"], wires[0]),
-             (chol["L_unrolled"], chol["unrolled_ms"], wires[1]))):
-        launches["cholesky-16k-r4"] = rank_report(
-            "cholesky-16k-r4", chol_prog, chol_res, run, one_ms, wire,
-            "block_gemm", ("syrk", "gemm"))
-        L = assemble_lower(rank_blocks(chol_prog, chol_res, run, dev), nb, b)
-        err = block_err(L, want, b)
-        resid = float(torch.linalg.vector_norm(torch.matmul(L, L.mT) - a)
-                      / torch.linalg.vector_norm(a))
-        log(f"[ranks]   L against the one-device {chol_res[0][run]['name']}"
-            f" run, per block: {err:.3e} (tol {RANK_CHOL_TOL:.0e}); "
-            f"||L L^T - A||_F / ||A||_F = {resid:.3e} (limit "
-            f"{CHOL_RESID_TOL:.0e})")
-        check(err <= RANK_CHOL_TOL, f"ranked Cholesky vs one device: {err}")
-        check(resid <= CHOL_RESID_TOL, f"ranked Cholesky residual {resid}")
-        del L
+    for transport, res in got.items():
+        chol_res = res["cholesky-16k-r4"]
+        for run, (want, one_ms, wire) in enumerate(
+                ((chol["L"], chol["ms"], wires[0]),
+                 (chol["L_unrolled"], chol["unrolled_ms"], wires[1]))):
+            n = rank_report("cholesky-16k-r4", chol_prog, chol_res, run,
+                            one_ms, wire, "block_gemm", ("syrk", "gemm"),
+                            transport)
+            if transport == "device":
+                launches["cholesky-16k-r4"] = n
+            L = assemble_lower(rank_blocks(chol_prog, chol_res, run, dev), nb,
+                               b)
+            err = block_err(L, want, b)
+            resid = float(torch.linalg.vector_norm(torch.matmul(L, L.mT) - a)
+                          / torch.linalg.vector_norm(a))
+            log(f"[ranks]   L against the one-device "
+                f"{chol_res[0][run]['name']} run, per block: {err:.3e} (tol "
+                f"{RANK_CHOL_TOL:.0e}); ||L L^T - A||_F / ||A||_F = "
+                f"{resid:.3e} (limit {CHOL_RESID_TOL:.0e})")
+            check(err <= RANK_CHOL_TOL,
+                  f"ranked Cholesky vs one device: {err}")
+            check(resid <= CHOL_RESID_TOL, f"ranked Cholesky residual {resid}")
+            del L
+
+        gemm_res = res["gemm2d-8k-r4"]
+        n = rank_report("gemm2d-8k-r4", gemm_prog, gemm_res, 0, gemm["ms"],
+                        gemm_prog.comm_stats(comm="auto"), "block_gemm",
+                        ("gemm",), transport)
+        if transport == "device":
+            launches["gemm2d-8k-r4"] = n
+        C = assemble(rank_blocks(gemm_prog, gemm_res, 0, dev), "C", gemm_nb,
+                     gemm_b)
+        check(torch.equal(C, gemm["C"]), "ranked GEMM differs from one device")
+        log("[ranks]   C bit for bit the one-device run's")
+        del C
+
+        world2 = res["attn-chain-4k-r2"]
+        n = rank_report("attn-chain-4k-r2", chain_prog, world2, 0,
+                        chain["ms"], chain_prog.comm_stats(comm="auto"),
+                        "flash_attention", ("attn",), transport)
+        if transport == "device":
+            launches["attn-chain-4k-r2"] = n
+        blocks = rank_blocks(chain_prog, world2, 0, dev)
+        check(set(blocks) == {("x", l) for l in range(depth + 1)},
+              "ranked chain: blocks missing")
+        check(all(torch.equal(blocks[blk], chain["x"][blk])
+                  for blk in blocks), "ranked chain differs from one device")
+        log("[ranks]   every block bit for bit the one-device run's")
     del a
 
-    launches["gemm2d-8k-r4"] = rank_report(
-        "gemm2d-8k-r4", gemm_prog, gemm_res, 0, gemm["ms"],
-        gemm_prog.comm_stats(comm="auto"), "block_gemm", ("gemm",))
-    C = assemble(rank_blocks(gemm_prog, gemm_res, 0, dev), "C", gemm_nb,
-                 gemm_b)
-    check(torch.equal(C, gemm["C"]), "ranked GEMM differs from one device")
-    log("[ranks]   C bit for bit the one-device run's")
-    del C
-
-    launches["attn-chain-4k-r2"] = rank_report(
-        "attn-chain-4k-r2", chain_prog, world2, 0, chain["ms"],
-        chain_prog.comm_stats(comm="auto"), "flash_attention", ("attn",))
-    got = rank_blocks(chain_prog, world2, 0, dev)
-    check(set(got) == {("x", l) for l in range(depth + 1)},
-          "ranked chain: blocks missing")
-    check(all(torch.equal(got[blk], chain["x"][blk]) for blk in got),
-          "ranked chain differs from one device")
-    log("[ranks]   every block bit for bit the one-device run's")
+    # the device transport against gloo: the same blocks, bit for bit; per
+    # cell and run the wall, the largest exchange share, bytes per peer
+    for cell, dev_res in got["device"].items():
+        for run in range(len(dev_res[0])):
+            mine = [r[run] for r in dev_res]
+            theirs = [r[run] for r in got["gloo"][cell]]
+            same = all(torch.equal(x["row"], y["row"])
+                       for x, y in zip(mine, theirs))
+            line = {t: (max(r["wall_ms"] for r in rs),
+                        max(r["exchange_ms"] / r["wall_ms"] for r in rs))
+                    for t, rs in (("device", mine), ("gloo", theirs))}
+            log(f"[ranks] {cell} {mine[0]['name']}: device transport "
+                f"{line['device'][0]:.1f} ms (exchange up to "
+                f"{line['device'][1]:.1%} of a rank's wall), gloo "
+                f"{line['gloo'][0]:.1f} ms ({line['gloo'][1]:.1%}); bytes "
+                f"per peer from rank 0 {mine[0]['sent_bytes']}, staged "
+                f"{[r['staged_bytes'] for r in mine]} (gloo "
+                f"{[r['staged_bytes'] for r in theirs]}); mailbox "
+                f"{mine[0]['mailbox_bytes'] / 2 ** 20:.0f} MiB a rank; every "
+                f"block bit for bit the gloo run's: {same} [{card()}]")
+            check(same, f"{cell} {mine[0]['name']}: the device transport's "
+                  "blocks differ from gloo's")
+            walls[f"{cell} {mine[0]['name']}"] = {
+                t: {"wall_ms": w, "exchange_share": x}
+                for t, (w, x) in line.items()}
     log(f"[ranks] phase: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {"launches": launches, "walls": walls}
 
 
 @contextlib.contextmanager
@@ -3413,7 +3496,10 @@ def rank_window(mesh, dev):
 def rank_window_end(mesh, dev, t0: float) -> dict:
     """End a window opened by ``rank_window``: the stream drained and a
     barrier, then this rank's wall, hand-off, all-reduce and busy ms, the
-    bytes it sent per peer by kind and the kernels it launched."""
+    bytes it sent per peer by kind, the kernels it launched, and its
+    transport's name, staged bytes and mailbox size. The exchange ms are
+    the device transport's time on the rank's stream (CUDA events), or
+    gloo's host time after the stream drained."""
     torch.cuda.synchronize(dev)
     torch.distributed.barrier()
     net = mesh.transport
@@ -3421,7 +3507,9 @@ def rank_window_end(mesh, dev, t0: float) -> dict:
             "handoff_ms": net.ms["p2p"], "reduce_ms": net.ms["reduce"],
             "busy_ms": net.busy_ms(),
             "bytes": {k: list(v) for k, v in net.bytes.items()},
-            "launches": launches_now()}
+            "launches": launches_now(), "transport": net.name,
+            "staged_bytes": net.staged_bytes,
+            "mailbox_bytes": getattr(net, "mailbox_bytes", 0)}
 
 
 def ranked_forward(cfg, params, tokens, mesh, n_micro: int, dev) -> dict:
@@ -3580,6 +3668,7 @@ def rank_cell_report(tag: str, runs, logical: dict, bytes_kind: str,
     ``logical["bits"]``), and the bytes each rank sent its peers of kind
     ``bytes_kind`` in a step equal to ``want_bytes(run)`` (a list)."""
     wall = max(r["wall_ms"] for r in runs) / runs[0]["steps"]
+    check_transport(tag, runs)
     log(f"[pipeline ranks] {tag}: {wall:.1f} ms a step (host clock between "
         f"barriers, slowest rank, {runs[0]['steps']} steps), "
         f"{logical['tokens'] / wall * 1e3:.0f} tok/s; the logical step in "
@@ -3683,7 +3772,7 @@ def phase_pipeline_ranks(dev, pipe: dict, n_micro=4, batch=4, seq=2048,
     """The pipelined mesh's pipe and data axes as rank processes that
     share the card (``make_pipeline_train_step`` on a
     ``make_pipeline_mesh(..., group=)``; hand-offs and all-reduces through
-    gloo over pinned host buffers).
+    the device transport's mailboxes).
     starcoder2-3b-pipe2-r2: full width and depth on 2 stage ranks, each
     drawing the whole model from seed 0 and keeping its stage; (a) the
     pipelined forward under no_grad on ``phase_pipeline``'s first batch:
@@ -4660,9 +4749,11 @@ def tp_stream_report(name: str, cfg, runs, want: dict, failed: list
 
 
 def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
-              steps: int, gate_batch: int, opts: dict) -> dict:
+              steps: int, gate_batch: int, opts: dict, twin: bool = False
+              ) -> dict:
     """Hold a ranked cell's per-rank counts, bytes and logits and print
-    its numbers; returns its launches per rank."""
+    its numbers (``twin``: the cell's run on gloo, held to every gate but
+    the transport's); returns its launches per rank."""
     model = max(r["coords"]["model"] for r in runs) + 1
     data = len(runs) // model
     rows = batch // data
@@ -4675,6 +4766,9 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
     pre_gather = pre_head[1]
     dec_reduce = steps * (tp_reduces(cfg, rows, 0, model) + dec_head[0])
     dec_gather = steps * dec_head[1]
+    for window in ("prefill_window", "decode_window"):
+        check_transport(f"{name} {window[:-7]}", [r[window] for r in runs],
+                        runs[0][window]["transport"] if twin else "device")
     for r in runs:
         pw, dw = r["prefill_window"], r["decode_window"]
         b2 = [e for e in r["errs"] if e[0] == "B2"]
@@ -4842,10 +4936,10 @@ def tp_report(name: str, cfg, runs, want: dict, prompt: int, batch: int,
 
 
 def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=8, gate_batch=2,
-                       cells=TP_CELLS) -> dict:
+                       cells=TP_CELLS, twin="yi-6b-d16-tp2-r2") -> dict:
     """The model axis as rank processes that share the card
     (``make_dev_mesh(n, model=, group=)``, ``dist.tensor_parallel``;
-    all-reduces and gathers through gloo over pinned host buffers): each
+    all-reduces and gathers through the device transport): each
     cell's arch at full width (cut in depth where the cell says), bf16
     compute, on its (data, model) mesh of rank processes, each drawing
     only its shard of the seed-0 weights. Per cell, first its yardstick on
@@ -4877,10 +4971,13 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=8, gate_batch=2,
     bf16 calls on the yardstick's Mamba-2 mixer inputs or encoder block
     outputs (``tp_stream_report``), and hold each rank's conv and SSM
     states after the f32 step to the yardstick's slices
-    (``tp_state_report``)."""
+    (``tp_state_report``). The worlds exchange through the device
+    transport; the ``twin`` cell runs once more in a world of its own on
+    gloo, is held to the same gates, and its tokens (every prefill's and
+    step's greedy argmax) must equal the device transport's."""
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="stream-")
-    wants, worlds, runs = {}, {}, {}
+    wants, worlds, runs, twins = {}, {}, {}, {}
     try:
         for cell in cells:
             name, arch, layers, (data, model), s_max, opts = cell
@@ -4933,6 +5030,16 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=8, gate_batch=2,
                 f"ranks: {wall:.1f} s, of which the cells {busy:.1f} s "
                 f"(slowest rank each) and the world's start and end "
                 f"{wall - busy:.1f} s")
+        for world, jobs in worlds.items():
+            for cell, job in jobs:
+                if cell[0] != twin:
+                    continue
+                t0 = time.perf_counter()
+                twins[twin] = [r[0] for r in spawn_ranks(
+                    run_jobs, world, [job], device=dev, timeout=900,
+                    transport="gloo")]
+                log(f"[tensor ranks] {twin} once more on gloo, a world of "
+                    f"{world} ranks: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {}
@@ -4941,11 +5048,49 @@ def phase_tensor_ranks(dev, prompt=2048, batch=8, steps=8, gate_batch=2,
         out[name] = tp_report(name, tp_config(arch, layers), runs[name],
                               wants[name], prompt, batch, steps, gate_batch,
                               cell[5])
+        if name in twins:
+            tp_twin_report(name, tp_config(arch, layers), runs[name],
+                           twins.pop(name), wants[name], prompt, batch,
+                           steps, gate_batch, cell[5])
         log(f"[tensor ranks] {name}: the slowest rank's cell "
             f"{max(r['job_s'] for r in runs[name]):.1f} s")
         del runs[name], wants[name]
     log(f"[tensor ranks] phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def tp_twin_report(name: str, cfg, runs, gloo, want: dict, prompt: int,
+                   batch: int, steps: int, gate_batch: int, opts: dict
+                   ) -> None:
+    """Hold a cell's gloo run to the cell's gates, and its tokens (the
+    greedy argmax of every rank's gathered prefill and step logits) to the
+    device transport's run; print both runs' walls and all-reduce shares
+    and whether the logits agree bit for bit (two members' f32 sum is a +
+    b on either transport)."""
+    tp_report(f"{name} on gloo", cfg, gloo, want, prompt, batch, steps,
+              gate_batch, opts, twin=True)
+    same_tokens = all(
+        torch.equal(a[key].argmax(-1), b[key].argmax(-1))
+        for a, b in zip(runs, gloo) for key in ("prefill", "steps"))
+    diff = max(float((a[key] - b[key]).abs().max())
+               for a, b in zip(runs, gloo) for key in ("prefill", "steps"))
+    for label, rs in (("device", runs), ("gloo", gloo)):
+        pw = max(rs, key=lambda r: r["prefill_window"]["wall_ms"])
+        dw = max(rs, key=lambda r: r["decode_window"]["wall_ms"])
+        pre, dec = pw["prefill_window"], dw["decode_window"]
+        log(f"[tensor ranks] {name} on the {label} transport: prefill "
+            f"{pre['wall_ms']:.1f} ms (all-reduce "
+            f"{pre['reduce_ms'] / pre['wall_ms']:.1%} of the slowest "
+            f"rank's wall), decode {dec['wall_ms'] / steps:.2f} ms a step "
+            f"(all-reduce {dec['reduce_ms'] / dec['wall_ms']:.1%}); "
+            f"all-reduce bytes a step to each rank "
+            f"{[b // steps for b in dec['bytes']['reduce']]}; staged "
+            f"{[r['decode_window']['staged_bytes'] for r in rs]}; mailbox "
+            f"{dec['mailbox_bytes'] / 2 ** 20:.0f} MiB [{card()}]")
+    log(f"[tensor ranks] {name}: tokens on the device transport equal "
+        f"gloo's: {same_tokens}; logits max |device - gloo| {diff:.3e}")
+    check(same_tokens, f"{name}: tokens differ between the device "
+          "transport and gloo")
 
 
 # ------------------------------------- training on a model axis of ranks
@@ -5266,8 +5411,13 @@ def tp_bf16_gate(cfg, mesh, grads, before, params, held: dict,
             gi, wi = g[part], w[part]
             diff = (gi.float() - wi.float()).abs()
             worst = max(worst, float(diff.max()))
-            out["grad_over"] += int((diff > torch.clamp(
-                bf16_ulp(wi), min=TP_GRAD_TOL * top)).sum())
+            over = diff > torch.clamp(bf16_ulp(wi), min=TP_GRAD_TOL * top)
+            out["grad_over"] += int(over.sum())
+            for j in over.nonzero()[:4].tolist():     # the first few, shown
+                at = (i + j[0], *j[1:]) if p.dim() else ()
+                out.setdefault("over_at", []).append(
+                    (name, at, float(wi[tuple(j)]), float(gi[tuple(j)]),
+                     float(bf16_ulp(wi[tuple(j)])), TP_GRAD_TOL * top))
             same = gi == wi
             out["grad_flips"] += int((~same).sum())
             wp = want[part]
@@ -5531,7 +5681,7 @@ def phase_train_ranks(dev, cells=TRAIN_TP_CELLS, seq=2048, lr=3e-4) -> dict:
     """Training with a model axis on rank processes that share the card
     (``make_train_step(cfg, mesh=)`` on ``make_dev_mesh(n, model,
     group=)``; ``dist.tensor_parallel``'s collectives with their backward,
-    through gloo over pinned host buffers). Each cell trains its arch at
+    through the device transport). Each cell trains its arch at
     full width (cut in depth where the cell says) with its own parameter
     dtype and optimizer (starcoder2-3b, zamba2-1.2b, seamless-m4t-large-v2:
     f32 and AdamW; grok-1-314b and deepseek-v3-671b: bf16 and Adafactor),
@@ -5641,6 +5791,7 @@ def tp_train_report(name: str, cfg, cell, runs, one: dict, seq: int
     seq, frames = opts.get("seq", seq), opts.get("frames", 0)
     tokens = data * rows * seq
     wall = max(r["wall_ms"] for r in runs) / steps
+    check_transport(name, runs)
     log(f"[train ranks] {name}: {wall:.1f} ms a step (host clock between "
         f"barriers, slowest rank, {steps} steps after {warmup}), "
         f"{tokens / wall * 1e3:.0f} tok/s; one process {one['ms']:.1f} ms, "
@@ -5832,6 +5983,8 @@ def phase_elastic_ranks(dev, layers=2, rows=1, seq=2048, steps=5, every=2,
     launches = [[r["launches"] for r in w["ranks"]] for w in worlds]
     check(not any(n for w in launches for r in w for n in r.values()),
           f"{ELASTIC_CELL}: kernels launched in a train step: {launches}")
+    for i, w in enumerate(worlds):
+        check_transport(f"{ELASTIC_CELL} world {i}", w["ranks"])
     for i, w in enumerate(worlds):
         spawn = max(r["t_start"] for r in w["ranks"]) - w["t_spawn"]
         ms = [round(max(r["steps"][s]["ms"] for r in w["ranks"]), 1)
@@ -6108,7 +6261,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     chain = timed(phase_attention_chain, dev)
     torch.cuda.empty_cache()
-    ranks = timed(phase_ranks, dev, chol, gemm, chain)
+    ranks = timed(phase_ranks, dev, chol, gemm, chain)["launches"]
     for phase in (chol, gemm, chain):
         for key in ("L", "L_unrolled", "C", "x"):
             phase.pop(key, None)

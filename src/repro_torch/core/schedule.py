@@ -33,9 +33,11 @@ exchange becomes an on-device index copy:
 Over a process group (``group=``, one rank per shard, the counterpart of
 the JAX package's ``shard_map`` over a mesh axis) each rank holds its own
 row ``[1, n_slots, b0, b1]`` and walks its own row of every table; each
-exchange goes through :class:`repro_torch.dist.ranks.HostTransport`:
-``all_to_all_single`` for a dense exchange, one ``batch_isend_irecv`` per
-sparse round (a rank outside the round makes no call).
+exchange goes through the world's transport (``dist.ranks``): a dense
+exchange sends row p to rank p, a sparse round at most one message each
+way (a rank outside the round makes no call), as copies between the
+ranks' device mailboxes (``DeviceTransport``) or as gloo's
+``all_to_all_single`` and ``batch_isend_irecv`` (``HostTransport``).
 
 Every buffer of a wavefront is gathered before any of them lands, and the
 scan lowerings walk the same stacked, padded tables as the JAX package's
@@ -1064,7 +1066,9 @@ class RankExecutor(BlockExecutor):
     (``BlockProgram.pack_shard``) and every table is the rank's row of the
     shard-major one, so :meth:`compute` and :meth:`land` are the
     one-device ones with one row. Only the exchange differs: it goes
-    through ``transport`` (:class:`repro_torch.dist.ranks.HostTransport`),
+    through ``transport``, the world's (``dist.ranks.block_transport``:
+    :class:`repro_torch.dist.ranks.DeviceTransport` in a world on the
+    device transport, else :class:`repro_torch.dist.ranks.HostTransport`),
     which counts what it sends to each peer and the time it takes.
     ``body_ms`` is the time of the rank's compute (CUDA events on the card,
     the host clock on the CPU) since :meth:`reset`.
@@ -1073,11 +1077,11 @@ class RankExecutor(BlockExecutor):
     def __init__(self, prog: BlockProgram,
                  bodies: Dict[str, Callable[..., torch.Tensor]],
                  device: torch.device, group):
-        from repro_torch.dist.ranks import HostTransport
+        from repro_torch.dist.ranks import block_transport
 
         n = prog.spec.n_shards
-        transport = HostTransport(group, device, prog.spec.block_shape,
-                                  prog.spec.dtype)
+        transport = block_transport(group, device, prog.spec.block_shape,
+                                    prog.spec.dtype)
         if transport.world != n:
             raise ValueError(f"process group of {transport.world} ranks != "
                              f"{n} shards")

@@ -32,8 +32,10 @@ ordinary model code) to a mesh — a logical one on the port's one device
 - :mod:`repro_torch.dist.ranks` — the block executor on real ranks: one
   spawned process per shard in a ``torch.distributed`` group
   (``spawn_ranks``), each running its own shard
-  (``BlockProgram.executor(..., group=)``), the exchanges gloo
-  collectives staged through host memory (``HostTransport``); and the
-  model path's tensors between the ranks of a mesh (``TensorTransport``:
-  sends, f32 all-reduces, broadcasts).
+  (``BlockProgram.executor(..., group=)``), the exchanges copies between
+  the ranks' device mailboxes (``DeviceTransport``; or gloo collectives
+  staged through host memory, ``HostTransport``); and the model path's
+  tensors between the ranks of a mesh (``DeviceTensorTransport`` or
+  ``TensorTransport``: sends, f32 all-reduces, all-gathers,
+  broadcasts).
 """

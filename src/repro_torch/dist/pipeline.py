@@ -23,12 +23,14 @@ references, so the gradient pipeline is the forward trapezoid mirrored.
 On a mesh of ranks (``launch.mesh.Mesh(..., group=)``: one process per
 mesh coordinate) each rank runs only its own stage's tasks, in the same
 wavefront order, and each hand-off is a send from the stage the
-wavefront's permutation round names to its pair, staged through host
-memory by the mesh's ``TensorTransport``. The hand-off is an autograd
-``Function``: its forward sends (or receives) the activation, its
-backward sends the activation's gradient back over the same pair,
-reversed. A stage's forward sends are asynchronous and complete before
-``pipeline_apply`` returns; its backward receives block. So the gradient
+wavefront's permutation round names to its pair, through the mesh's
+transport (a device mailbox, or gloo staged through host memory). The
+hand-off is an autograd ``Function``: its forward sends (or receives) the
+activation, its backward sends the activation's gradient back over the
+same pair, reversed. A stage's forward sends are asynchronous and
+complete before ``pipeline_apply`` returns (on the device transport a
+send waits only for room in the stage's mailbox, which its reader frees
+in order); its backward receives block. So the gradient
 pipeline is GPipe's (all forwards, then all backwards), and no rank can
 wait on a peer that waits on it: in the forward a stage waits only on the
 one before it, in the backward only on the one after it, and a stage

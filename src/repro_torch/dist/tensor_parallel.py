@@ -63,7 +63,7 @@ one-process product), so the one-process and logical-mesh paths are bit
 for bit what they were. The model code takes its head, expert and Mamba-2
 sizes from the local weights' shapes.
 
-Rounding. ``TensorTransport.all_reduce`` sums in f32 only. The
+Rounding. The transports' ``all_reduce`` sums in f32 only. The
 one-process bf16 product sums all of its terms in the matmul's f32
 accumulator and rounds once to bf16. A rank's partial over its slice of
 the contraction, rounded to bf16 before the sum, would round once more

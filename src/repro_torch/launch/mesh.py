@@ -13,8 +13,9 @@ rows (``dist.ctx.data_rows``), the decode cache's head count
 ``torch.distributed`` group, one process per mesh coordinate, as
 ``jax.sharding.Mesh(np.array(devs).reshape(shape), names)`` places
 devices: rank r sits at r's row-major position over ``axis_names``. Each rank knows its ``coords``, the process group of its
-line along each axis (``groups``, ``line``) and a ``TensorTransport``
-over the whole group. Every axis runs on ranks: the pipe and data axes
+line along each axis (``groups``, ``line``) and the world's transport
+(``DeviceTensorTransport`` or gloo's ``TensorTransport``) over the whole
+group. Every axis runs on ranks: the pipe and data axes
 for the pipelined trainer, the data and model axes for tensor-parallel
 serving and training of every family (``dist.tensor_parallel``: each
 rank holds its shard of the weights, of the optimizer state and of the
@@ -53,7 +54,9 @@ class Mesh:
     along its line of ``axis`` (in coordinate order) and ``groups[axis]``
     that line's process group, made by one ``dist.new_group`` per line of
     every axis, in the same order on every rank (gloo hangs otherwise);
-    ``transport`` carries the model path's exchanges. Raises
+    ``transport`` carries the model path's exchanges: the world's
+    (``dist.ranks.tensor_transport``: through the ranks' device mailboxes
+    in a world on the device transport, else gloo). Raises
     ``ValueError`` before any collective when the mesh's size is not the
     world's."""
 
@@ -75,7 +78,7 @@ class Mesh:
             self._lay_on(group)
 
     def _lay_on(self, group) -> None:
-        from ..dist.ranks import TensorTransport
+        from ..dist.ranks import tensor_transport
 
         world = dist.get_world_size(group)
         if self.size != world or world != dist.get_world_size():
@@ -94,7 +97,7 @@ class Mesh:
                 pg = dist.new_group(ranks)
                 if rank in line:
                     self.line[name], self.groups[name] = ranks, pg
-        self.transport = TensorTransport(self.device)
+        self.transport = tensor_transport(self.device)
 
     def rank_of(self, **coords: int) -> int:
         """The global rank at ``coords`` (this rank's own on the axes left

@@ -31,20 +31,22 @@ draws only its tensor-parallel shard of the weights
 cache (its rows of the batch over ``"data"``, its KV heads, SSM heads and
 their conv channels over ``"model"``); the row-parallel products,
 Mamba-2's gated norm, the embedding and the logits cross the model group
-through gloo. Rank 0 prints. Every family serves on ranks: dense, vlm,
-moe (grok-1-314b's experts, 2 a rank on 4 ranks; deepseek-v3-671b's, 64
-a rank, with MLA's heads split and its latent cache whole on every rank),
-ssm (mamba2-1.3b, 16 of its 64 heads a rank on 4), hybrid (zamba2-1.2b:
-its Mamba-2 heads and the shared block's heads and ring) and encdec
-(seamless-m4t-large-v2 on 2 or 4 ranks, its cross cache the launcher's
-zeros, a rank's KV heads of them). Where the axis does not divide the
-vocabulary (seamless-m4t-large-v2's 256 206 on 4 ranks) the embedding and
-the head split d_model instead. An arch whose heads or widths the model
-axis does not divide exits naming what does not divide, before any rank
-starts. ``--layers N`` keeps the config's first N layers
-at full width (a moe arch's leading dense layers first), so that a moe
-arch fits the card without ``--reduced``: ``--arch grok-1-314b --layers 8
---host-devices 4 --ranks`` holds 14 GB of bf16 weights a rank.
+through the world's transport (``--rank-transport``: ``device``, copies
+between the ranks' device mailboxes, the default on ``cuda``; ``gloo``
+through host memory, the default on the CPU). Rank 0 prints. Every family
+serves on ranks: dense, vlm, moe (grok-1-314b's experts, 2 a rank on 4
+ranks; deepseek-v3-671b's, 64 a rank, with MLA's heads split and its
+latent cache whole on every rank), ssm (mamba2-1.3b, 16 of its 64 heads a
+rank on 4), hybrid (zamba2-1.2b: its Mamba-2 heads and the shared block's
+heads and ring) and encdec (seamless-m4t-large-v2 on 2 or 4 ranks, its
+cross cache the launcher's zeros, a rank's KV heads of them). Where the
+axis does not divide the vocabulary (seamless-m4t-large-v2's 256 206 on 4
+ranks) the embedding and the head split d_model instead. An arch whose
+heads or widths the model axis does not divide exits naming what does not
+divide, before any rank starts. ``--layers N`` keeps the config's first N
+layers at full width (a moe arch's leading dense layers first), so that a
+moe arch fits the card without ``--reduced``: ``--arch grok-1-314b
+--layers 8 --host-devices 4 --ranks`` holds 14 GB of bf16 weights a rank.
 """
 
 import argparse
@@ -67,7 +69,13 @@ def main(argv=None) -> None:
     ap.add_argument("--ranks", action="store_true",
                     help="with --host-devices N: one process per device of "
                          "the ('data', 'model') mesh, tensor-parallel over "
-                         "'model' through torch.distributed (gloo)")
+                         "'model' in a torch.distributed group")
+    ap.add_argument("--rank-transport", default=None,
+                    choices=("device", "gloo"),
+                    help="with --ranks: how the rank processes exchange: "
+                         "copies between device mailboxes (the default on "
+                         "cuda) or gloo through host memory (the default "
+                         "on the CPU)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -105,7 +113,7 @@ def main(argv=None) -> None:
         except ValueError as exc:
             sys.exit(f"--ranks: {exc}")
         spawn_ranks(_rank_main, args.host_devices, args, cfg, device=device,
-                    timeout=_RANK_TIMEOUT)
+                    timeout=_RANK_TIMEOUT, transport=args.rank_transport)
         return
     mesh = (make_dev_mesh(args.host_devices, device=device)
             if args.host_devices else None)

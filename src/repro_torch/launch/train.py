@@ -41,10 +41,13 @@ flags the run has no mesh.
 
 ``--ranks`` runs the mesh's axes as rank processes, as the reference
 runs them as devices (``dist.ranks.spawn_ranks``: they share the card on
-``cuda``, or the CPU). With ``--host-devices N`` it starts N processes
-on the launcher's ("data", "model") mesh, ``make_dev_mesh(N,
-group=)``: (N / model, model), model = min(4, N) (the elastic
-controller's under ``--elastic``). Each rank draws, trains and
+``cuda``, or the CPU, and exchange through ``--rank-transport``:
+``device``, copies between their device mailboxes, the default on
+``cuda``; ``gloo`` through host memory, the default on the CPU; not
+``--transport``, the host runtime's preflight). With ``--host-devices
+N`` it starts N processes on the launcher's ("data", "model") mesh,
+``make_dev_mesh(N, group=)``: (N / model, model), model = min(4, N) (the
+elastic controller's under ``--elastic``). Each rank draws, trains and
 checkpoints only its tensor-parallel shard of the parameters and of the
 optimizer's state, AdamW's or Adafactor's
 (``tensor_parallel.init_shard_params``, ``make_train_step(cfg, mesh=)``,
@@ -143,8 +146,14 @@ def main(argv=None, *, cfg=None, fault=None):
                          "control-plane preflight")
     ap.add_argument("--ranks", action="store_true",
                     help="with --host-devices N or --pipeline: one process "
-                         "per device of the mesh, exchanging through "
-                         "torch.distributed (gloo)")
+                         "per device of the mesh, joined in a "
+                         "torch.distributed group")
+    ap.add_argument("--rank-transport", default=None,
+                    choices=("device", "gloo"),
+                    help="with --ranks: how the rank processes exchange: "
+                         "copies between device mailboxes (the default on "
+                         "cuda) or gloo through host memory (the default "
+                         "on the CPU)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -254,7 +263,8 @@ def _train_ranks(args, cfg, seq, global_batch, n_dev, device, elastic,
             runs = spawn_ranks(_rank_main, n_dev, args, cfg, seq,
                                global_batch, elastic, end,
                                None if worlds else fault, device=device,
-                               timeout=_RANK_TIMEOUT)
+                               timeout=_RANK_TIMEOUT,
+                               transport=args.rank_transport)
         except RankDied as exc:
             if elastic is None:
                 raise
@@ -299,7 +309,8 @@ def _declare(elastic, died, latest):
 def _rank_main(rank, world, args, cfg, seq, global_batch, elastic=None,
                end=None, fault=None, *, device):
     """One rank of a ``--ranks`` run: the step loop on its own place of the
-    mesh; returns its record (``_step_loop``)."""
+    mesh; returns its record (``_step_loop``), with its transport's name,
+    the bytes it staged through the host and its mailbox's size."""
     import torch
     import torch.distributed as dist
 
@@ -310,7 +321,10 @@ def _rank_main(rank, world, args, cfg, seq, global_batch, elastic=None,
                       group=dist.group.WORLD)
     run = _run_epoch(args, cfg, seq, global_batch, device, mesh, elastic,
                      end, fault)
-    return {**run, "t_start": t_start}
+    net = mesh.transport
+    return {**run, "t_start": t_start, "transport": net.name,
+            "staged_bytes": net.staged_bytes,
+            "mailbox_bytes": getattr(net, "mailbox_bytes", 0)}
 
 
 def _pick_mesh(args, cfg, n_dev, shape_override, controller, device,

@@ -35,7 +35,7 @@ the global batch, and the ranks meet in the pipeline's hand-offs and in
 f32 all-reduces (the data group's gradients and mask count, the tied
 embedding's two stages, the gradient norm, Adafactor's statistics that
 average over the layers the stages split) through the mesh's
-``TensorTransport``.
+transport.
 """
 
 from __future__ import annotations

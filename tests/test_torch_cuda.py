@@ -18,8 +18,10 @@ pipeline: B2 launches and bit equality of the pipelined forward, and the
 pipelined loss and gradients on the card against the CPU; the block
 executor on two rank processes that share the card, with B1; and the
 pipelined train step on two stage ranks that share the card, against the
-logical step; and tensor-parallel serving on two rank processes that share
-the card, B2 and B4 on each rank's head shard. They skip with a reason where there is no GPU. This file imports
+logical step, on the device transport and on gloo; tensor-parallel
+serving on two rank processes that share the card, B2 and B4 on each
+rank's head shard; and four rank processes mapping each other's device
+mailboxes. They skip with a reason where there is no GPU. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1393,25 +1395,29 @@ def test_pipelined_loss_and_grads_on_the_card_equal_the_cpu(cuda):
         assert err <= 1e-4, (name, err)
 
 
-def test_ranked_gemm_runs_b1_on_every_rank(cuda):
-    """Two rank processes share the card (gloo over pinned host buffers):
-    a GEMM on a 1 x 2 grid with B1, each rank's launches equal to its gemm
-    calls, its C blocks bit for bit the one-device executor's."""
+@pytest.mark.parametrize("transport", ["device", "gloo"])
+def test_ranked_gemm_runs_b1_on_every_rank(cuda, transport):
+    """Two rank processes share the card (the device transport's mailboxes,
+    or gloo over pinned host buffers): a GEMM on a 1 x 2 grid with B1,
+    each rank's launches equal to its gemm calls, its C blocks bit for bit
+    the one-device executor's; only gloo stages bytes through the host."""
     from repro_torch.dist.ranks import spawn_ranks
     from repro_torch.linalg.gemm import (gemm_2d_program, gemm_executor,
                                          gemm_rank, make_blocks)
 
     nb, b = 4, 64
     per_rank = spawn_ranks(gemm_rank, 2, nb, b, [{"auto": True}],
-                           device="cuda", timeout=300, pr=1, pc=2,
-                           kernel=True, on_device=True, keep=("C",))
+                           device="cuda", timeout=300, transport=transport,
+                           pr=1, pc=2, kernel=True, on_device=True,
+                           keep=("C",))
     prog = gemm_2d_program(nb, 1, 2, b)
     blocks = make_blocks(None, nb, b, device=cuda)
     one = gemm_executor(prog, matmul=task_matmul, device=cuda)(
         prog.pack(blocks, device=cuda))
     for (run,) in per_rank:
         assert run["launches"]["block_gemm"] == run["calls"]["gemm"] > 0
-        assert run["staged_bytes"] > 0
+        assert run["transport"] == transport
+        assert (run["staged_bytes"] > 0) == (transport == "gloo")
         assert len(run["slots"]) == nb * nb // 2
         for slot, blk in zip(run["slots"], run["row"]):
             assert torch.equal(blk, one[run["rank"], slot].cpu())
@@ -1457,20 +1463,21 @@ def _pipelined_cell(device):
     return cfg, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def test_pipelined_step_on_two_stage_ranks(cuda):
+@pytest.mark.parametrize("transport", ["device", "gloo"])
+def test_pipelined_step_on_two_stage_ranks(cuda, transport):
     """The reduced starcoder2-3b's pipelined train step on two stage ranks
-    that share the card (gloo over pinned host buffers): two steps' loss
-    and |g| within 1e-6 and 1e-5 relative of the logical step's on the
-    card, no kernel launched, each stage's 4 hand-offs a step (8 x 64
-    tokens of d_model f32) sent to the other and staged through the
-    host."""
+    that share the card (the device transport's mailboxes, or gloo over
+    pinned host buffers): two steps' loss and |g| within 1e-6 and 1e-5
+    relative of the logical step's on the card, no kernel launched, each
+    stage's 4 hand-offs a step (8 x 64 tokens of d_model f32) sent to the
+    other, and staged through the host on gloo only."""
     from repro_torch.dist.ranks import spawn_ranks
     from repro_torch.launch.mesh import make_pipeline_mesh
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.train_step import make_pipeline_train_step
 
     per_rank = spawn_ranks(pipelined_step_rank, 2, device="cuda",
-                           timeout=600)
+                           timeout=600, transport=transport)
     cfg, batch = _pipelined_cell(cuda)
     params = init_params(cfg, seed=0, device=cuda)
     opt = adamw_init(params)
@@ -1487,7 +1494,10 @@ def test_pipelined_step_on_two_stage_ranks(cuda):
             assert abs(norm - w_norm) <= 1e-5 * w_norm, (r, norm, w_norm)
         assert run["launches"] == 0
         assert run["bytes"] == ([0, handoffs] if r == 0 else [handoffs, 0])
-        assert run["staged"] >= 2 * handoffs
+        if transport == "gloo":
+            assert run["staged"] >= 2 * handoffs
+        else:
+            assert run["staged"] == 0
 
 
 def _tp_cfg():
@@ -1569,3 +1579,52 @@ def test_tensor_parallel_ranks_launch_b2_and_b4_on_their_head_shard(cuda):
         assert torch.equal(run["steps"], runs[0]["steps"])
     for got, w in zip([runs[0]["prefill"], *runs[0]["steps"]], want):
         assert float((got - w).abs().max() / w.abs().max()) <= 2e-2
+
+
+def mailbox_rank(rank, world, *, device):
+    """On a world of 4 that share the card: this rank's and its peers'
+    mailboxes (device pointers, mapped by CUDA IPC), then an f32
+    all-reduce of 40 MiB (in 32 MiB pieces) and a bf16 all-gather through
+    them; what arrived, on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import ranks
+
+    box = ranks._MAILBOX
+    net = ranks.tensor_transport(device)
+    gen = torch.Generator(device=device).manual_seed(rank)
+    x = torch.randn(10 << 20, device=device, generator=gen)
+    y = torch.randn(3, 5, device=device, generator=gen).bfloat16()
+    total = net.all_reduce(x.clone(), dist.group.WORLD)
+    parts = net.all_gather(y, dist.group.WORLD)
+    torch.cuda.synchronize()
+    return {"transport": type(net).__name__,
+            "pointers": [t.data_ptr() for t in box.boxes],
+            "device": [t.device.type for t in box.boxes],
+            "x": x.cpu(), "y": y.cpu(), "total": total.cpu(),
+            "parts": [p.cpu() for p in parts],
+            "staged": net.staged_bytes, "bytes": net.bytes["reduce"]}
+
+
+def test_mailboxes_map_peers_on_the_card(cuda):
+    """Four rank processes on one card map each other's device mailboxes
+    (allocated outside PyTorch's caching allocator, opened by CUDA IPC
+    handle): an f32 all-reduce equals the rank-order tree sum on every
+    rank, bit for bit, and a bf16 all-gather each rank's tensor; nothing
+    staged."""
+    from repro_torch.dist.ranks import MAILBOX_BYTES, spawn_ranks
+
+    runs = spawn_ranks(mailbox_rank, 4, device="cuda", timeout=300)
+    want = ((runs[0]["x"].to(cuda) + runs[1]["x"].to(cuda))
+            + (runs[2]["x"].to(cuda) + runs[3]["x"].to(cuda)))
+    for r, run in enumerate(runs):
+        assert run["transport"] == "DeviceTensorTransport"
+        assert run["device"] == ["cuda"] * 4
+        assert len(set(run["pointers"])) == 4
+        assert torch.equal(run["total"], want.cpu()), r
+        for p, other in zip(run["parts"], runs):
+            assert torch.equal(p, other["y"])
+        assert run["staged"] == 0
+        assert run["bytes"] == [0 if p == r else (10 << 20) * 4
+                                for p in range(4)]
+    assert MAILBOX_BYTES == 256 << 20
